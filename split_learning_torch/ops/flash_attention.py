@@ -1,0 +1,251 @@
+"""Fused blockwise (flash) attention: hand-written CUDA kernels + their
+plain PyTorch versions.
+
+Port of the JAX package's ``ops/flash_attention.py``.  The three Pallas
+TPU kernels become three CUDA C++ kernels for Hopper
+(``csrc/flash_attention.cu``):
+
+* ``flash_fwd`` — online-softmax forward over ``(BH, S, D)``; emits ``o``
+  and the per-row logsumexp ``lse`` of the scaled scores;
+* ``flash_bwd_dkv`` — dK and dV, one block per K tile;
+* ``flash_bwd_dq`` — dQ, one block per Q tile.
+
+``delta = rowsum(dO * O)`` stays a PyTorch pre-pass, as it was an XLA
+pre-pass outside Pallas.  :class:`_Flash` is the ``custom_vjp``: its
+forward launches the forward kernel and saves ``(q, k, v, o, lse)``, its
+backward launches the two backward kernels.
+
+Each wrapper takes its kernel's plain PyTorch version
+(``flash_*_reference``) only because the tensors it was given lie on the
+CPU; for CUDA tensors it launches the kernel or raises.  Each kernel
+launch adds one to its entry in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+#: launches of each CUDA kernel since the last :func:`reset_launches`
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (8, 16, 32, 64, 128)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _scale(d: int) -> float:
+    return 1.0 / math.sqrt(d)
+
+
+# --------------------------------------------------------------------------
+# plain versions (dense PyTorch, float32 compute)
+# --------------------------------------------------------------------------
+
+def _scores(q, k, causal: bool, scale: float) -> torch.Tensor:
+    """Masked scaled scores (BH, S, S) in float32."""
+    s = torch.matmul(q.float() * scale, k.float().transpose(1, 2))
+    if causal:
+        n = q.shape[1]
+        mask = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return s
+
+
+def flash_fwd_reference(q, k, v, causal: bool):
+    """Dense version of the forward kernel: ``(o, lse)``."""
+    s = _scores(q, k, causal, _scale(q.shape[-1]))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, v.float()) / l
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal: bool):
+    scale = _scale(q.shape[-1])
+    # the backward kernels scale the product, not q: (q . k) * scale
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        n = q.shape[1]
+        mask = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = p * (dp - delta[..., None]) * scale
+    return p, ds
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool):
+    """Dense version of the dK/dV kernel: ``(dk, dv)``."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    dv = torch.matmul(p.transpose(1, 2), do.float())
+    dk = torch.matmul(ds.transpose(1, 2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool):
+    """Dense version of the dQ kernel."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+def _library():
+    from split_learning_torch.ops.kernels.build import load
+    lib = load("flash_attention")
+    if not getattr(lib, "_slt_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.slt_flash_fwd.argtypes = [i, p, p, p, p, p, i, i, i, f, i, p]
+        lib.slt_flash_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p,
+                                          i, i, i, f, i, p]
+        lib.slt_flash_bwd_dq.argtypes = [i, p, p, p, p, p, p, p,
+                                         i, i, i, f, i, p]
+        for fn in (lib.slt_flash_fwd, lib.slt_flash_bwd_dkv,
+                   lib.slt_flash_bwd_dq):
+            fn.restype = ctypes.c_int
+        lib._slt_typed = True
+    return lib
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor is on the CPU, False when every tensor is
+    on one CUDA device; anything else raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"flash attention inputs span devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"flash attention has no kernel for {dev}")
+    return False
+
+
+def _check(q, k, v, *more):
+    if q.dim() != 3:
+        raise ValueError(f"expected (BH, S, D) tensors, got {tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash attention kernels take float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    for t in (k, v, *more):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"shape/dtype mismatch: {tuple(t.shape)} "
+                             f"{t.dtype} vs {tuple(q.shape)} {q.dtype}")
+    for t in (q, k, v, *more):
+        if not t.is_contiguous():
+            raise ValueError("flash attention kernels need contiguous "
+                             "tensors")
+
+
+def _check_rows(q, *rows):
+    for r in rows:
+        if (r.shape != q.shape[:2] or r.dtype != torch.float32
+                or not r.is_contiguous()):
+            raise ValueError(f"expected contiguous float32 {tuple(q.shape[:2])}"
+                             f" rows, got {tuple(r.shape)} {r.dtype}")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _stream(t: torch.Tensor):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def flash_fwd(q, k, v, causal: bool):
+    """Forward kernel over (BH, S, D): ``(o, lse)``."""
+    if _on_cpu(q, k, v):
+        return flash_fwd_reference(q, k, v, causal)
+    _check(q, k, v)
+    bh, s, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    err = _library().slt_flash_fwd(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), bh, s, d, _scale(d), int(causal),
+        _stream(q))
+    _raise_on(err, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+    """dK/dV kernel over (BH, S, D): ``(dk, dv)``."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
+    _check(q, k, v, do)
+    _check_rows(q, lse, delta)
+    bh, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _library().slt_flash_bwd_dkv(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, s, d, _scale(d), int(causal), _stream(q))
+    _raise_on(err, "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+    """dQ kernel over (BH, S, D)."""
+    if _on_cpu(q, k, v, do, lse, delta):
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
+    _check(q, k, v, do)
+    _check_rows(q, lse, delta)
+    bh, s, d = q.shape
+    dq = torch.empty_like(q)
+    err = _library().slt_flash_bwd_dq(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        bh, s, d, _scale(d), int(causal), _stream(q))
+    _raise_on(err, "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+class _Flash(torch.autograd.Function):
+    """The ``custom_vjp`` around the kernels, over (BH, S, D)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        # delta = rowsum(dO * O): a cheap elementwise pre-pass
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = False) -> torch.Tensor:
+    """Fused attention over (B, S, H, D) tensors (the JAX layout)."""
+    b, s, h, d = q.shape
+
+    def to_bhsd(t):
+        return t.transpose(1, 2).reshape(b * h, s, d).contiguous()
+
+    out = _Flash.apply(to_bhsd(q), to_bhsd(k), to_bhsd(v), causal)
+    return out.reshape(b, h, s, d).transpose(1, 2)

@@ -1,0 +1,163 @@
+"""Split-learning pipeline on one device.
+
+Port of the JAX package's ``parallel/pipeline.py`` for the case where one
+device holds every stage:
+
+* each stage is its own shard module (:meth:`SplitModel.shard` of the
+  full model), and the activation crosses every cut explicitly: stage
+  *k*'s output is detached and handed to stage *k+1* as a leaf that
+  requires grad, and in the backward the gradient at that leaf is handed
+  back to stage *k*'s output — what the activation and gradient queues
+  carry in the reference;
+* the reference's ``control-count`` in-flight cap is the microbatch
+  count: every step draws ``num_microbatches`` loader batches, runs each
+  through the stages forward and then backward, and accumulates the
+  gradients of the mean microbatch loss into ONE synchronous optimizer
+  update;
+* **streamed loss**: the last stage computes its microbatch's loss
+  inside its own (optionally recomputed) block, so an LM head's logits
+  are consumed where they are produced and are never kept for the
+  backward;
+* **remat policy** (``remat=``): ``"all"`` recomputes every stage in the
+  backward, ``"none"`` stores every stage's activations, and ``"wide"``
+  (default) recomputes exactly the stages whose per-sample boundary
+  width (max of input and output) exceeds ``REMAT_WIDE_THRESHOLD``.
+  Recompute is ``torch.utils.checkpoint`` with ``use_reentrant=False``.
+
+The replicated/sliced multi-device layouts, TP/SP/EP and LoRA wait for
+later slices.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from split_learning_torch.models.split import SplitModel
+from split_learning_torch.parallel.mesh import stage_ranges
+
+
+class PipelineModel:
+    """Stage shards + schedule for one split of a model on one device.
+
+    Owns no parameters: the stages share the modules of ``full_model``.
+    ``example_input`` is one microbatch (or any batch) of model inputs on
+    the model's device; one sample of it runs through the stages once to
+    measure the boundary widths for the remat policy.
+    """
+
+    #: per-sample boundary width (elements) above which the ``wide``
+    #: remat policy recomputes a stage
+    REMAT_WIDE_THRESHOLD = 65536
+
+    def __init__(self, full_model: SplitModel, cuts: Sequence[int],
+                 example_input: torch.Tensor, num_microbatches: int = 4,
+                 remat: str = "wide"):
+        self.full_model = full_model
+        self.specs = full_model.specs
+        self.n_layers = len(self.specs)
+        self.cuts = list(cuts)
+        self.ranges = stage_ranges(self.n_layers, self.cuts)
+        self.n_stages = len(self.ranges)
+        self.num_microbatches = num_microbatches
+        if remat not in ("all", "wide", "none"):
+            raise ValueError(
+                f"remat must be 'all', 'wide' or 'none'; got {remat!r}")
+        self.stage_models = [full_model.shard(a, b) for a, b in self.ranges]
+        self.mb_size = example_input.shape[0]
+
+        # per-sample boundary widths: one sample through the stages
+        with torch.no_grad():
+            x = example_input[:1]
+            widths = [x[0].numel()]
+            for m in self.stage_models:
+                x = m(x, train=False)
+                widths.append(x[0].numel())
+        if remat == "all":
+            self.stage_remat = [True] * self.n_stages
+        elif remat == "none":
+            self.stage_remat = [False] * self.n_stages
+        else:
+            self.stage_remat = [
+                max(widths[s], widths[s + 1]) > self.REMAT_WIDE_THRESHOLD
+                for s in range(self.n_stages)]
+
+    @staticmethod
+    def loss_from_logits(logits, labels):
+        """Mean softmax cross entropy over every token; the logits stay
+        in the model's compute dtype, as the reference feeds bf16 logits
+        to its cross entropy."""
+        return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1).long())
+
+    def _stage_apply(self, s: int, x, labels):
+        out = self.stage_models[s](x, train=True)
+        if s == self.n_stages - 1:
+            # streamed loss: reduce the logits inside the stage block
+            return self.loss_from_logits(out, labels).float()
+        return out
+
+    def microbatch_backward(self, x, labels, loss_scale: float):
+        """Forward one microbatch stage by stage, then backward stage by
+        stage, accumulating ``loss_scale * d loss`` into the parameters'
+        ``.grad``.  Returns the microbatch loss (detached)."""
+        inputs, outputs = [], []
+        h = x
+        for s in range(self.n_stages):
+            if s > 0:
+                # the cut: the next stage receives the activation as a
+                # fresh leaf; its gradient is handed back below
+                h = h.detach().requires_grad_(h.is_floating_point())
+            fn = functools.partial(self._stage_apply, s)
+            out = (checkpoint(fn, h, labels, use_reentrant=False)
+                   if self.stage_remat[s] else fn(h, labels))
+            inputs.append(h)
+            outputs.append(out)
+            h = out
+        loss = outputs[-1]
+        grad = None
+        for s in reversed(range(self.n_stages)):
+            if s == self.n_stages - 1:
+                (loss * loss_scale).backward()
+            else:
+                outputs[s].backward(grad)
+            if s > 0:
+                grad = inputs[s].grad
+            outputs[s] = None   # free the stage's graph as soon as done
+        return loss.detach()
+
+    def train_step(self, optimizer: torch.optim.Optimizer, x, labels,
+                   clip_grad_norm: float | None = None) -> torch.Tensor:
+        """One synchronous update from ``num_microbatches`` microbatches:
+        ``x``/``labels`` are (M, mb, ...).  Returns the mean microbatch
+        loss (a device scalar)."""
+        M = self.num_microbatches
+        optimizer.zero_grad(set_to_none=True)
+        total = None
+        for m in range(M):
+            loss = self.microbatch_backward(x[m], labels[m], 1.0 / M)
+            total = loss if total is None else total + loss
+        if clip_grad_norm:
+            clip_by_global_norm(
+                [p for g in optimizer.param_groups for p in g["params"]],
+                clip_grad_norm)
+        optimizer.step()
+        return total / M
+
+
+@torch.no_grad()
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """``optax.clip_by_global_norm``: when the global gradient norm
+    exceeds ``max_norm``, scale every gradient by ``max_norm / norm``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                         max_norm / norm)
+    for g in grads:
+        g.mul_(factor.to(g.dtype))
