@@ -38,12 +38,24 @@ class RoundOutcome:
 def aggregate_cluster(updates: Sequence[Update]) -> tuple[Any, Any, int]:
     """Per-stage weighted FedAvg then stage concat for ONE cluster.
 
-    Returns (params_tree, stats_tree, total_stage1_samples).  Each stage
+    Returns (params_tree, stats_tree, total_stage1_samples).  When the
+    protocol server already folded the round incrementally
+    (``aggregation.streaming``, ``runtime/aggregate.py``), ``updates``
+    arrives as an :class:`~split_learning_torch.runtime.aggregate.
+    UpdateBatch` whose ``fold`` carries the finished result — the
+    per-client trees were folded (and freed) as each UPDATE decoded —
+    and it is unwrapped instead of re-folded.  Otherwise each stage
     folds through :class:`~split_learning_torch.ops.fedavg.TreeFold` in
     client-id order (float summation order must not depend on arrival
     order).  Updates are deduplicated on (client_id, version or
     round_idx) before any sample accounting; weight-less updates are
     skipped by the fold but their samples still count."""
+    fold = getattr(updates, "fold", None)
+    if fold is not None:
+        # the streamed result IS the barrier fold (bit-identical by the
+        # canonical-order contract); its sample count already includes
+        # every stage-1 contribution
+        return fold.params, fold.stats, fold.n_samples
     by_stage: dict[int, list[Update]] = {}
     n_weightless = 0
     seen: set = set()

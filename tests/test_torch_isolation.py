@@ -1,6 +1,6 @@
-"""The port stands alone: it imports no JAX and nothing of the JAX
-package, and its entry points run on the GPU unless the caller asks for
-the CPU."""
+"""The port stands alone: it imports no JAX, nothing of the JAX package
+and not ``ml_dtypes``, and its entry points run on the GPU unless the
+caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -12,7 +12,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "split_learning_torch"
-BLOCKED = ("jax", "flax", "optax", "split_learning_tpu")
+BLOCKED = ("jax", "flax", "optax", "split_learning_tpu", "ml_dtypes")
 
 
 def _port_modules():
@@ -28,7 +28,8 @@ def _port_modules():
 
 def test_port_and_chip_smoke_import_with_jax_blocked():
     """Every module of the port, and chip_smoke, imports in a process
-    where jax, flax, optax and split_learning_tpu cannot be imported."""
+    where jax, flax, optax, split_learning_tpu and ml_dtypes cannot be
+    imported."""
     code = "\n".join([
         "import importlib, sys",
         f"for name in {BLOCKED!r}:",
@@ -115,6 +116,22 @@ def test_entry_points_run_on_cpu_when_asked(no_gpu, tmp_path, capsys):
         "log-path": str(tmp_path)})))
     main(["--config", str(yaml_path), "--device", "cpu"])
     assert "round 0: ok=True samples=8" in capsys.readouterr().out
+
+
+def test_protocol_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """The protocol server and client default to CUDA and raise without
+    it; the transport is never made up for the caller."""
+    from split_learning_torch.runtime.bus import InProcTransport
+    from split_learning_torch.runtime.client import ProtocolClient
+    from split_learning_torch.runtime.server import ProtocolServer
+    cfg, bus = _cfg(tmp_path), InProcTransport()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProtocolServer(cfg, bus)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProtocolClient(cfg, "client_1_0", 1, bus)
+    with pytest.raises(ValueError, match="transport"):
+        ProtocolClient(cfg, "client_1_0", 1, None, device="cpu")
+    ProtocolClient(cfg, "client_1_0", 1, bus, device="cpu")
 
 
 def test_chip_smoke_fails_without_gpu():
