@@ -15,10 +15,16 @@ Phases, each fatal on failure:
    main paths' shapes and times the kernel, the plain version and, where
    one PyTorch call computes the same function, that call (a yardstick
    only: the port never calls it).  Flash attention within stated
-   tolerances (bf16 at the slice's shapes, float32 causal and not, odd
-   sequence lengths, every head dim); the quantizer (int8 and int4, NaN,
+   tolerances (bf16 at the slice's shapes and at D = 128, float32 causal
+   and not, odd sequence lengths, every head dim), each forward case
+   checked to take the kernel its route names (bf16 D >= 16: the
+   tensor-core forward; float32 and D = 8: the CUDA-core one); the
+   CUDA-core forward also at the slice's shapes, timed beside the
+   tensor-core forward and SDPA; the quantizer (int8 and int4, NaN,
    inf and all-zero tiles, an odd tile), the dequantizer, finalize
-   (float32, bf16, int32 with rounding) and momentum bit for bit.  A tiny
+   (float32, bf16, fp16, int32 with rounding and ties, ragged n % 4 =
+   1, 2, 3, a view 4 bytes off 16-byte alignment) and momentum bit for
+   bit.  A tiny
    TinyLlama's logits and gradients through the flash kernels are held
    against its dense-attention path, and a tiny protocol round with every
    kernel flag on against the same round through the plain chains;
@@ -26,7 +32,9 @@ Phases, each fatal on failure:
    (``configs/baseline5.yaml``: 4 stages, AdamW, bf16, batch 8,
    control-count 4, with ``use_flash: true``, 128 samples = 4 steps)
    through ``split_learning_torch.run.run_local`` on CUDA, with the
-   kernels' launch counts zeroed just before and read just after;
+   kernels' launch counts zeroed just before and read just after (the
+   bf16 forward takes the tensor-core kernel, 176 launches a step, and
+   the CUDA-core forward is launched 0 times);
 5. profile — the same round once more, warm, with its device kernels
    traced by ``torch.profiler`` (not counted): round wall, the device's
    busy and idle share, and the kernels that take the most device time;
@@ -81,6 +89,8 @@ DEVICE = "cuda"
 KERNELS = {
     "flash_fwd": ("split_learning_torch/csrc/flash_attention.cu",
                   "split_learning_tpu/ops/flash_attention.py:62"),
+    "flash_fwd_simt": ("split_learning_torch/csrc/flash_attention.cu",
+                       "split_learning_tpu/ops/flash_attention.py:62"),
     "flash_bwd_dkv": ("split_learning_torch/csrc/flash_attention.cu",
                       "split_learning_tpu/ops/flash_attention.py:134"),
     "flash_bwd_dq": ("split_learning_torch/csrc/flash_attention.cu",
@@ -128,6 +138,25 @@ def phase_device() -> None:
 # 2. build
 # --------------------------------------------------------------------------
 
+def _print_ptxas(text: str) -> None:
+    """Each kernel's registers, spills and shared memory from nvcc's
+    ``-Xptxas -v`` report, under the kernel's demangled name."""
+    try:
+        text = subprocess.run(["c++filt"], input=text, capture_output=True,
+                              text=True, timeout=60).stdout or text
+    except (OSError, subprocess.SubprocessError):
+        pass
+    func, spills = "?", ""
+    for line in text.splitlines():
+        body = line.split("ptxas info    :")[-1].strip()
+        if "Compiling entry function" in body:
+            func = _kernel_name(body.split("'")[1] if "'" in body else body)
+        elif "spill" in body:
+            spills = body
+        elif "Used" in body:
+            print(f"  ptxas: {func}: {body}; {spills}")
+
+
 def phase_build():
     import split_learning_torch
     from split_learning_torch.ops.kernels import build
@@ -145,10 +174,7 @@ def phase_build():
               " s)")
         log = lib_path.with_name(lib_path.name + ".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "Used" in line or "spill" in line:
-                    print("  ptxas:",
-                          line.split("ptxas info    :")[-1].strip())
+            _print_ptxas(log.read_text())
     print(f"build: all sources in {secs:.2f} s")
 
 
@@ -220,7 +246,7 @@ def _bytes_and_flops(name: str, shape, dtype, causal: bool):
     el = torch.tensor([], dtype=dtype).element_size()
     mat, row = bh * s * d * el, bh * s * 4
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
-    if name == "flash_fwd":       # q,k,v -> o, lse; QK^T and PV
+    if name.startswith("flash_fwd"):   # q,k,v -> o, lse; QK^T and PV
         return 4 * mat + row, 4 * d * pairs
     if name == "flash_bwd_dkv":   # q,k,v,dO,lse,delta -> dk,dv; 4 products
         return 6 * mat + 2 * row, 8 * d * pairs
@@ -231,6 +257,8 @@ def phase_kernels() -> dict:
     from split_learning_torch.ops import flash_attention as fa
 
     cases = [("slice bf16 causal", SLICE_SHAPE, torch.bfloat16, True),
+             ("bf16 D=128 S=256 causal", (16, 256, 128), torch.bfloat16,
+              True),
              ("f32 causal", (16, 256, 64), torch.float32, True),
              ("f32 non-causal", (16, 256, 64), torch.float32, False),
              ("bf16 odd S=48 causal", (16, 48, 64), torch.bfloat16, True),
@@ -257,13 +285,24 @@ def phase_kernels() -> dict:
         o_ref32, _ = fa.flash_fwd_reference(q.float(), k.float(),
                                             v.float(), causal)
 
+        route = fa._fwd_route(dtype, shape[-1])
+        before = dict(fa.LAUNCHES)
         o, lse = fa.flash_fwd(q, k, v, causal)
+        took = {n for n in fa.LAUNCHES if fa.LAUNCHES[n] != before[n]}
+        check(took == {route}, f"flash_fwd {label}: launched {took}, its "
+              f"route is {route}")
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_in, delta, causal)
         dq = fa.flash_bwd_dq(q, k, v, do, lse_in, delta, causal)
-        torch.cuda.synchronize()
-        errs = {"flash_fwd": [("o", o, o_ref32), ("lse", lse, lse_ref)],
+        errs = {route: [("o", o, o_ref32), ("lse", lse, lse_ref)],
                 "flash_bwd_dkv": [("dk", dk, dk_ref), ("dv", dv, dv_ref)],
                 "flash_bwd_dq": [("dq", dq, dq_ref)]}
+        if ci == 0:
+            # the CUDA-core forward at the slice's shapes too: it is the
+            # float32 route, and the yardstick of the tensor-core one
+            o_s, lse_s = fa._launch_fwd("flash_fwd_simt", q, k, v, causal)
+            errs["flash_fwd_simt"] = [("o", o_s, o_ref32),
+                                      ("lse", lse_s, lse_ref)]
+        torch.cuda.synchronize()
         for name, outs in errs.items():
             worst = 0.0
             for kind, out, ref in outs:
@@ -286,6 +325,9 @@ def phase_kernels() -> dict:
         runs = {
             "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
                           lambda: fa.flash_fwd_reference(q, k, v, causal)),
+            "flash_fwd_simt": (
+                lambda: fa._launch_fwd("flash_fwd_simt", q, k, v, causal),
+                lambda: fa.flash_fwd_reference(q, k, v, causal)),
             "flash_bwd_dkv": (
                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse_in, delta, causal),
                 lambda: fa.flash_bwd_dkv_reference(
@@ -297,8 +339,9 @@ def phase_kernels() -> dict:
         }
         b, h = 8, 32
         q4, k4, v4 = (t.view(b, h, shape[1], shape[2]) for t in (q, k, v))
-        library = {"flash_fwd": lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True)}
+        sdpa = (lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       is_causal=True))
+        library = {"flash_fwd": sdpa, "flash_fwd_simt": sdpa}
         for name, (kern, plain) in runs.items():
             nbytes, flops = _bytes_and_flops(name, shape, dtype, causal)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -428,13 +471,26 @@ def phase_wire_kernels() -> dict:
     acc = torch.randn(LEAF_SHAPE, generator=g, device="cuda") * 50
     small = torch.randn(4096, 64, generator=g, device="cuda") * 50
     tw = 64.0   # the slice's fold weight: two edge clients x 32 samples
-    for label, a, dt, rnd in (("leaf f32", acc, torch.float32, False),
-                              ("leaf bf16", acc, torch.bfloat16, False),
-                              ("int32 with rounding", small, torch.int32,
-                               True),
-                              ("odd 0.5 ties int32", torch.arange(
-                                  -40, 40, device="cuda").float() * 32.0,
-                               torch.int32, True)):
+    ties = torch.arange(-40, 40, device="cuda").float() * 32.0
+    # a contiguous view 4 bytes off 16-byte alignment: the scalar
+    # prologue, then float4 loads with element stores
+    shifted = acc.view(-1)[1:]
+    finalize_cases = [("leaf f32", acc, torch.float32, False),
+                      ("leaf bf16", acc, torch.bfloat16, False),
+                      ("leaf fp16", acc, torch.float16, False),
+                      ("int32 with rounding", small, torch.int32, True),
+                      ("odd 0.5 ties int32", ties, torch.int32, True),
+                      ("view +4 B f32", shifted, torch.float32, False),
+                      ("view +4 B bf16", shifted, torch.bfloat16, False)]
+    for r in (1, 2, 3):   # ragged leaves: the scalar epilogue
+        ragged = small.view(-1)[:4096 + r]
+        finalize_cases += [(f"ragged n%4={r} f32", ragged, torch.float32,
+                            False),
+                           (f"ragged n%4={r} bf16", ragged, torch.bfloat16,
+                            False),
+                           (f"ragged n%4={r} int32 rnd", ragged,
+                            torch.int32, True)]
+    for label, a, dt, rnd in finalize_cases:
         _bitwise("finalize", label, ku.finalize_leaf(a, tw, dt, rnd=rnd),
                  ku.finalize_reference(a, tw, dt, rnd))
     base = torch.randn(LEAF_SHAPE, generator=g, device="cuda")
@@ -535,8 +591,13 @@ def phase_slice(cfg) -> dict:
     check(rec.ok, f"round not ok: {rec}")
     check(math.isfinite(rec.val_loss) and math.isfinite(rec.val_accuracy),
           f"non-finite validation: {rec}")
+    # the bf16 forward is the tensor-core kernel's; the CUDA-core forward
+    # is the float32 route and must not run here
+    check(launches["flash_fwd_simt"] == 0, f"the CUDA-core forward ran "
+          f"{launches['flash_fwd_simt']} times on the bf16 main path")
     for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        check(n > 0 or name == "flash_fwd_simt",
+              f"kernel {name} was not launched on the main path")
     steps = max(1, (cfg.distribution.num_samples // lrn.batch_size)
                 // lrn.control_count)
     check(rec.num_samples == steps * lrn.control_count * lrn.batch_size,
@@ -556,6 +617,10 @@ def phase_slice(cfg) -> dict:
                       - n_block * (1 + cfg.val_max_batches)) / steps,
         "flash_bwd_dkv": launches["flash_bwd_dkv"] / steps,
         "flash_bwd_dq": launches["flash_bwd_dq"] / steps}
+    # forward twice per block per microbatch under the wide remat policy
+    check(per_step["flash_fwd"] == 2 * n_block * lrn.control_count,
+          f"tensor-core forward launches per step {per_step['flash_fwd']}, "
+          f"expected {2 * n_block * lrn.control_count}")
     seq = 256
     tokens = rec.num_samples * seq
     out = {"round_wall_s": rec.wall_s, "run_local_wall_s": wall,
@@ -573,6 +638,12 @@ def phase_slice(cfg) -> dict:
           f"{per_step} (expected {n_block * lrn.control_count} for each "
           f"backward kernel and twice that for the forward under remat)")
     return out
+
+
+def _kernel_name(key: str) -> str:
+    """``void (anonymous namespace)::k<T, 64>(args)`` -> ``k<T, 64>``."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.removeprefix("void ").split("(")[0]
 
 
 def _device_us(e) -> float:
@@ -607,11 +678,19 @@ def phase_profile(cfg) -> dict:
     for e in top:
         print(f"    {_device_us(e) / 1e3:10.1f} ms {e.count:8d}x  "
               f"{e.key[:90]}")
+    flash = [e for e in kernels if "flash_" in e.key]
+    for e in flash:
+        print(f"    flash: {_device_us(e) / 1e3:.1f} ms {e.count}x  "
+              f"{_kernel_name(e.key)}")
     return {"round_walls_s": walls, "run_wall_s": wall,
             "device_busy_s": busy_s, "idle_share": 1 - busy_s / wall,
             "top_kernels": [{"name": e.key[:120], "count": e.count,
                              "device_ms": _device_us(e) / 1e3}
-                            for e in top]}
+                            for e in top],
+            "flash_kernels": [{"name": _kernel_name(e.key),
+                               "count": e.count,
+                               "device_ms": _device_us(e) / 1e3}
+                              for e in flash]}
 
 
 # --------------------------------------------------------------------------
@@ -652,15 +731,17 @@ TINY_PROTOCOL = {
 }
 
 
-def phase_protocol_check(workdir: pathlib.Path) -> None:
+def phase_protocol_check(workdir: pathlib.Path) -> int:
     """A tiny float32 protocol round (3 stages, int8 codec, CUDA fold
     with momentum) on the card twice: every kernel flag on, then every
     flag off (the plain chains on the card).  With one batch in flight
     each stage steps in a fixed order, and each kernel equals its plain
     version bit for bit, so the two runs' validation losses and final
     parameters must agree to float32 noise (1e-5: cuBLAS may pick other
-    GEMM algorithms between the runs)."""
+    GEMM algorithms between the runs).  Its float32 forward takes the
+    CUDA-core kernel: returns that kernel's launches in the first run."""
     from split_learning_torch.config import from_dict
+    from split_learning_torch.ops import flash_attention as fa
 
     runs = []
     for flags in (True, False):
@@ -668,7 +749,13 @@ def phase_protocol_check(workdir: pathlib.Path) -> None:
                                    "kernels": {"quantize": flags,
                                                "dequantize": flags,
                                                "stage-update": flags}})
+        fa.reset_launches()
         _, _, _, res = run_protocol(from_dict(d), timeout=120)
+        if flags:
+            simt = fa.LAUNCHES["flash_fwd_simt"]
+            check(simt > 0 and fa.LAUNCHES["flash_fwd"] == 0,
+                  f"tiny float32 round: forward launches {fa.LAUNCHES}, "
+                  "expected the CUDA-core kernel only")
         check([r.ok for r in res.history] == [True, True],
               f"tiny protocol round not ok: {res.history}")
         runs.append(res)
@@ -685,6 +772,8 @@ def phase_protocol_check(workdir: pathlib.Path) -> None:
           "(tol 1e-5)")
     check(loss_err <= 1e-5 and param_err <= 1e-5,
           "tiny protocol round: kernels disagree with the plain chains")
+    print(f"  tiny float32 round: CUDA-core forward launched {simt} times")
+    return simt
 
 
 def protocol_config(workdir: pathlib.Path, momentum: float, rounds: int):
@@ -807,8 +896,11 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
           and math.isfinite(res0.history[0].val_loss),
           f"plain FedAvg protocol round failed: {res0.history}")
     total = {k: launches[k] + launches0[k] for k in launches}
+    check(total["flash_fwd_simt"] == 0, f"the CUDA-core forward ran "
+          f"{total['flash_fwd_simt']} times on the bf16 protocol path")
     for name, n in total.items():
-        check(n > 0, f"kernel {name} was not launched on the protocol path")
+        check(n > 0 or name == "flash_fwd_simt",
+              f"kernel {name} was not launched on the protocol path")
 
     seq = 256
     rounds = [{"round": r.round_idx, "wall_s": r.wall_s,
@@ -861,7 +953,7 @@ def main() -> int:
     phase_model_check()
     with tempfile.TemporaryDirectory(prefix="slt_smoke_") as tmp:
         workdir = pathlib.Path(tmp)
-        phase_protocol_check(workdir)
+        tiny_simt = phase_protocol_check(workdir)
         print("[slice]")
         cfg = slice_config(workdir)
         sl = phase_slice(cfg)
@@ -875,6 +967,8 @@ def main() -> int:
         by_path = {"protocol": proto["launches_total"][name]}
         if name in sl["launches"]:
             by_path["slice"] = sl["launches"][name]
+        if name == "flash_fwd_simt":   # the float32 route
+            by_path["tiny_float32_protocol_check"] = tiny_simt
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -3,16 +3,56 @@
 // Replaces the three Pallas TPU kernels of the JAX package's
 // split_learning_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_kernel      <- _fwd_kernel      (:62-102, via _flash_fwd_bhsd)
+//   flash_fwd_tc_kernel   <- _fwd_kernel      (:62-102, via _flash_fwd_bhsd)
+//                            bfloat16, D in {16, 32, 64, 128}
+//   flash_fwd_kernel      <- _fwd_kernel      float32, and bfloat16 D = 8
 //   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel  (:134-170, via _flash_bwd_rule)
 //   flash_bwd_dq_kernel   <- _bwd_dq_kernel   (:173-205, via _flash_bwd_rule)
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are (BH, S, D) row-major, contiguous,
-// in float32 or bfloat16; lse and delta are (BH, S) float32.  Q is scaled
-// by 1/sqrt(D); lse is the logsumexp of the SCALED scores, so the backward
-// rebuilds the softmax rows exactly as p = exp(s*scale - lse).
+// in float32 or bfloat16; lse and delta are (BH, S) float32.  lse is the
+// natural-log logsumexp of the SCALED scores (scale = 1/sqrt(D)), so the
+// backward rebuilds the softmax rows exactly as p = exp(s*scale - lse).
+// Any S works: ragged tiles are zero-filled on load and masked.
 //
-// Design (first, simple version; correctness first):
+// Bound at the slice's shapes ((BH, S, D) = (8*32, 256, 64), bf16, causal)
+// on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): all three kernels are
+// bound by memory when counted as the least work (forward ~34 MB, ~10 us;
+// dK/dV ~51 MB, ~15 us; dQ ~43 MB, ~13 us; the tensor-core time of each is
+// 2-4 us).  What every design here does about it is what flash attention
+// is for: each K/V (or Q/dO) tile is read from device memory once per
+// block and the S x S score matrix never leaves the chip.
+//
+// flash_fwd_tc_kernel (the bf16 forward of the main path), FlashAttention-2
+// shaped, on mma.sync tensor cores:
+//   * One block of 4 warps per (bh, 64-row Q tile); each warp owns 16 Q
+//     rows.  Causal blocks are issued heaviest (last Q tile) first.
+//   * Q is staged once with 16-byte cp.async and held in registers as
+//     mma.sync.m16n8k16 A fragments (ldmatrix) for the whole loop.
+//   * K/V tiles are bf16 in shared memory, in a ring of 4 stages (2 at
+//     D = 128): the copies (cp.async, zero-filled past S) of the next 3
+//     tiles are in flight while tile kb computes, so a causal block of
+//     the slice asks for all its tiles at once; one barrier per tile.
+//     Rows are 16-byte chunks XOR-swizzled by the row, so the ldmatrix
+//     phases of 8 rows hit 8 distinct bank groups.  9 tiles = 72 KB of
+//     shared memory a block at D = 64; 158 registers, 3 blocks an SM.
+//   * S = Q K^T in bf16 x bf16 -> float32 accumulators; only the diagonal
+//     and ragged tiles are masked.  The float32 scores are scaled in log2
+//     units, p = 2^(s*scale*log2(e) - m), one FFMA and one ex2.approx a
+//     score.  m and l of each row live in registers, reduced over the 4
+//     lanes of a quad; l is summed from the float32 p.
+//   * P never leaves registers: it is rounded to bf16 (what the TPU
+//     kernel's Precision.DEFAULT bf16 pass does with p) and two adjacent n8
+//     accumulator fragments become one k16 A fragment of P V, with V read
+//     by ldmatrix.trans.
+//   * o = acc * (1 / l_safe), one division a row, goes out through shared
+//     memory as 16-byte stores; lse converts m back to natural log:
+//     m*ln(2) + log(l_safe).
+//   The k16 step of mma.sync does not fit D = 8, and float32 inputs must
+//   not lose precision to bf16 or TF32 (Precision.HIGHEST), so both keep
+//   flash_fwd_kernel.
+//
+// flash_fwd_kernel and the two backward kernels (first, simple version):
 //   * One thread block of 256 threads (a 16 x 16 grid) per (bh, 64-row
 //     tile): a Q tile for the forward and dQ, a K tile for dK/dV.  Blocks
 //     run in parallel; the loop over the other axis inside the block takes
@@ -20,28 +60,18 @@
 //   * Tiles are staged in shared memory as float32 (rows padded by one
 //     float so the column walks hit distinct banks).  Products are
 //     CUDA-core FMAs in full float32 for both input types: for bf16 inputs
-//     each product of two bf16 values is exact in float32, the same as the
-//     TPU kernel's bf16 MXU pass with float32 accumulation; for float32
-//     inputs it is the counterpart of Precision.HIGHEST.
+//     each product of two bf16 values is exact in float32; for float32
+//     inputs it is the counterpart of Precision.HIGHEST.  The forward
+//     pre-scales Q in float32, as the TPU kernel does.
 //   * The softmax state (m, l) and every accumulator stay in float32 in
 //     registers.  Thread (ty, tx) owns rows ty + 16*i (i < 4) and columns
 //     tx + 16*j of each 64 x 64 score tile; row maxima and sums reduce over
 //     the 16 lanes of a row with warp shuffles.
 //   * Causal runs skip fully masked tiles: the forward and dQ stop at the
 //     diagonal tile, dK/dV starts at it.
-//   * Any S works: the ragged last tile is zero-filled on load and masked.
-//
-// Bound at the slice's shapes ((BH, S, D) = (8*32, 256, 64), bf16, causal)
-// on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): all three kernels are
-// bound by memory when counted as the least work (forward ~34 MB, ~10 us;
-// dK/dV ~51 MB, ~15 us; dQ ~43 MB, ~13 us; the tensor-core time of each is
-// 2-4 us).  This version does not reach that bound: its products run on
-// the CUDA cores (67 TFLOP/s float32), not the tensor cores, so it is
-// bound by its own operations (~2-4 GFLOP a call).  What the design does
-// about the memory bound is what flash attention is for: each K/V (or
-// Q/dO) tile is read from device memory once per block and the S x S
-// score matrix never leaves the chip.  Moving the products to wgmma
-// tensor-core tiles fed by TMA is the next step.
+//   These run their products on the CUDA cores (67 TFLOP/s float32), so
+//   they are bound by their own operations (~2-4 GFLOP a call), well above
+//   the memory bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -468,6 +498,316 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores: one block of 4 warps per (bh, Q tile).
+// ---------------------------------------------------------------------------
+constexpr int kTcThreads = 128;   // 4 warps x 16 Q rows
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of CH chunks a row:
+// the chunk index is XORed with the row's low bits, so the 8 rows an
+// ldmatrix phase reads at one logical chunk land in distinct bank groups.
+template <int CH>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int kMask = (CH < 8 ? CH : 8) - 1;
+  return (uint32_t)((r * CH + (c ^ (r & kMask))) * 16);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  // src-size 0 zero-fills the 16 bytes without reading
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N of this thread's newest copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2f(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Issue the copies of rows [r0, r0 + 64) of a (S, D) bf16 matrix into a
+// swizzled tile; rows past S are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_tile_bf16(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                int r0, int S) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int i = 0; i < kTile * CH / kTcThreads; ++i) {
+    const int idx = threadIdx.x + i * kTcThreads;
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + swz<CH>(r, c), src + (size_t)(ok ? r0 + r : 0) * D + c * 8,
+               ok);
+  }
+}
+
+// K/V stages of the copy ring: three tiles in flight ahead of the one
+// computing (a causal block of the slice issues all its tiles at once);
+// at D = 128 two stages, one tile ahead: four (144 KB) would leave one
+// block an SM.
+template <int D>
+__host__ __device__ constexpr int tc_stages() {
+  return D <= 64 ? 4 : 2;
+}
+
+template <int D>
+constexpr size_t fwd_tc_smem() {   // Q, then K and V per stage
+  return (size_t)(1 + 2 * tc_stages<D>()) * kTile * D * sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int S, float scale_log2, int causal) {
+  constexpr int CH = D / 8;    // 16-byte chunks of a row; n8 tiles of O
+  constexpr int KD = D / 16;   // k16 steps of Q K^T; n8 pairs of O
+  constexpr int NS = tc_stages<D>();
+  constexpr uint32_t kTileBytes = kTile * D * sizeof(__nv_bfloat16);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sQ = smem_u32(tc_smem);
+  const uint32_t sK0 = sQ + kTileBytes;           // NS K tiles
+  const uint32_t sV0 = sK0 + NS * kTileBytes;     // NS V tiles
+
+  // blockIdx.x walks the Q tiles of one (bh), last (under causal the
+  // heaviest) first; the blocks of one (bh) run together, so its K and V
+  // come from L2 after the first read
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qb * kTile;
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow = q0 + warp * 16 + g;   // this thread's rows: qrow, qrow + 8
+
+  const int nk = (S + kTile - 1) / kTile;
+  const int nk_eff = causal ? min(nk, qb + 1) : nk;
+
+  // the ring: copy group i holds K/V tile i (group 0 also Q); a group is
+  // committed every step, empty past the last tile, so that "tile kb has
+  // landed" is always "at most NS - 2 newer groups pending"
+  stage_tile_bf16<D>(sQ, q + base, q0, S);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nk_eff) {
+      stage_tile_bf16<D>(sK0 + i * kTileBytes, k + base, i * kTile, S);
+      stage_tile_bf16<D>(sV0 + i * kTileBytes, v + base, i * kTile, S);
+    }
+    cp_async_commit();
+  }
+
+  uint32_t qf[KD][4];
+  float oacc[CH][4];
+#pragma unroll
+  for (int n = 0; n < CH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  // running max (log2 units) and this thread's partial row sums; m starts
+  // at the finite NEG_INF so a row with nothing visible yet gives no NaN
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < nk_eff; ++kb) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();   // tile kb has landed; tile kb-1's stage is free
+    if (kb == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(sQ + swz<CH>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             2 * kk + (lane >> 4)),
+                qf[kk]);
+    }
+    {   // refill the stage tile kb-1 used with tile kb + NS - 1
+      const int nt = kb + NS - 1;
+      if (nt < nk_eff) {
+        const uint32_t off = (nt % NS) * kTileBytes;
+        stage_tile_bf16<D>(sK0 + off, k + base, nt * kTile, S);
+        stage_tile_bf16<D>(sV0 + off, v + base, nt * kTile, S);
+      }
+      cp_async_commit();
+    }
+    const uint32_t sK = sK0 + (kb % NS) * kTileBytes;
+    const uint32_t sV = sV0 + (kb % NS) * kTileBytes;
+    const int k0 = kb * kTile;
+
+    // S = Q K^T: this warp's 16 rows x 64 keys, eight n8 tiles
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(sK + swz<CH>(jp * 16 + (lane & 7) + (lane >> 4) * 8,
+                             2 * kk + ((lane >> 3) & 1)),
+                b);
+        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      }
+    }
+    // mask the diagonal and ragged tiles only (masked scores give p = 0
+    // exactly); the scale comes in below, in log2 units
+    const bool edge = (causal && kb == qb) || k0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge && !visible(qrow + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1),
+                             S, causal))
+          s[j][e] = -INFINITY;
+      }
+
+    // online softmax over the tile; rows g (e = 0, 1) and g + 8 (e = 2, 3);
+    // the max is taken on the raw scores (the scale is positive)
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * scale_log2);
+      corr[r] = ex2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < CH; ++n) {
+      oacc[n][0] *= corr[0];
+      oacc[n][1] *= corr[0];
+      oacc[n][2] *= corr[1];
+      oacc[n][3] *= corr[1];
+    }
+    // P in bf16 A fragments: n8 tiles 2kk and 2kk+1 form k16 step kk
+    uint32_t pf[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = ex2f(fmaf(s[j][0], scale_log2, -m[0]));
+      const float p1 = ex2f(fmaf(s[j][1], scale_log2, -m[0]));
+      const float p2 = ex2f(fmaf(s[j][2], scale_log2, -m[1]));
+      const float p3 = ex2f(fmaf(s[j][3], scale_log2, -m[1]));
+      l[0] += p0 + p1;
+      l[1] += p2 + p3;
+      pf[j >> 1][(j & 1) * 2] = pack_bf16(p0, p1);
+      pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+
+    // O += P V: V (keys x D) read transposed as the col-major B operand
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int np = 0; np < KD; ++np) {
+        uint32_t b[4];
+        ldsm_x4_t(sV + swz<CH>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                               2 * np + (lane >> 4)),
+                  b);
+        mma_bf16(oacc[2 * np], pf[kk], b[0], b[1]);
+        mma_bf16(oacc[2 * np + 1], pf[kk], b[2], b[3]);
+      }
+    }
+  }
+
+  // epilogue: o = acc * (1 / l_safe) in bf16, staged in this warp's rows
+  // of the Q tile (only this warp read them), then 16-byte coalesced stores
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    l_safe[r] = l[r] > 0.f ? l[r] : 1.f;
+  }
+  // one IEEE division a row: one a value cost ~10 % of the kernel
+  const float inv[2] = {1.f / l_safe[0], 1.f / l_safe[1]};
+#pragma unroll
+  for (int n = 0; n < CH; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t off = swz<CH>(warp * 16 + g + 8 * r, n) + 4 * t;
+      *reinterpret_cast<uint32_t*>(tc_smem + off) =
+          pack_bf16(oacc[n][2 * r] * inv[r], oacc[n][2 * r + 1] * inv[r]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * CH / 32; ++i) {
+    const int r = (lane + 32 * i) / CH, c = (lane + 32 * i) % CH;
+    const int row = q0 + warp * 16 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(o + base + (size_t)row * D + c * 8) =
+          *reinterpret_cast<const uint4*>(tc_smem +
+                                          swz<CH>(warp * 16 + r, c));
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      if (row < S)
+        lse[(size_t)blockIdx.y * S + row] =
+            l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kNegInf;
+    }
+  }
+}
+
 constexpr size_t fwd_smem(int D) {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPStride);
 }
@@ -488,6 +828,23 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + kTile - 1) / kTile, bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int bh, int S, float scale, int causal,
+                  cudaStream_t stream) {
+  constexpr size_t smem = fwd_tc_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kTile - 1) / kTile, bh);
+  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, S, scale * kLog2e,
+      causal);
   return (int)cudaGetLastError();
 }
 
@@ -559,6 +916,27 @@ int slt_flash_fwd(int dtype, const void* q, const void* k, const void* v,
   SLT_DISPATCH(dtype, d,
                (launch_fwd<T, D>(q, k, v, o, (float*)lse, bh, s, scale,
                                  causal, (cudaStream_t)stream)));
+}
+
+// The bf16 tensor-core forward: D in {16, 32, 64, 128}; q, k, v and o
+// 16-byte aligned.  Anything else returns an error without launching.
+int slt_flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int bh, int s, int d, float scale,
+                     int causal, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 16: return launch_fwd_tc<16>(q, k, v, o, (float*)lse, bh, s, scale,
+                                      causal, st);
+    case 32: return launch_fwd_tc<32>(q, k, v, o, (float*)lse, bh, s, scale,
+                                      causal, st);
+    case 64: return launch_fwd_tc<64>(q, k, v, o, (float*)lse, bh, s, scale,
+                                      causal, st);
+    case 128: return launch_fwd_tc<128>(q, k, v, o, (float*)lse, bh, s,
+                                        scale, causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int slt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,

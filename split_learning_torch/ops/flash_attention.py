@@ -2,11 +2,15 @@
 plain PyTorch versions.
 
 Port of the JAX package's ``ops/flash_attention.py``.  The three Pallas
-TPU kernels become three CUDA C++ kernels for Hopper
+TPU kernels become four CUDA C++ kernels for Hopper
 (``csrc/flash_attention.cu``):
 
-* ``flash_fwd`` — online-softmax forward over ``(BH, S, D)``; emits ``o``
-  and the per-row logsumexp ``lse`` of the scaled scores;
+* the forward — online-softmax over ``(BH, S, D)``; emits ``o`` and the
+  per-row logsumexp ``lse`` of the scaled scores.  Two hand-written
+  kernels compute it, and :func:`_fwd_route` picks one from the dtype and
+  head dim: ``flash_fwd`` (bf16 on the tensor cores, ``mma.sync``) and
+  ``flash_fwd_simt`` (the CUDA-core kernel, for float32 and for bf16 at
+  D = 8).  Each counts its own launches;
 * ``flash_bwd_dkv`` — dK and dV, one block per K tile;
 * ``flash_bwd_dq`` — dQ, one block per Q tile.
 
@@ -31,10 +35,13 @@ import torch
 NEG_INF = -1e30
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_dq": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
+# head dims of the bf16 tensor-core forward (mma.sync's k16 step needs 16)
+_TC_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reset_launches() -> None:
@@ -108,12 +115,13 @@ def _library():
     if not getattr(lib, "_slt_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.slt_flash_fwd.argtypes = [i, p, p, p, p, p, i, i, i, f, i, p]
+        lib.slt_flash_fwd_tc.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
         lib.slt_flash_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p,
                                           i, i, i, f, i, p]
         lib.slt_flash_bwd_dq.argtypes = [i, p, p, p, p, p, p, p,
                                          i, i, i, f, i, p]
-        for fn in (lib.slt_flash_fwd, lib.slt_flash_bwd_dkv,
-                   lib.slt_flash_bwd_dq):
+        for fn in (lib.slt_flash_fwd, lib.slt_flash_fwd_tc,
+                   lib.slt_flash_bwd_dkv, lib.slt_flash_bwd_dq):
             fn.restype = ctypes.c_int
         lib._slt_typed = True
     return lib
@@ -168,21 +176,47 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel for inputs of ``dtype`` and head dim ``d``:
+    ``"flash_fwd"`` (tensor cores) for bf16 at D in 16..128,
+    ``"flash_fwd_simt"`` (CUDA cores) otherwise — float32 keeps full
+    float32 products (Precision.HIGHEST), and D = 8 is narrower than the
+    tensor cores' k16 step."""
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        return "flash_fwd"
+    return "flash_fwd_simt"
+
+
+def _launch_fwd(route: str, q, k, v, causal: bool):
+    """Launch the forward kernel ``route`` on checked CUDA inputs."""
+    bh, s, d = q.shape
+    if route == "flash_fwd" and (q.dtype != torch.bfloat16
+                                 or d not in _TC_HEAD_DIMS):
+        raise ValueError(f"the tensor-core forward takes bfloat16 with D in "
+                         f"{_TC_HEAD_DIMS}, got {q.dtype} D={d}")
+    if route == "flash_fwd" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core forward needs 16-byte aligned "
+                         "q, k and v")
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    lib = _library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, s, d, _scale(d), int(causal), _stream(q))
+    if route == "flash_fwd":
+        err = lib.slt_flash_fwd_tc(*ptrs)
+    else:
+        err = lib.slt_flash_fwd(_DTYPE_CODE[q.dtype], *ptrs)
+    _raise_on(err, route)
+    LAUNCHES[route] += 1
+    return o, lse
+
+
 def flash_fwd(q, k, v, causal: bool):
     """Forward kernel over (BH, S, D): ``(o, lse)``."""
     if _on_cpu(q, k, v):
         return flash_fwd_reference(q, k, v, causal)
     _check(q, k, v)
-    bh, s, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    err = _library().slt_flash_fwd(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), bh, s, d, _scale(d), int(causal),
-        _stream(q))
-    _raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
-    return o, lse
+    return _launch_fwd(_fwd_route(q.dtype, q.shape[-1]), q, k, v, causal)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):

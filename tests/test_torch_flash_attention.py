@@ -2,7 +2,10 @@
 package's Pallas kernels run through the Pallas interpreter.
 
 Tolerances are those of tests/test_flash_attention.py, float32 inputs:
-2e-5 for the forward (o and lse), 5e-4 for gradients.
+2e-5 for the forward (o and lse), 5e-4 for gradients.  The bf16
+tensor-core forward's numerics are rehearsed here in float32 PyTorch
+(``_tc_forward_emulation``) at chip_smoke.py's bf16 tolerances: 2^-7 of
+max(1, max|ref|) for o, 1e-4 of it for lse.
 """
 
 import importlib
@@ -99,8 +102,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     o, lse = tfa.flash_fwd(q, k, v, True)
     o_ref, lse_ref = tfa.flash_fwd_reference(q, k, v, True)
     assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
-    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dkv": 0,
-                            "flash_bwd_dq": 0}
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_fwd_simt": 0,
+                            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -124,3 +127,157 @@ def test_bf16_forward_close_to_float32():
     # inputs were rounded to bf16 too: allow a few bf16 ulps
     assert float((o16.float() - o32).abs().max()) < 4 * 2 ** -8 * 4
     assert float((lse16 - lse32).abs().max()) < 0.1
+
+
+# --------------------------------------------------------------------------
+# the bf16 tensor-core forward: its numerics rehearsed, its route, its checks
+# --------------------------------------------------------------------------
+
+TC_TILE = 64
+BF16_O_TOL = 2.0 ** -7
+BF16_LSE_TOL = 1e-4
+
+
+def _tc_forward_emulation(q, k, v, causal):
+    """The design of ``flash_fwd_tc_kernel`` in float32 PyTorch, over
+    (BH, S, D) float32 tensors holding bf16 values: 64-row Q and K tiles,
+    exact products summed in float32, the online softmax in log2 units
+    (the max taken on the raw scores, then scaled by scale*log2(e);
+    p = 2^(s*scale*log2(e) - m)) with m starting at the finite NEG_INF, l
+    summed from the float32 p, p rounded to bf16 before P V, o = acc /
+    l_safe rounded to bf16, and lse converted back to natural log."""
+    bh, s, d = q.shape
+    scale_log2 = (1.0 / np.sqrt(d)) * np.log2(np.e)
+    o = torch.zeros(bh, s, d)
+    lse = torch.zeros(bh, s)
+    n_tiles = -(-s // TC_TILE)
+    for qb in range(n_tiles):
+        q0 = qb * TC_TILE
+        qt = q[:, q0:q0 + TC_TILE]
+        rows = q0 + torch.arange(qt.shape[1])
+        m = torch.full((bh, qt.shape[1]), tfa.NEG_INF)
+        l = torch.zeros(bh, qt.shape[1])
+        acc = torch.zeros(bh, qt.shape[1], d)
+        for kb in range(min(n_tiles, qb + 1) if causal else n_tiles):
+            k0 = kb * TC_TILE
+            kt, vt = k[:, k0:k0 + TC_TILE], v[:, k0:k0 + TC_TILE]
+            x = torch.matmul(qt, kt.transpose(1, 2))
+            cols = k0 + torch.arange(kt.shape[1])
+            if causal:
+                x = x.masked_fill(cols[None, :] > rows[:, None],
+                                  float("-inf"))
+            m_new = torch.maximum(m, x.amax(-1) * scale_log2)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(x * scale_log2 - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.matmul(
+                p.bfloat16().float(), vt)
+            m = m_new
+        l_safe = torch.where(l > 0, l, torch.ones_like(l))
+        o[:, q0:q0 + TC_TILE] = (acc / l_safe[..., None]).bfloat16().float()
+        lse[:, q0:q0 + TC_TILE] = torch.where(
+            l > 0, m * np.log(2.0) + torch.log(l_safe),
+            torch.full_like(l, tfa.NEG_INF))
+    return o, lse
+
+
+def _bf16_values(seed, bh, s, d):
+    """Three (BH, S, D) float32 arrays holding bf16-representable values."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((bh, s, d)).astype(
+        np.float32)).bfloat16().float().numpy() for _ in range(3)]
+
+
+@pytest.mark.parametrize("s,causal", [(256, True), (48, True), (100, False)])
+def test_tensor_core_forward_numerics_match_pallas_kernel(s, causal):
+    """The tensor-core design's numerics (bf16 P, log2-unit softmax,
+    64-row tiles over a ragged S) against the JAX Pallas forward run
+    through the interpreter on the same bf16 values, at D = 64."""
+    q, k, v = _bf16_values(10 + s, 2, s, 64)
+    block = jfa._pick_block(s, 64)
+    o_j, lse_j = jfa._flash_fwd_bhsd(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal, True, block,
+                                     block)
+    o_j, lse_j = np.asarray(o_j), np.asarray(lse_j)
+    o_t, lse_t = _tc_forward_emulation(torch.from_numpy(q),
+                                       torch.from_numpy(k),
+                                       torch.from_numpy(v), causal)
+    o_tol = BF16_O_TOL * max(1.0, float(np.abs(o_j).max()))
+    lse_tol = BF16_LSE_TOL * max(1.0, float(np.abs(lse_j).max()))
+    assert float(np.abs(o_t.numpy() - o_j).max()) <= o_tol
+    assert float(np.abs(lse_t.numpy() - lse_j).max()) <= lse_tol
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_route(dtype, d):
+    """bf16 at D >= 16 takes the tensor-core forward; float32 (full
+    float32 products) and D = 8 (narrower than the k16 step) take the
+    CUDA-core one.  Every route has its own launch count."""
+    want = ("flash_fwd" if dtype == torch.bfloat16 and d >= 16
+            else "flash_fwd_simt")
+    assert tfa._fwd_route(dtype, d) == want
+    assert want in tfa.LAUNCHES
+
+
+def _fault_inputs(fault):
+    """(q, k, v, do, lse, delta) with one thing a kernel does not take."""
+    bh, s, d = 2, 16, 16
+    q, k, v, do = (torch.zeros(bh, s, d, dtype=torch.bfloat16)
+                   for _ in range(4))
+    lse, delta = torch.zeros(bh, s), torch.zeros(bh, s)
+    if fault == "dtype":
+        q = q.half()
+    elif fault == "head dim":
+        q = torch.zeros(bh, s, 24, dtype=torch.bfloat16)
+    elif fault == "non-contiguous":
+        k = torch.zeros(bh, d, s, dtype=torch.bfloat16).transpose(1, 2)
+    elif fault == "mixed devices":
+        v = torch.zeros(bh, s, d, dtype=torch.bfloat16, device="meta")
+    return q, k, v, do, lse, delta
+
+
+_WRAPPERS = {
+    "flash_fwd": lambda q, k, v, do, lse, delta: tfa.flash_fwd(q, k, v, True),
+    "flash_bwd_dkv": lambda *a: tfa.flash_bwd_dkv(*a, True),
+    "flash_bwd_dq": lambda *a: tfa.flash_bwd_dq(*a, True),
+}
+
+
+@pytest.mark.parametrize("fault", ["dtype", "head dim", "non-contiguous",
+                                   "mixed devices"])
+@pytest.mark.parametrize("wrapper", sorted(_WRAPPERS))
+def test_wrappers_raise_before_any_launch(monkeypatch, wrapper, fault):
+    """Inputs a kernel does not take raise before the library is loaded:
+    ``_on_cpu`` is made to answer "on the card" (except for mixed
+    devices, which it refuses itself), and no launch is counted."""
+    def no_library():
+        raise AssertionError("the kernel library was reached")
+
+    if fault != "mixed devices":
+        monkeypatch.setattr(tfa, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(tfa, "_library", no_library)
+    tfa.reset_launches()
+    with pytest.raises((TypeError, ValueError)):
+        _WRAPPERS[wrapper](*_fault_inputs(fault))
+    assert not any(tfa.LAUNCHES.values())
+
+
+def test_tensor_core_forward_refuses_what_it_cannot_take(monkeypatch):
+    """The tensor-core route raises, without launching, on float32, on
+    D = 8 and on inputs that are not 16-byte aligned."""
+    def no_library():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(tfa, "_library", no_library)
+    tfa.reset_launches()
+    bf = torch.zeros(2, 16, 16, dtype=torch.bfloat16)
+    for q in (bf.float(), torch.zeros(2, 16, 8, dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="bfloat16 with D"):
+            tfa._launch_fwd("flash_fwd", q, q, q, True)
+    shifted = torch.zeros(2 * 16 * 16 + 1, dtype=torch.bfloat16)[1:].view(
+        2, 16, 16)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._launch_fwd("flash_fwd", shifted, bf, bf, True)
+    assert not any(tfa.LAUNCHES.values())
