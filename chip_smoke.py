@@ -16,11 +16,13 @@ Phases, each fatal on failure:
    one PyTorch call computes the same function, that call (a yardstick
    only: the port never calls it).  Flash attention within stated
    tolerances (bf16 at the slice's shapes and at D = 128, float32 causal
-   and not, odd sequence lengths, every head dim), each forward case
-   checked to take the kernel its route names (bf16 D >= 16: the
-   tensor-core forward; float32 and D = 8: the CUDA-core one); the
-   CUDA-core forward also at the slice's shapes, timed beside the
-   tensor-core forward and SDPA; the quantizer (int8 and int4, NaN,
+   and not, odd sequence lengths, every head dim), each forward and
+   backward case checked to take the kernels its route names (bf16
+   D >= 16: the tensor-core kernels; float32 and D = 8: the CUDA-core
+   ones); the CUDA-core forward and backward pair also at the slice's
+   shapes, timed beside the tensor-core kernels and SDPA (the backward
+   against SDPA's backward with its backend pinned, by profiler device
+   time beside that of delta + dK/dV + dQ); the quantizer (int8 and int4, NaN,
    inf and all-zero tiles, an odd tile), the dequantizer, finalize
    (float32, bf16, fp16, int32 with rounding and ties, ragged n % 4 =
    1, 2, 3, a view 4 bytes off 16-byte alignment) and momentum bit for
@@ -33,8 +35,9 @@ Phases, each fatal on failure:
    control-count 4, with ``use_flash: true``, 128 samples = 4 steps)
    through ``split_learning_torch.run.run_local`` on CUDA, with the
    kernels' launch counts zeroed just before and read just after (the
-   bf16 forward takes the tensor-core kernel, 176 launches a step, and
-   the CUDA-core forward is launched 0 times);
+   bf16 forward takes the tensor-core kernel, 176 launches a step, each
+   tensor-core backward kernel 88 a step, and the CUDA-core kernels are
+   launched 0 times);
 5. profile — the same round once more, warm, with its device kernels
    traced by ``torch.profiler`` (not counted): round wall, the device's
    busy and idle share, and the kernels that take the most device time;
@@ -45,7 +48,9 @@ Phases, each fatal on failure:
    ``server-momentum: 0.9`` for 2 rounds, every kernel flag on — then one
    more round with ``server-momentum: 0``, because with momentum every
    TinyLlama leaf takes the momentum kernel and only a plain FedAvg
-   round finalizes.  Counts zeroed before and read after;
+   round finalizes.  Counts zeroed before and read after (each
+   tensor-core backward kernel 176 launches a round, the CUDA-core
+   kernels 0);
 7. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -78,6 +83,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # the slice's flash-attention shapes: (B*H, S, D) = (8*32, 256, 64), bf16
 SLICE_SHAPE = (8 * 32, 256, 64)
+# the kernels that the bf16 main paths must never launch
+SIMT_KERNELS = ("flash_fwd_simt", "flash_bwd_dkv_simt", "flash_bwd_dq_simt")
 # one activation / gradient frame at a cut: (batch, sequence, hidden)
 FRAME_SHAPE = (8, 256, 2048)
 # the largest parameter leaf (embedding and LM head): (vocab, hidden)
@@ -95,6 +102,10 @@ KERNELS = {
                       "split_learning_tpu/ops/flash_attention.py:134"),
     "flash_bwd_dq": ("split_learning_torch/csrc/flash_attention.cu",
                      "split_learning_tpu/ops/flash_attention.py:173"),
+    "flash_bwd_dkv_simt": ("split_learning_torch/csrc/flash_attention.cu",
+                           "split_learning_tpu/ops/flash_attention.py:134"),
+    "flash_bwd_dq_simt": ("split_learning_torch/csrc/flash_attention.cu",
+                          "split_learning_tpu/ops/flash_attention.py:173"),
     "quantize": ("split_learning_torch/csrc/quant.cu",
                  "split_learning_tpu/ops/kernels/quant.py:37"),
     "dequantize": ("split_learning_torch/csrc/quant.cu",
@@ -248,7 +259,7 @@ def _bytes_and_flops(name: str, shape, dtype, causal: bool):
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     if name.startswith("flash_fwd"):   # q,k,v -> o, lse; QK^T and PV
         return 4 * mat + row, 4 * d * pairs
-    if name == "flash_bwd_dkv":   # q,k,v,dO,lse,delta -> dk,dv; 4 products
+    if name.startswith("flash_bwd_dkv"):   # q,k,v,dO,lse,delta -> dk,dv
         return 6 * mat + 2 * row, 8 * d * pairs
     return 5 * mat + 2 * row, 6 * d * pairs   # dq: 3 products
 
@@ -286,22 +297,40 @@ def phase_kernels() -> dict:
                                             v.float(), causal)
 
         route = fa._fwd_route(dtype, shape[-1])
-        before = dict(fa.LAUNCHES)
-        o, lse = fa.flash_fwd(q, k, v, causal)
-        took = {n for n in fa.LAUNCHES if fa.LAUNCHES[n] != before[n]}
-        check(took == {route}, f"flash_fwd {label}: launched {took}, its "
-              f"route is {route}")
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_in, delta, causal)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse_in, delta, causal)
+        sfx = "" if fa._bwd_route(dtype, shape[-1]) == "tc" else "_simt"
+        dkv_name, dq_name = f"flash_bwd_dkv{sfx}", f"flash_bwd_dq{sfx}"
+
+        def launched(call, want, what):
+            before = dict(fa.LAUNCHES)
+            out = call()
+            took = {n for n in fa.LAUNCHES if fa.LAUNCHES[n] != before[n]}
+            check(took == {want}, f"{what} {label}: launched {took}, its "
+                  f"route is {want}")
+            return out
+
+        o, lse = launched(lambda: fa.flash_fwd(q, k, v, causal), route,
+                          "flash_fwd")
+        dk, dv = launched(lambda: fa.flash_bwd_dkv(q, k, v, do, lse_in,
+                                                   delta, causal),
+                          dkv_name, "flash_bwd_dkv")
+        dq = launched(lambda: fa.flash_bwd_dq(q, k, v, do, lse_in, delta,
+                                              causal), dq_name,
+                      "flash_bwd_dq")
         errs = {route: [("o", o, o_ref32), ("lse", lse, lse_ref)],
-                "flash_bwd_dkv": [("dk", dk, dk_ref), ("dv", dv, dv_ref)],
-                "flash_bwd_dq": [("dq", dq, dq_ref)]}
+                dkv_name: [("dk", dk, dk_ref), ("dv", dv, dv_ref)],
+                dq_name: [("dq", dq, dq_ref)]}
         if ci == 0:
-            # the CUDA-core forward at the slice's shapes too: it is the
-            # float32 route, and the yardstick of the tensor-core one
+            # the CUDA-core kernels at the slice's shapes too: they are
+            # the float32 route, and the yardsticks of the tensor-core ones
             o_s, lse_s = fa._launch_fwd("flash_fwd_simt", q, k, v, causal)
             errs["flash_fwd_simt"] = [("o", o_s, o_ref32),
                                       ("lse", lse_s, lse_ref)]
+            dk_s, dv_s = fa._launch_dkv("simt", q, k, v, do, lse_in, delta,
+                                        causal)
+            errs["flash_bwd_dkv_simt"] = [("dk", dk_s, dk_ref),
+                                          ("dv", dv_s, dv_ref)]
+            errs["flash_bwd_dq_simt"] = [("dq", fa._launch_dq(
+                "simt", q, k, v, do, lse_in, delta, causal), dq_ref)]
         torch.cuda.synchronize()
         for name, outs in errs.items():
             worst = 0.0
@@ -310,7 +339,7 @@ def phase_kernels() -> dict:
                       f"{name} {label}: non-finite {kind}")
                 err, ref_max = _max_err(out, ref)
                 tol = _tolerance(dtype, kind, ref_max)
-                print(f"  {name:14s} {label:24s} {kind:3s} max_abs_err "
+                print(f"  {name:18s} {label:24s} {kind:3s} max_abs_err "
                       f"{err:.3e} (max|ref| {ref_max:.3g}, tol {tol:.3e})")
                 check(err <= tol, f"{name} {label}: {kind} max_abs_err "
                       f"{err} > tol {tol}")
@@ -336,12 +365,24 @@ def phase_kernels() -> dict:
                 lambda: fa.flash_bwd_dq(q, k, v, do, lse_in, delta, causal),
                 lambda: fa.flash_bwd_dq_reference(
                     q32, k32, v32, do32, lse_in, delta, causal)),
+            "flash_bwd_dkv_simt": (
+                lambda: fa._launch_dkv("simt", q, k, v, do, lse_in, delta,
+                                       causal),
+                lambda: fa.flash_bwd_dkv_reference(
+                    q32, k32, v32, do32, lse_in, delta, causal)),
+            "flash_bwd_dq_simt": (
+                lambda: fa._launch_dq("simt", q, k, v, do, lse_in, delta,
+                                      causal),
+                lambda: fa.flash_bwd_dq_reference(
+                    q32, k32, v32, do32, lse_in, delta, causal)),
         }
         b, h = 8, 32
         q4, k4, v4 = (t.view(b, h, shape[1], shape[2]) for t in (q, k, v))
         sdpa = (lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                        is_causal=True))
         library = {"flash_fwd": sdpa, "flash_fwd_simt": sdpa}
+        bwd_ms = _backward_yardstick(q, k, v, do, o, lse_in, causal,
+                                     (q4, k4, v4))
         for name, (kern, plain) in runs.items():
             nbytes, flops = _bytes_and_flops(name, shape, dtype, causal)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -349,24 +390,85 @@ def phase_kernels() -> dict:
             r = results[name]
             r["ms"] = _time_ms(kern)
             r["plain_ms"] = _time_ms(plain)
+            # the backward's library call computes dq, dk and dv together
             r["library_ms"] = (_time_ms(library[name]) if name in library
-                               else None)
+                               else bwd_ms)
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             r["bytes"], r["flops"] = nbytes, flops
-            print(f"  {name:14s} kernel {r['ms']:.4f} ms  plain "
+            print(f"  {name:18s} kernel {r['ms']:.4f} ms  plain "
                   f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        # the library's backward (dq, dk, dv together) as a yardstick
-        qg, kg, vg = (t.detach().clone().requires_grad_() for t in
-                      (q4, k4, v4))
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        do4 = do.view_as(out)
-        sdpa_bwd = _time_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do4, retain_graph=True))
-        print(f"  sdpa backward (dq, dk, dv in one call): {sdpa_bwd:.4f} ms")
     return results
+
+
+def _device_ms(fn, reps: int = 20) -> tuple[float, dict]:
+    """Device time of one ``fn()`` in ms from ``torch.profiler`` (CUPTI),
+    each of ``reps`` runs after the L2 flush of :func:`_time_ms` (whose
+    own fill kernel is left out), and the time of each kernel it ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    _time_ms(fn, reps=1, warmup=3)   # warm, and the flush buffer made
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            _FLUSH.zero_()
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        if (e.device_type != DeviceType.CUDA or _device_us(e) <= 0
+                or "FillFunctor<unsigned char>" in e.key):
+            continue
+        name = _kernel_name(e.key)
+        per[name] = per.get(name, 0.0) + _device_us(e) / 1e3 / reps
+    return sum(per.values()), per
+
+
+def _sdpa_backward(q4, k4, v4, do4):
+    """SDPA's backward (dq, dk and dv together) as one autograd call on
+    one recorded node, its backend pinned: the first of cuDNN, flash and
+    memory-efficient attention that takes these inputs.  Returns the
+    call and the backend's name."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        qg, kg, vg = (t.detach().clone().requires_grad_()
+                      for t in (q4, k4, v4))
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qg, kg, vg,
+                                                     is_causal=True)
+        except RuntimeError:
+            continue
+        return (lambda: torch.autograd.grad(out, (qg, kg, vg), do4,
+                                            retain_graph=True),
+                backend.name)
+    raise SmokeFailure("no SDPA backend takes the slice's shapes")
+
+
+def _backward_yardstick(q, k, v, do, o, lse, causal, qkv4) -> float:
+    """The library's backward at the slice's shapes against the port's:
+    profiler device time of SDPA's backward (pinned backend) beside that
+    of the port's backward as ``_Flash.backward`` runs it on the bf16
+    route — the ``delta`` pre-pass, then dK/dV and dQ.  Returns the
+    library's device time in ms."""
+    from split_learning_torch.ops import flash_attention as fa
+    lib_call, backend = _sdpa_backward(*qkv4, do.view_as(qkv4[0]))
+    lib_ms, lib_split = _device_ms(lib_call)
+    print(f"  sdpa backward ({backend}; dq, dk, dv in one call): device "
+          f"{lib_ms:.4f} ms, events {_time_ms(lib_call):.4f} ms; kernels "
+          + ", ".join(f"{n[:60]} {t:.4f}" for n, t in lib_split.items()))
+
+    def port_backward():
+        delta = (do.float() * o.float()).sum(dim=-1)
+        fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    ms, split = _device_ms(port_backward)
+    print(f"  port backward (delta + dK/dV + dQ): device {ms:.4f} ms = "
+          f"{ms / lib_ms:.2f}x the library's; kernels "
+          + ", ".join(f"{n[:60]} {t:.4f}" for n, t in split.items()))
+    return lib_ms
 
 
 def phase_model_check() -> None:
@@ -591,13 +693,14 @@ def phase_slice(cfg) -> dict:
     check(rec.ok, f"round not ok: {rec}")
     check(math.isfinite(rec.val_loss) and math.isfinite(rec.val_accuracy),
           f"non-finite validation: {rec}")
-    # the bf16 forward is the tensor-core kernel's; the CUDA-core forward
-    # is the float32 route and must not run here
-    check(launches["flash_fwd_simt"] == 0, f"the CUDA-core forward ran "
-          f"{launches['flash_fwd_simt']} times on the bf16 main path")
+    # the bf16 kernels are the tensor-core ones; the CUDA-core kernels
+    # are the float32 route and must not run here
     for name, n in launches.items():
-        check(n > 0 or name == "flash_fwd_simt",
-              f"kernel {name} was not launched on the main path")
+        if name in SIMT_KERNELS:
+            check(n == 0, f"the CUDA-core {name} ran {n} times on the bf16 "
+                  "main path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the main path")
     steps = max(1, (cfg.distribution.num_samples // lrn.batch_size)
                 // lrn.control_count)
     check(rec.num_samples == steps * lrn.control_count * lrn.batch_size,
@@ -621,6 +724,11 @@ def phase_slice(cfg) -> dict:
     check(per_step["flash_fwd"] == 2 * n_block * lrn.control_count,
           f"tensor-core forward launches per step {per_step['flash_fwd']}, "
           f"expected {2 * n_block * lrn.control_count}")
+    # the backward once per block per microbatch
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        check(per_step[name] == n_block * lrn.control_count,
+              f"tensor-core {name} launches per step {per_step[name]}, "
+              f"expected {n_block * lrn.control_count}")
     seq = 256
     tokens = rec.num_samples * seq
     out = {"round_wall_s": rec.wall_s, "run_local_wall_s": wall,
@@ -731,15 +839,15 @@ TINY_PROTOCOL = {
 }
 
 
-def phase_protocol_check(workdir: pathlib.Path) -> int:
+def phase_protocol_check(workdir: pathlib.Path) -> dict:
     """A tiny float32 protocol round (3 stages, int8 codec, CUDA fold
     with momentum) on the card twice: every kernel flag on, then every
     flag off (the plain chains on the card).  With one batch in flight
     each stage steps in a fixed order, and each kernel equals its plain
     version bit for bit, so the two runs' validation losses and final
     parameters must agree to float32 noise (1e-5: cuBLAS may pick other
-    GEMM algorithms between the runs).  Its float32 forward takes the
-    CUDA-core kernel: returns that kernel's launches in the first run."""
+    GEMM algorithms between the runs).  Its float32 forward and backward
+    take the CUDA-core kernels: returns their launches in the first run."""
     from split_learning_torch.config import from_dict
     from split_learning_torch.ops import flash_attention as fa
 
@@ -752,10 +860,11 @@ def phase_protocol_check(workdir: pathlib.Path) -> int:
         fa.reset_launches()
         _, _, _, res = run_protocol(from_dict(d), timeout=120)
         if flags:
-            simt = fa.LAUNCHES["flash_fwd_simt"]
-            check(simt > 0 and fa.LAUNCHES["flash_fwd"] == 0,
-                  f"tiny float32 round: forward launches {fa.LAUNCHES}, "
-                  "expected the CUDA-core kernel only")
+            simt = {n: fa.LAUNCHES[n] for n in SIMT_KERNELS}
+            check(all(simt.values()) and not any(
+                fa.LAUNCHES[n] for n in fa.LAUNCHES if n not in simt),
+                  f"tiny float32 round: flash launches {fa.LAUNCHES}, "
+                  "expected the CUDA-core kernels only")
         check([r.ok for r in res.history] == [True, True],
               f"tiny protocol round not ok: {res.history}")
         runs.append(res)
@@ -772,7 +881,7 @@ def phase_protocol_check(workdir: pathlib.Path) -> int:
           "(tol 1e-5)")
     check(loss_err <= 1e-5 and param_err <= 1e-5,
           "tiny protocol round: kernels disagree with the plain chains")
-    print(f"  tiny float32 round: CUDA-core forward launched {simt} times")
+    print(f"  tiny float32 round: CUDA-core kernels launched {simt}")
     return simt
 
 
@@ -896,11 +1005,20 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
           and math.isfinite(res0.history[0].val_loss),
           f"plain FedAvg protocol round failed: {res0.history}")
     total = {k: launches[k] + launches0[k] for k in launches}
-    check(total["flash_fwd_simt"] == 0, f"the CUDA-core forward ran "
-          f"{total['flash_fwd_simt']} times on the bf16 protocol path")
     for name, n in total.items():
-        check(n > 0 or name == "flash_fwd_simt",
-              f"kernel {name} was not launched on the protocol path")
+        if name in SIMT_KERNELS:
+            check(n == 0, f"the CUDA-core {name} ran {n} times on the bf16 "
+                  "protocol path")
+        else:
+            check(n > 0, f"kernel {name} was not launched on the protocol "
+                  "path")
+    # the backward once per block per training batch of the round
+    per_round = (mk.get("n_block", 22) * n_edge
+                 * cfg.distribution.num_samples // lrn.batch_size)
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        got = (launches[name] / len(res.history), launches0[name])
+        check(got == (per_round, per_round), f"tensor-core {name} launches "
+              f"per protocol round {got}, expected {per_round}")
 
     seq = 256
     rounds = [{"round": r.round_idx, "wall_s": r.wall_s,
@@ -967,8 +1085,8 @@ def main() -> int:
         by_path = {"protocol": proto["launches_total"][name]}
         if name in sl["launches"]:
             by_path["slice"] = sl["launches"][name]
-        if name == "flash_fwd_simt":   # the float32 route
-            by_path["tiny_float32_protocol_check"] = tiny_simt
+        if name in tiny_simt:   # the float32 route
+            by_path["tiny_float32_protocol_check"] = tiny_simt[name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

@@ -3,11 +3,15 @@
 // Replaces the three Pallas TPU kernels of the JAX package's
 // split_learning_tpu/ops/flash_attention.py:
 //
-//   flash_fwd_tc_kernel   <- _fwd_kernel      (:62-102, via _flash_fwd_bhsd)
-//                            bfloat16, D in {16, 32, 64, 128}
-//   flash_fwd_kernel      <- _fwd_kernel      float32, and bfloat16 D = 8
-//   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel  (:134-170, via _flash_bwd_rule)
-//   flash_bwd_dq_kernel   <- _bwd_dq_kernel   (:173-205, via _flash_bwd_rule)
+//   flash_fwd_tc_kernel      <- _fwd_kernel      (:62-102, via _flash_fwd_bhsd)
+//                               bfloat16, D in {16, 32, 64, 128}
+//   flash_fwd_kernel         <- _fwd_kernel      float32, and bfloat16 D = 8
+//   flash_bwd_dkv_tc_kernel  <- _bwd_dkv_kernel  (:134-170, via _flash_bwd_rule)
+//                               bfloat16, D in {16, 32, 64, 128}
+//   flash_bwd_dkv_kernel     <- _bwd_dkv_kernel  float32, and bfloat16 D = 8
+//   flash_bwd_dq_tc_kernel   <- _bwd_dq_kernel   (:173-205, via _flash_bwd_rule)
+//                               bfloat16, D in {16, 32, 64, 128}
+//   flash_bwd_dq_kernel      <- _bwd_dq_kernel   float32, and bfloat16 D = 8
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are (BH, S, D) row-major, contiguous,
 // in float32 or bfloat16; lse and delta are (BH, S) float32.  lse is the
@@ -52,7 +56,55 @@
 //   not lose precision to bf16 or TF32 (Precision.HIGHEST), so both keep
 //   flash_fwd_kernel.
 //
-// flash_fwd_kernel and the two backward kernels (first, simple version):
+// flash_bwd_dkv_tc_kernel (dK and dV of the bf16 main path), the
+// transposed form of FlashAttention-2's backward, on the forward's tiles:
+//   * One block of 4 warps per (bh, 64-row K tile); each warp owns 16 K
+//     rows.  Under causality K tile 0 loops over every Q tile, so blocks
+//     go in index order: the heaviest of each head first.
+//   * K and V are staged once (16-byte cp.async) and held in registers as
+//     A fragments (at D = 128 they stay in shared memory and are read by
+//     ldmatrix at each product: in registers they would spill beside the
+//     doubled dK/dV accumulators).
+//   * Q, dO, lse and delta tiles stream through a 3-stage cp.async ring
+//     (2 at D = 128); bf16 rows swizzled as in the forward, the two float
+//     rows by 4-byte copies (zero-filled past S, any row alignment).
+//   * S^T = K Q^T and dP^T = V dO^T, with Q and dO as B operands by plain
+//     ldmatrix: the accumulators of S^T and dP^T are then laid out as the
+//     A operand of the next product, so P^T and dS^T never touch shared
+//     memory.  lse and delta are indexed by the column (the query) and
+//     read as float2 from the ring's row buffers.
+//   * P^T = 2^(s*scale*log2(e) - lse*log2(e)) is rounded to bf16 for
+//     dV += P^T dO; dS^T = P^T (dP^T - delta) * scale, from the float32
+//     P^T, is rounded to bf16 for dK += dS^T Q (Precision.DEFAULT's one
+//     bf16 pass); dO and Q are read by ldmatrix.trans there.  Only the
+//     diagonal and ragged tiles are masked (p = 0).
+//   * dK and dV accumulate in float32 registers and go out through this
+//     warp's rows of the K and V tiles as 16-byte bf16 stores.  No atomics:
+//     each block owns its dK/dV tile, as in the TPU decomposition, so the
+//     result is deterministic.
+//   At D = 64: 243 registers, no spills, 65.5 KB of shared memory, so 2
+//   blocks an SM.  Bounding it to 3 blocks spills; K and V read from
+//   shared memory at every product, and rings of 2 or 4 stages, were all
+//   no faster on an H100.
+//
+// flash_bwd_dq_tc_kernel (dQ of the bf16 main path), the forward's shape
+// with one more product:
+//   * One block of 4 warps per (bh, 64-row Q tile), heaviest (last Q
+//     tile) first.  Q and dO are held in registers as A fragments; lse (in
+//     log2 units) and delta of the thread's two rows in registers.
+//   * K/V tiles stream through a 3-stage cp.async ring (2 at D = 128) up
+//     to the diagonal.  S = Q K^T and dP = dO V^T with K and V as B
+//     operands by plain ldmatrix; p = 2^(...) and dS = p (dP - delta) *
+//     scale in float32 registers; dS rounded to bf16 is the A operand of
+//     dQ += dS K, K read by ldmatrix.trans.  Only the diagonal and ragged
+//     tiles are masked.
+//   * dQ goes out through this warp's rows of the Q tile as 16-byte stores.
+//   At D = 64 it is bounded to 3 blocks an SM (168 registers, no spills,
+//   64 KB of shared memory); unbounded it takes 232 and 2 blocks, ~8 %
+//   slower on an H100.
+//
+// flash_fwd_kernel and the two CUDA-core backward kernels (the float32 and
+// D = 8 routes):
 //   * One thread block of 256 threads (a 16 x 16 grid) per (bh, 64-row
 //     tile): a Q tile for the forward and dQ, a K tile for dK/dV.  Blocks
 //     run in parallel; the loop over the other axis inside the block takes
@@ -808,6 +860,427 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores
+// ---------------------------------------------------------------------------
+
+// 4-byte copy; src-size 0 zero-fills without reading
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Issue the copies of lse[r0, r0 + 64) and delta[r0, r0 + 64) of one row
+// of (BH, S) into two float rows of shared memory; entries past S are
+// zero.  One float a thread (4-byte copies: a row of (BH, S) is 16-byte
+// aligned only when S is a multiple of 4).
+__device__ __forceinline__ void stage_rows(uint32_t dst_lse,
+                                           uint32_t dst_delta,
+                                           const float* lse_row,
+                                           const float* delta_row, int r0,
+                                           int S) {
+  static_assert(kTcThreads == 2 * kTile, "one thread per copied float");
+  const int r = threadIdx.x & (kTile - 1);
+  const bool first = threadIdx.x < kTile;
+  const bool ok = r0 + r < S;
+  cp_async4((first ? dst_lse : dst_delta) + 4 * r,
+            (first ? lse_row : delta_row) + (ok ? r0 + r : 0), ok);
+}
+
+// A fragments of rows [16 * warp, 16 * warp + 16) of a swizzled tile, k16
+// step kk
+template <int CH>
+__device__ __forceinline__ void ldsm_a(uint32_t tile, int warp, int lane,
+                                       int kk, uint32_t (&a)[4]) {
+  ldsm_x4(tile + swz<CH>(warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                         2 * kk + (lane >> 4)),
+          a);
+}
+
+// acc[8][4] += A (16 x D) * T^T over a 64-row tile T (its rows are the n
+// index), T read as the col-major B operand by plain ldmatrix.  A is the
+// fragments af (kRegA) or this warp's rows of the tile at sA.
+template <int D, bool kRegA>
+__device__ __forceinline__ void mma_rows_by_tile(
+    float (&acc)[8][4], const uint32_t (&af)[D / 16][4], uint32_t sA,
+    uint32_t sT, int warp, int lane) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (kRegA) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = af[kk][e];
+    } else {
+      ldsm_a<CH>(sA, warp, lane, kk, a);
+    }
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(sT + swz<CH>(jp * 16 + (lane & 7) + (lane >> 4) * 8,
+                           2 * kk + ((lane >> 3) & 1)),
+              b);
+      mma_bf16(acc[2 * jp], a, b[0], b[1]);
+      mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[D/8][4] += A (16 x 64, bf16 fragments) * T over a 64-row tile T
+// (its rows are the k index), T read as the col-major B operand by
+// ldmatrix.trans
+template <int D>
+__device__ __forceinline__ void mma_frags_by_tile(float (&acc)[D / 8][4],
+                                                  const uint32_t (&f)[4][4],
+                                                  uint32_t sT, int lane) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int np = 0; np < D / 16; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(sT + swz<CH>(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             2 * np + (lane >> 4)),
+                b);
+      mma_bf16(acc[2 * np], f[kk], b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], f[kk], b[2], b[3]);
+    }
+  }
+}
+
+// Two adjacent n8 accumulator tiles 2kk, 2kk + 1 of a 16 x 64 float32
+// block, rounded to bf16, are the k16 A fragment kk of the next product.
+__device__ __forceinline__ void pack_frags(const float (&x)[8][4],
+                                           uint32_t (&f)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    f[j >> 1][(j & 1) * 2] = pack_bf16(x[j][0], x[j][1]);
+    f[j >> 1][(j & 1) * 2 + 1] = pack_bf16(x[j][2], x[j][3]);
+  }
+}
+
+// Write a warp's 16 x D float32 accumulators as bf16 into its rows of a
+// swizzled tile, then copy those rows to out[r0 + 16 * warp + r] (rows
+// below S) with 16-byte stores.
+template <int D>
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[D / 8][4],
+                                                unsigned char* tile,
+                                                __nv_bfloat16* out, int r0,
+                                                int S, int warp, int lane) {
+  constexpr int CH = D / 8;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < CH; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t off = swz<CH>(warp * 16 + g + 8 * r, n) + 4 * t;
+      *reinterpret_cast<uint32_t*>(tile + off) =
+          pack_bf16(acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * CH / 32; ++i) {
+    const int r = (lane + 32 * i) / CH, c = (lane + 32 * i) % CH;
+    const int row = r0 + warp * 16 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(out + (size_t)row * D + c * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz<CH>(warp * 16 + r, c));
+  }
+}
+
+// Stages of the backward rings (Q, dO and their two float rows for dK/dV;
+// K and V for dQ): 3 at D <= 64, so that a ring and the tiles a block
+// keeps fit 3 blocks an SM; 2 at D = 128.
+template <int D>
+__host__ __device__ constexpr int bwd_tc_stages() {
+  return D <= 64 ? 3 : 2;
+}
+
+template <int D>
+constexpr size_t dkv_tc_smem() {   // K, V, then Q and dO per stage, rows
+  return (size_t)(2 + 2 * bwd_tc_stages<D>()) * kTile * D *
+             sizeof(__nv_bfloat16) +
+         (size_t)2 * bwd_tc_stages<D>() * kTile * sizeof(float);
+}
+
+template <int D>
+constexpr size_t dq_tc_smem() {   // Q, dO, then K and V per stage
+  return (size_t)(2 + 2 * bwd_tc_stages<D>()) * kTile * D *
+         sizeof(__nv_bfloat16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int S, float scale,
+                        float scale_log2, int causal) {
+  constexpr int CH = D / 8;    // 16-byte chunks of a row; n8 tiles of dK
+  constexpr int KD = D / 16;   // k16 steps of K Q^T
+  constexpr int NS = bwd_tc_stages<D>();
+  constexpr bool kRegKV = D <= 64;
+  constexpr uint32_t kTileBytes = kTile * D * sizeof(__nv_bfloat16);
+  constexpr uint32_t kRowBytes = kTile * sizeof(float);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sK = smem_u32(tc_smem);
+  const uint32_t sV = sK + kTileBytes;
+  const uint32_t sQ0 = sV + kTileBytes;          // NS Q tiles
+  const uint32_t sO0 = sQ0 + NS * kTileBytes;    // NS dO tiles
+  const uint32_t sL0 = sO0 + NS * kTileBytes;    // NS lse rows
+  const uint32_t sD0 = sL0 + NS * kRowBytes;     // NS delta rows
+  const float* rows = reinterpret_cast<const float*>(
+      tc_smem + (2 + 2 * NS) * kTileBytes);      // sL0, then sD0
+
+  const int kb = blockIdx.x;   // K tile 0 (the most Q tiles) first
+  const int k0 = kb * kTile;
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const float* lse_row = lse + (size_t)blockIdx.y * S;
+  const float* delta_row = delta + (size_t)blockIdx.y * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int krow = k0 + warp * 16 + (lane >> 2);   // keys krow, krow + 8
+
+  const int nq = (S + kTile - 1) / kTile;
+  const int qb0 = causal ? kb : 0;   // Q tiles before the diagonal see none
+  const int n_it = nq - qb0;
+
+  // copy group i holds the Q-side tiles of step i (group 0 also K and V);
+  // a group is committed every step, empty past the last tile
+  stage_tile_bf16<D>(sK, k + base, k0, S);
+  stage_tile_bf16<D>(sV, v + base, k0, S);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_it) {
+      const int r0 = (qb0 + i) * kTile;
+      stage_tile_bf16<D>(sQ0 + i * kTileBytes, q + base, r0, S);
+      stage_tile_bf16<D>(sO0 + i * kTileBytes, dout + base, r0, S);
+      stage_rows(sL0 + i * kRowBytes, sD0 + i * kRowBytes, lse_row,
+                 delta_row, r0, S);
+    }
+    cp_async_commit();
+  }
+
+  uint32_t kf[KD][4], vf[KD][4];
+  float dka[CH][4], dva[CH][4];
+#pragma unroll
+  for (int n = 0; n < CH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();   // step it's tiles have landed; step it-1's are free
+    if constexpr (kRegKV) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          ldsm_a<CH>(sK, warp, lane, kk, kf[kk]);
+          ldsm_a<CH>(sV, warp, lane, kk, vf[kk]);
+        }
+      }
+    }
+    {   // refill the stage step it-1 used with step it + NS - 1
+      const int nt = it + NS - 1;
+      if (nt < n_it) {
+        const int st = nt % NS, r0 = (qb0 + nt) * kTile;
+        stage_tile_bf16<D>(sQ0 + st * kTileBytes, q + base, r0, S);
+        stage_tile_bf16<D>(sO0 + st * kTileBytes, dout + base, r0, S);
+        stage_rows(sL0 + st * kRowBytes, sD0 + st * kRowBytes, lse_row,
+                   delta_row, r0, S);
+      }
+      cp_async_commit();
+    }
+    const int st = it % NS;
+    const uint32_t sQ = sQ0 + st * kTileBytes;
+    const uint32_t sO = sO0 + st * kTileBytes;
+    const float* sL = rows + st * kTile;
+    const float* sDl = rows + (NS + st) * kTile;
+    const int qb = qb0 + it;
+    const int q0 = qb * kTile;
+
+    // S^T = K Q^T: this warp's 16 keys x 64 queries, eight n8 tiles
+    float p[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+    mma_rows_by_tile<D, kRegKV>(p, kf, sK, sQ, warp, lane);
+
+    // P^T = 2^(s*scale*log2(e) - lse*log2(e)), lse by column (query);
+    // masked entries (diagonal and ragged tiles only) are 0
+    const bool edge = (causal && qb == kb) || q0 + kTile > S ||
+                      k0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lc = (e & 1) ? l2.y : l2.x;
+        float x = ex2f(fmaf(p[j][e], scale_log2, -lc * kLog2e));
+        if (edge && !visible(q0 + j * 8 + 2 * t + (e & 1),
+                             krow + (e >> 1) * 8, S, causal))
+          x = 0.f;
+        p[j][e] = x;
+      }
+    }
+    uint32_t pf[4][4];
+    pack_frags(p, pf);
+    // dV += P^T dO: dO (queries x D) read transposed
+    mma_frags_by_tile<D>(dva, pf, sO, lane);
+
+    // dP^T = V dO^T
+    float dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+    mma_rows_by_tile<D, kRegKV>(dp, vf, sV, sO, warp, lane);
+
+    // dS^T = P^T (dP^T - delta) * scale, delta by column; dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(sDl + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = p[j][e] * (dp[j][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+    }
+    pack_frags(dp, pf);
+    mma_frags_by_tile<D>(dka, pf, sQ, lane);
+  }
+
+  // epilogue: each warp read only its own 16 rows of K and V, so it
+  // stages its dK and dV rows there
+  cp_async_wait<0>();
+  store_rows_bf16<D>(dka, tc_smem, dk + base, k0, S, warp, lane);
+  store_rows_bf16<D>(dva, tc_smem + kTileBytes, dv + base, k0, S, warp,
+                     lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, D <= 64 ? 3 : 1)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int S, float scale,
+                       float scale_log2, int causal) {
+  constexpr int CH = D / 8;
+  constexpr int KD = D / 16;
+  constexpr int NS = bwd_tc_stages<D>();
+  constexpr uint32_t kTileBytes = kTile * D * sizeof(__nv_bfloat16);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sQ = smem_u32(tc_smem);
+  const uint32_t sO = sQ + kTileBytes;
+  const uint32_t sK0 = sO + kTileBytes;          // NS K tiles
+  const uint32_t sV0 = sK0 + NS * kTileBytes;    // NS V tiles
+
+  // the last (under causal the heaviest) Q tile of each head first, as in
+  // the forward
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qb * kTile;
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int qrow = q0 + warp * 16 + (lane >> 2);   // rows qrow, qrow + 8
+
+  const int nk = (S + kTile - 1) / kTile;
+  const int nk_eff = causal ? min(nk, qb + 1) : nk;
+
+  stage_tile_bf16<D>(sQ, q + base, q0, S);
+  stage_tile_bf16<D>(sO, dout + base, q0, S);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < nk_eff) {
+      stage_tile_bf16<D>(sK0 + i * kTileBytes, k + base, i * kTile, S);
+      stage_tile_bf16<D>(sV0 + i * kTileBytes, v + base, i * kTile, S);
+    }
+    cp_async_commit();
+  }
+  // lse in log2 units and delta of the thread's two rows (0 past S)
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    const size_t at = (size_t)blockIdx.y * S + row;
+    lr[r] = row < S ? lse[at] * kLog2e : 0.f;
+    dr[r] = row < S ? delta[at] : 0.f;
+  }
+
+  uint32_t qf[KD][4], of[KD][4];
+  float dqa[CH][4];
+#pragma unroll
+  for (int n = 0; n < CH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int kb = 0; kb < nk_eff; ++kb) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();   // tile kb has landed; tile kb-1's stage is free
+    if (kb == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        ldsm_a<CH>(sQ, warp, lane, kk, qf[kk]);
+        ldsm_a<CH>(sO, warp, lane, kk, of[kk]);
+      }
+    }
+    {   // refill the stage tile kb-1 used with tile kb + NS - 1
+      const int nt = kb + NS - 1;
+      if (nt < nk_eff) {
+        const uint32_t off = (nt % NS) * kTileBytes;
+        stage_tile_bf16<D>(sK0 + off, k + base, nt * kTile, S);
+        stage_tile_bf16<D>(sV0 + off, v + base, nt * kTile, S);
+      }
+      cp_async_commit();
+    }
+    const uint32_t sK = sK0 + (kb % NS) * kTileBytes;
+    const uint32_t sV = sV0 + (kb % NS) * kTileBytes;
+    const int k0 = kb * kTile;
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x 64 keys each
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_rows_by_tile<D, true>(s, qf, sQ, sK, warp, lane);
+    mma_rows_by_tile<D, true>(dp, of, sO, sV, warp, lane);
+
+    // dS = p (dP - delta) * scale, p = 2^(s*scale*log2(e) - lse*log2(e));
+    // masked entries (diagonal and ragged tiles only) are 0
+    const bool edge = (causal && kb == qb) || k0 + kTile > S ||
+                      q0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = ex2f(fmaf(s[j][e], scale_log2, -lr[r]));
+        if (edge && !visible(qrow + 8 * r, k0 + j * 8 + 2 * t + (e & 1), S,
+                             causal))
+          x = 0.f;
+        dp[j][e] = x * (dp[j][e] - dr[r]) * scale;
+      }
+    uint32_t df[4][4];
+    pack_frags(dp, df);
+    // dQ += dS K: K (keys x D) read transposed
+    mma_frags_by_tile<D>(dqa, df, sK, lane);
+  }
+
+  // epilogue: each warp read only its own rows of the Q tile
+  cp_async_wait<0>();
+  store_rows_bf16<D>(dqa, tc_smem, dq + base, q0, S, warp, lane);
+}
+
 constexpr size_t fwd_smem(int D) {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPStride);
 }
@@ -880,7 +1353,56 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv_tc(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, int bh, int S, float scale, int causal,
+                  cudaStream_t stream) {
+  constexpr size_t smem = dkv_tc_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kTile - 1) / kTile, bh);
+  flash_bwd_dkv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, delta,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, scale, scale * kLog2e,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* dq, int bh, int S, float scale, int causal,
+                 cudaStream_t stream) {
+  constexpr size_t smem = dq_tc_smem<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kTile - 1) / kTile, bh);
+  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout, lse, delta,
+      (__nv_bfloat16*)dq, S, scale, scale * kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Dispatch on D in {16, 32, 64, 128} for the bf16 tensor-core kernels.
+#define SLT_DISPATCH_TC(DIM, CALL)                                         \
+  do {                                                                     \
+    switch (DIM) {                                                         \
+      case 16: { constexpr int D = 16; return CALL; }                      \
+      case 32: { constexpr int D = 32; return CALL; }                      \
+      case 64: { constexpr int D = 64; return CALL; }                      \
+      case 128: { constexpr int D = 128; return CALL; }                    \
+    }                                                                      \
+    return (int)cudaErrorInvalidValue;                                     \
+  } while (0)
 
 // Dispatch on (dtype, D): dtype 0 = float32, 1 = bfloat16; D in
 // {8, 16, 32, 64, 128}.  Anything else returns cudaErrorInvalidValue.
@@ -925,38 +1447,60 @@ int slt_flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
                      int causal, void* stream) {
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
     return (int)cudaErrorMisalignedAddress;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 16: return launch_fwd_tc<16>(q, k, v, o, (float*)lse, bh, s, scale,
-                                      causal, st);
-    case 32: return launch_fwd_tc<32>(q, k, v, o, (float*)lse, bh, s, scale,
-                                      causal, st);
-    case 64: return launch_fwd_tc<64>(q, k, v, o, (float*)lse, bh, s, scale,
-                                      causal, st);
-    case 128: return launch_fwd_tc<128>(q, k, v, o, (float*)lse, bh, s,
-                                        scale, causal, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  SLT_DISPATCH_TC(d, (launch_fwd_tc<D>(q, k, v, o, (float*)lse, bh, s, scale,
+                                       causal, (cudaStream_t)stream)));
 }
 
-int slt_flash_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dk, void* dv, int bh, int s, int d, float scale,
-                      int causal, void* stream) {
+// The CUDA-core backward: float32 at any D, bfloat16 at D = 8 on the
+// main paths (every D is built).
+int slt_flash_bwd_dkv_simt(int dtype, const void* q, const void* k,
+                           const void* v, const void* dout, const void* lse,
+                           const void* delta, void* dk, void* dv, int bh,
+                           int s, int d, float scale, int causal,
+                           void* stream) {
   SLT_DISPATCH(dtype, d,
                (launch_dkv<T, D>(q, k, v, dout, (const float*)lse,
                                  (const float*)delta, dk, dv, bh, s, scale,
                                  causal, (cudaStream_t)stream)));
 }
 
-int slt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dq, int bh, int s, int d, float scale, int causal,
-                     void* stream) {
+int slt_flash_bwd_dq_simt(int dtype, const void* q, const void* k,
+                          const void* v, const void* dout, const void* lse,
+                          const void* delta, void* dq, int bh, int s, int d,
+                          float scale, int causal, void* stream) {
   SLT_DISPATCH(dtype, d,
                (launch_dq<T, D>(q, k, v, dout, (const float*)lse,
                                 (const float*)delta, dq, bh, s, scale, causal,
                                 (cudaStream_t)stream)));
+}
+
+// The bf16 tensor-core backward: D in {16, 32, 64, 128}; q, k, v, dout
+// and the outputs 16-byte aligned, lse and delta 4-byte aligned.  Anything
+// else returns an error without launching.
+int slt_flash_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, int bh, int s, int d,
+                         float scale, int causal, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+       (uintptr_t)dk | (uintptr_t)dv) & 15 ||
+      ((uintptr_t)lse | (uintptr_t)delta) & 3)
+    return (int)cudaErrorMisalignedAddress;
+  SLT_DISPATCH_TC(d, (launch_dkv_tc<D>(q, k, v, dout, (const float*)lse,
+                                       (const float*)delta, dk, dv, bh, s,
+                                       scale, causal, (cudaStream_t)stream)));
+}
+
+int slt_flash_bwd_dq_tc(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dq, int bh, int s, int d, float scale,
+                        int causal, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+       (uintptr_t)dq) & 15 ||
+      ((uintptr_t)lse | (uintptr_t)delta) & 3)
+    return (int)cudaErrorMisalignedAddress;
+  SLT_DISPATCH_TC(d, (launch_dq_tc<D>(q, k, v, dout, (const float*)lse,
+                                      (const float*)delta, dq, bh, s, scale,
+                                      causal, (cudaStream_t)stream)));
 }
 
 }  // extern "C"

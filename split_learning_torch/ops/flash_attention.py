@@ -2,17 +2,21 @@
 plain PyTorch versions.
 
 Port of the JAX package's ``ops/flash_attention.py``.  The three Pallas
-TPU kernels become four CUDA C++ kernels for Hopper
-(``csrc/flash_attention.cu``):
+TPU kernels become six CUDA C++ kernels for Hopper
+(``csrc/flash_attention.cu``), a tensor-core and a CUDA-core kernel for
+each:
 
 * the forward — online-softmax over ``(BH, S, D)``; emits ``o`` and the
   per-row logsumexp ``lse`` of the scaled scores.  Two hand-written
   kernels compute it, and :func:`_fwd_route` picks one from the dtype and
   head dim: ``flash_fwd`` (bf16 on the tensor cores, ``mma.sync``) and
   ``flash_fwd_simt`` (the CUDA-core kernel, for float32 and for bf16 at
-  D = 8).  Each counts its own launches;
-* ``flash_bwd_dkv`` — dK and dV, one block per K tile;
-* ``flash_bwd_dq`` — dQ, one block per Q tile.
+  D = 8);
+* the backward — dK and dV (one block per K tile) and dQ (one block per
+  Q tile).  :func:`_bwd_route` picks the pair the same way: ``"tc"``
+  launches ``flash_bwd_dkv`` and ``flash_bwd_dq`` (bf16 on the tensor
+  cores), ``"simt"`` launches ``flash_bwd_dkv_simt`` and
+  ``flash_bwd_dq_simt`` (the CUDA-core kernels).
 
 ``delta = rowsum(dO * O)`` stays a PyTorch pre-pass, as it was an XLA
 pre-pass outside Pallas.  :class:`_Flash` is the ``custom_vjp``: its
@@ -36,11 +40,12 @@ NEG_INF = -1e30
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_simt": 0, "flash_bwd_dkv": 0,
-            "flash_bwd_dq": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv_simt": 0,
+            "flash_bwd_dq_simt": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
-# head dims of the bf16 tensor-core forward (mma.sync's k16 step needs 16)
+# head dims of the bf16 tensor-core kernels (mma.sync's k16 step needs 16)
 _TC_HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -116,12 +121,17 @@ def _library():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.slt_flash_fwd.argtypes = [i, p, p, p, p, p, i, i, i, f, i, p]
         lib.slt_flash_fwd_tc.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
-        lib.slt_flash_bwd_dkv.argtypes = [i, p, p, p, p, p, p, p, p,
-                                          i, i, i, f, i, p]
-        lib.slt_flash_bwd_dq.argtypes = [i, p, p, p, p, p, p, p,
-                                         i, i, i, f, i, p]
+        lib.slt_flash_bwd_dkv_simt.argtypes = [i, p, p, p, p, p, p, p, p,
+                                               i, i, i, f, i, p]
+        lib.slt_flash_bwd_dq_simt.argtypes = [i, p, p, p, p, p, p, p,
+                                              i, i, i, f, i, p]
+        lib.slt_flash_bwd_dkv_tc.argtypes = [p, p, p, p, p, p, p, p,
+                                             i, i, i, f, i, p]
+        lib.slt_flash_bwd_dq_tc.argtypes = [p, p, p, p, p, p, p,
+                                            i, i, i, f, i, p]
         for fn in (lib.slt_flash_fwd, lib.slt_flash_fwd_tc,
-                   lib.slt_flash_bwd_dkv, lib.slt_flash_bwd_dq):
+                   lib.slt_flash_bwd_dkv_simt, lib.slt_flash_bwd_dq_simt,
+                   lib.slt_flash_bwd_dkv_tc, lib.slt_flash_bwd_dq_tc):
             fn.restype = ctypes.c_int
         lib._slt_typed = True
     return lib
@@ -176,6 +186,19 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _check_tc(name: str, *tensors):
+    """Refuse, before any launch, what the tensor-core kernels cannot
+    take: they are bf16 only, D in 16..128, and their 16-byte
+    ``cp.async`` copies need 16-byte aligned (BH, S, D) tensors."""
+    q = tensors[0]
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in _TC_HEAD_DIMS:
+        raise ValueError(f"the tensor-core {name} takes bfloat16 with D in "
+                         f"{_TC_HEAD_DIMS}, got {q.dtype} D={q.shape[-1]}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the tensor-core {name} needs 16-byte aligned "
+                         "inputs")
+
+
 def _fwd_route(dtype: torch.dtype, d: int) -> str:
     """The forward kernel for inputs of ``dtype`` and head dim ``d``:
     ``"flash_fwd"`` (tensor cores) for bf16 at D in 16..128,
@@ -190,13 +213,8 @@ def _fwd_route(dtype: torch.dtype, d: int) -> str:
 def _launch_fwd(route: str, q, k, v, causal: bool):
     """Launch the forward kernel ``route`` on checked CUDA inputs."""
     bh, s, d = q.shape
-    if route == "flash_fwd" and (q.dtype != torch.bfloat16
-                                 or d not in _TC_HEAD_DIMS):
-        raise ValueError(f"the tensor-core forward takes bfloat16 with D in "
-                         f"{_TC_HEAD_DIMS}, got {q.dtype} D={d}")
-    if route == "flash_fwd" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the tensor-core forward needs 16-byte aligned "
-                         "q, k and v")
+    if route == "flash_fwd":
+        _check_tc("forward", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     lib = _library()
@@ -219,21 +237,65 @@ def flash_fwd(q, k, v, causal: bool):
     return _launch_fwd(_fwd_route(q.dtype, q.shape[-1]), q, k, v, causal)
 
 
+def _bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The backward pair for inputs of ``dtype`` and head dim ``d``:
+    ``"tc"`` (``flash_bwd_dkv`` and ``flash_bwd_dq``, tensor cores) for
+    bf16 at D in 16..128, ``"simt"`` (``flash_bwd_dkv_simt`` and
+    ``flash_bwd_dq_simt``, CUDA cores) otherwise, for the forward's
+    reasons."""
+    if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
+        return "tc"
+    return "simt"
+
+
+def _launch_dkv(route: str, q, k, v, do, lse, delta, causal: bool):
+    """Launch the dK/dV kernel of ``route`` on checked CUDA inputs."""
+    bh, s, d = q.shape
+    if route == "tc":
+        _check_tc("backward", q, k, v, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, s, d, _scale(d), int(causal), _stream(q))
+    if route == "tc":
+        name, err = "flash_bwd_dkv", lib.slt_flash_bwd_dkv_tc(*args)
+    else:
+        name = "flash_bwd_dkv_simt"
+        err = lib.slt_flash_bwd_dkv_simt(_DTYPE_CODE[q.dtype], *args)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return dk, dv
+
+
+def _launch_dq(route: str, q, k, v, do, lse, delta, causal: bool):
+    """Launch the dQ kernel of ``route`` on checked CUDA inputs."""
+    bh, s, d = q.shape
+    if route == "tc":
+        _check_tc("backward", q, k, v, do)
+    dq = torch.empty_like(q)
+    lib = _library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
+            _scale(d), int(causal), _stream(q))
+    if route == "tc":
+        name, err = "flash_bwd_dq", lib.slt_flash_bwd_dq_tc(*args)
+    else:
+        name = "flash_bwd_dq_simt"
+        err = lib.slt_flash_bwd_dq_simt(_DTYPE_CODE[q.dtype], *args)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return dq
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
     """dK/dV kernel over (BH, S, D): ``(dk, dv)``."""
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal)
     _check(q, k, v, do)
     _check_rows(q, lse, delta)
-    bh, s, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _library().slt_flash_bwd_dkv(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, s, d, _scale(d), int(causal), _stream(q))
-    _raise_on(err, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
-    return dk, dv
+    return _launch_dkv(_bwd_route(q.dtype, q.shape[-1]), q, k, v, do, lse,
+                       delta, causal)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
@@ -242,15 +304,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal)
     _check(q, k, v, do)
     _check_rows(q, lse, delta)
-    bh, s, d = q.shape
-    dq = torch.empty_like(q)
-    err = _library().slt_flash_bwd_dq(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        bh, s, d, _scale(d), int(causal), _stream(q))
-    _raise_on(err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
-    return dq
+    return _launch_dq(_bwd_route(q.dtype, q.shape[-1]), q, k, v, do, lse,
+                      delta, causal)
 
 
 class _Flash(torch.autograd.Function):

@@ -3,9 +3,10 @@ package's Pallas kernels run through the Pallas interpreter.
 
 Tolerances are those of tests/test_flash_attention.py, float32 inputs:
 2e-5 for the forward (o and lse), 5e-4 for gradients.  The bf16
-tensor-core forward's numerics are rehearsed here in float32 PyTorch
-(``_tc_forward_emulation``) at chip_smoke.py's bf16 tolerances: 2^-7 of
-max(1, max|ref|) for o, 1e-4 of it for lse.
+tensor-core forward's and backward's numerics are rehearsed here in
+float32 PyTorch (``_tc_forward_emulation``, ``_tc_backward_emulation``)
+at chip_smoke.py's bf16 tolerances: 2^-7 of max(1, max|ref|) for o, dq,
+dk and dv, 1e-4 of it for lse.
 """
 
 import importlib
@@ -103,7 +104,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     o_ref, lse_ref = tfa.flash_fwd_reference(q, k, v, True)
     assert torch.equal(o, o_ref) and torch.equal(lse, lse_ref)
     assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_fwd_simt": 0,
-                            "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+                            "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv_simt": 0, "flash_bwd_dq_simt": 0}
 
 
 def test_tensors_off_cpu_and_cuda_raise():
@@ -220,28 +222,44 @@ def test_forward_route(dtype, d):
     assert want in tfa.LAUNCHES
 
 
-def _fault_inputs(fault):
-    """(q, k, v, do, lse, delta) with one thing a kernel does not take."""
+def _fault_inputs(fault, dtype=torch.bfloat16):
+    """(q, k, v, do, lse, delta) of ``dtype`` with one thing a kernel does
+    not take (none for ``fault=None``)."""
     bh, s, d = 2, 16, 16
-    q, k, v, do = (torch.zeros(bh, s, d, dtype=torch.bfloat16)
-                   for _ in range(4))
+    q, k, v, do = (torch.zeros(bh, s, d, dtype=dtype) for _ in range(4))
     lse, delta = torch.zeros(bh, s), torch.zeros(bh, s)
     if fault == "dtype":
         q = q.half()
     elif fault == "head dim":
-        q = torch.zeros(bh, s, 24, dtype=torch.bfloat16)
+        q = torch.zeros(bh, s, 24, dtype=dtype)
     elif fault == "non-contiguous":
-        k = torch.zeros(bh, d, s, dtype=torch.bfloat16).transpose(1, 2)
+        k = torch.zeros(bh, d, s, dtype=dtype).transpose(1, 2)
     elif fault == "mixed devices":
-        v = torch.zeros(bh, s, d, dtype=torch.bfloat16, device="meta")
+        v = torch.zeros(bh, s, d, dtype=dtype, device="meta")
     return q, k, v, do, lse, delta
 
 
+# each kernel through its public wrapper, with inputs of a dtype its route
+# takes (bf16 for the tensor-core kernels, float32 for the CUDA-core ones)
 _WRAPPERS = {
-    "flash_fwd": lambda q, k, v, do, lse, delta: tfa.flash_fwd(q, k, v, True),
-    "flash_bwd_dkv": lambda *a: tfa.flash_bwd_dkv(*a, True),
-    "flash_bwd_dq": lambda *a: tfa.flash_bwd_dq(*a, True),
+    "flash_fwd": (lambda q, k, v, do, lse, delta: tfa.flash_fwd(q, k, v, True),
+                  torch.bfloat16),
+    "flash_fwd_simt": (
+        lambda q, k, v, do, lse, delta: tfa.flash_fwd(q, k, v, True),
+        torch.float32),
+    "flash_bwd_dkv": (lambda *a: tfa.flash_bwd_dkv(*a, True), torch.bfloat16),
+    "flash_bwd_dq": (lambda *a: tfa.flash_bwd_dq(*a, True), torch.bfloat16),
+    "flash_bwd_dkv_simt": (lambda *a: tfa.flash_bwd_dkv(*a, True),
+                           torch.float32),
+    "flash_bwd_dq_simt": (lambda *a: tfa.flash_bwd_dq(*a, True),
+                          torch.float32),
 }
+# the C entry point each kernel's launch goes through
+_ENTRY = {"flash_fwd": "slt_flash_fwd_tc", "flash_fwd_simt": "slt_flash_fwd",
+          "flash_bwd_dkv": "slt_flash_bwd_dkv_tc",
+          "flash_bwd_dq": "slt_flash_bwd_dq_tc",
+          "flash_bwd_dkv_simt": "slt_flash_bwd_dkv_simt",
+          "flash_bwd_dq_simt": "slt_flash_bwd_dq_simt"}
 
 
 @pytest.mark.parametrize("fault", ["dtype", "head dim", "non-contiguous",
@@ -258,8 +276,9 @@ def test_wrappers_raise_before_any_launch(monkeypatch, wrapper, fault):
         monkeypatch.setattr(tfa, "_on_cpu", lambda *t: False)
     monkeypatch.setattr(tfa, "_library", no_library)
     tfa.reset_launches()
+    fn, dtype = _WRAPPERS[wrapper]
     with pytest.raises((TypeError, ValueError)):
-        _WRAPPERS[wrapper](*_fault_inputs(fault))
+        fn(*_fault_inputs(fault, dtype))
     assert not any(tfa.LAUNCHES.values())
 
 
@@ -280,4 +299,168 @@ def test_tensor_core_forward_refuses_what_it_cannot_take(monkeypatch):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa._launch_fwd("flash_fwd", shifted, bf, bf, True)
+    assert not any(tfa.LAUNCHES.values())
+
+
+class _FailingLibrary:
+    """A kernel library whose every entry point reports a CUDA error
+    (700, an illegal address) and records that it was called."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 700
+        return entry
+
+
+@pytest.mark.parametrize("wrapper", sorted(_WRAPPERS))
+def test_failed_launch_raises_and_never_falls_back(monkeypatch, wrapper):
+    """A launch that fails raises at once: the wrapper reaches its route's
+    one entry point, tries no other route and no plain version, and
+    counts no launch."""
+    lib = _FailingLibrary()
+    monkeypatch.setattr(tfa, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(tfa, "_library", lambda: lib)
+    monkeypatch.setattr(tfa, "_stream", lambda t: None)
+    tfa.reset_launches()
+    fn, dtype = _WRAPPERS[wrapper]
+    with pytest.raises(RuntimeError, match=f"{wrapper} kernel launch failed"):
+        fn(*_fault_inputs(None, dtype))
+    assert lib.calls == [_ENTRY[wrapper]]
+    assert not any(tfa.LAUNCHES.values())
+
+
+# --------------------------------------------------------------------------
+# the bf16 tensor-core backward: its numerics rehearsed, its route, its
+# checks
+# --------------------------------------------------------------------------
+
+BF16_GRAD_TOL = 2.0 ** -7
+
+
+def _tc_backward_emulation(q, k, v, do, lse, delta, causal):
+    """The design of ``flash_bwd_dkv_tc_kernel`` and
+    ``flash_bwd_dq_tc_kernel`` in float32 PyTorch, over (BH, S, D) float32
+    tensors holding bf16 values: 64-row tiles over a ragged S, exact
+    products summed in float32, p = 2^(s*scale*log2(e) - lse*log2(e))
+    masked to 0, ds = p (dp - delta) * scale from the float32 p, and p
+    and ds rounded to bf16 before their products; dK/dV walks the Q tiles
+    from the diagonal in the transposed form (S^T = K Q^T), dQ the K tiles
+    up to it; dq, dk and dv rounded to bf16.  Returns ``(dq, dk, dv)``."""
+    bh, s, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    log2e = np.log2(np.e)
+    n_tiles = -(-s // TC_TILE)
+
+    def tile(x, i):
+        return x[:, i * TC_TILE:(i + 1) * TC_TILE]
+
+    def pos(i, x):
+        return i * TC_TILE + torch.arange(x.shape[1])
+
+    def bf16(x):
+        return x.bfloat16().float()
+
+    dq, dk, dv = torch.zeros(bh, s, d), torch.zeros(bh, s, d), \
+        torch.zeros(bh, s, d)
+    for kb in range(n_tiles):
+        kt, vt = tile(k, kb), tile(v, kb)
+        keys = pos(kb, kt)
+        dka, dva = torch.zeros_like(kt), torch.zeros_like(vt)
+        for qb in range(kb if causal else 0, n_tiles):
+            qt, ot = tile(q, qb), tile(do, qb)
+            queries = pos(qb, qt)
+            st = torch.matmul(kt, qt.transpose(1, 2))    # keys x queries
+            pt = torch.exp2(st * (scale * log2e)
+                            - tile(lse, qb)[:, None, :] * log2e)
+            if causal:
+                pt = pt.masked_fill(keys[:, None] > queries[None, :], 0.0)
+            dva = dva + torch.matmul(bf16(pt), ot)
+            dpt = torch.matmul(vt, ot.transpose(1, 2))
+            dst = pt * (dpt - tile(delta, qb)[:, None, :]) * scale
+            dka = dka + torch.matmul(bf16(dst), qt)
+        dk[:, kb * TC_TILE:(kb + 1) * TC_TILE] = bf16(dka)
+        dv[:, kb * TC_TILE:(kb + 1) * TC_TILE] = bf16(dva)
+    for qb in range(n_tiles):
+        qt, ot = tile(q, qb), tile(do, qb)
+        queries = pos(qb, qt)
+        dqa = torch.zeros_like(qt)
+        for kb in range(min(n_tiles, qb + 1) if causal else n_tiles):
+            kt, vt = tile(k, kb), tile(v, kb)
+            keys = pos(kb, kt)
+            x = torch.matmul(qt, kt.transpose(1, 2))     # queries x keys
+            p = torch.exp2(x * (scale * log2e)
+                           - tile(lse, qb)[..., None] * log2e)
+            if causal:
+                p = p.masked_fill(keys[None, :] > queries[:, None], 0.0)
+            dp = torch.matmul(ot, vt.transpose(1, 2))
+            ds = p * (dp - tile(delta, qb)[..., None]) * scale
+            dqa = dqa + torch.matmul(bf16(ds), kt)
+        dq[:, qb * TC_TILE:(qb + 1) * TC_TILE] = bf16(dqa)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("s,causal", [(256, True), (48, True), (100, False)])
+def test_tensor_core_backward_numerics_match_pallas_kernels(s, causal):
+    """The tensor-core backward's numerics (bf16 P and dS, log2-unit
+    exponentials, 64-row tiles over a ragged S, the transposed dK/dV)
+    against the JAX backward rule with its Pallas dK/dV and dQ kernels run
+    through the interpreter on the same bf16 values, at D = 64."""
+    q, k, v = _bf16_values(20 + s, 2, s, 64)
+    do = _bf16_values(30 + s, 2, s, 64)[0]
+    block = jfa._pick_block(s, 64)
+    res = jfa._flash_fwd_rule(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal, True, block, block)[1]
+    grads_j = jfa._flash_bwd_rule(causal, True, block, block, res,
+                                  jnp.asarray(do))
+    lse = torch.from_numpy(np.array(res[4]))
+    delta = (torch.from_numpy(do) * torch.from_numpy(np.array(res[3]))).sum(-1)
+    grads_t = _tc_backward_emulation(
+        *(torch.from_numpy(x) for x in (q, k, v, do)), lse, delta, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), grads_t, grads_j):
+        b = np.asarray(b)
+        tol = BF16_GRAD_TOL * max(1.0, float(np.abs(b).max()))
+        err = float(np.abs(a.numpy() - b).max())
+        assert err <= tol, f"{name}: {err} > {tol}"
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_route(dtype, d):
+    """bf16 at D >= 16 takes the tensor-core pair; float32 and D = 8 take
+    the CUDA-core pair.  Every kernel of each pair has its own count."""
+    want = "tc" if dtype == torch.bfloat16 and d >= 16 else "simt"
+    assert tfa._bwd_route(dtype, d) == want
+    suffix = "" if want == "tc" else "_simt"
+    assert {f"flash_bwd_dkv{suffix}", f"flash_bwd_dq{suffix}"} <= set(
+        tfa.LAUNCHES)
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_tensor_core_backward_refuses_what_it_cannot_take(monkeypatch,
+                                                          kernel):
+    """The tensor-core backward raises, without launching, on float32, on
+    D = 8 and when any of q, k, v and dO is not 16-byte aligned."""
+    def no_library():
+        raise AssertionError("the kernel library was reached")
+
+    launch = {"dkv": tfa._launch_dkv, "dq": tfa._launch_dq}[kernel]
+    monkeypatch.setattr(tfa, "_library", no_library)
+    tfa.reset_launches()
+    bf = torch.zeros(2, 16, 16, dtype=torch.bfloat16)
+    rows = torch.zeros(2, 16)
+    for q in (bf.float(), torch.zeros(2, 16, 8, dtype=torch.bfloat16)):
+        with pytest.raises(ValueError, match="bfloat16 with D"):
+            launch("tc", q, q, q, q, rows, rows, True)
+    shifted = torch.zeros(2 * 16 * 16 + 1, dtype=torch.bfloat16)[1:].view(
+        2, 16, 16)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    for at in range(4):
+        args = [bf] * 4
+        args[at] = shifted
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch("tc", *args, rows, rows, True)
     assert not any(tfa.LAUNCHES.values())
