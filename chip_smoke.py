@@ -22,11 +22,17 @@ Phases, each fatal on failure:
    ones); the CUDA-core forward and backward pair also at the slice's
    shapes, timed beside the tensor-core kernels and SDPA (the backward
    against SDPA's backward with its backend pinned, by profiler device
-   time beside that of delta + dK/dV + dQ); the quantizer (int8 and int4, NaN,
-   inf and all-zero tiles, an odd tile), the dequantizer, finalize
-   (float32, bf16, fp16, int32 with rounding and ties, ragged n % 4 =
-   1, 2, 3, a view 4 bytes off 16-byte alignment) and momentum bit for
-   bit.  A tiny
+   time beside that of delta + dK/dV + dQ); the quantizer on both of its
+   routes (bf16, fp16 and float32 frames at tile 256 with NaN, inf and
+   all-zero tiles, int8 and int4; tiles 1024 (vec), 2048, 64 and 7
+   (generic); ragged leaves; a view 2 bytes off 16-byte alignment;
+   rounding-ties and zero-scale tiles down each route), each case
+   checked by the launch counters to take the route it names, the
+   dequantizer, finalize (float32, bf16, fp16, int32 with rounding and
+   ties, ragged n % 4 = 1, 2, 3, a view 4 bytes off 16-byte alignment)
+   and momentum bit for bit; the codec kernels (both quantizer routes)
+   and ``torch.mul`` timed by events and by profiler device time on the
+   bf16 int8 frame and on bf16 int4 and float32 int8 frames.  A tiny
    TinyLlama's logits and gradients through the flash kernels are held
    against its dense-attention path, and a tiny protocol round with every
    kernel flag on against the same round through the plain chains;
@@ -49,8 +55,9 @@ Phases, each fatal on failure:
    more round with ``server-momentum: 0``, because with momentum every
    TinyLlama leaf takes the momentum kernel and only a plain FedAvg
    round finalizes.  Counts zeroed before and read after (each
-   tensor-core backward kernel 176 launches a round, the CUDA-core
-   kernels 0);
+   tensor-core backward kernel 176 launches a round, the vec quantizer
+   and the dequantizer 48, the CUDA-core kernels and the generic
+   quantizer 0);
 7. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -83,10 +90,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # the slice's flash-attention shapes: (B*H, S, D) = (8*32, 256, 64), bf16
 SLICE_SHAPE = (8 * 32, 256, 64)
-# the kernels that the bf16 main paths must never launch
+# the CUDA-core flash kernels: the float32 and D = 8 route
 SIMT_KERNELS = ("flash_fwd_simt", "flash_bwd_dkv_simt", "flash_bwd_dq_simt")
+# the kernels that the bf16 main paths must never launch: the CUDA-core
+# flash kernels and the generic quantizer (the wire's tile 256 on an
+# aligned frame takes the vec quantizer)
+OFF_PATH_KERNELS = SIMT_KERNELS + ("quantize_generic",)
 # one activation / gradient frame at a cut: (batch, sequence, hidden)
 FRAME_SHAPE = (8, 256, 2048)
+# the codec frames timed beside the bf16 int8 one of the kernel rows,
+# each one FRAME_SHAPE frame at tile 256: (label, dtype, bits)
+CODEC_FRAMES = (("bf16 int4", torch.bfloat16, 4),
+                ("f32 int8", torch.float32, 8))
 # the largest parameter leaf (embedding and LM head): (vocab, hidden)
 LEAF_SHAPE = (32000, 2048)
 SOURCES = ("flash_attention", "quant", "update")
@@ -108,6 +123,8 @@ KERNELS = {
                           "split_learning_tpu/ops/flash_attention.py:173"),
     "quantize": ("split_learning_torch/csrc/quant.cu",
                  "split_learning_tpu/ops/kernels/quant.py:37"),
+    "quantize_generic": ("split_learning_torch/csrc/quant.cu",
+                         "split_learning_tpu/ops/kernels/quant.py:37"),
     "dequantize": ("split_learning_torch/csrc/quant.cu",
                    "split_learning_tpu/ops/kernels/quant.py:92"),
     "finalize": ("split_learning_torch/csrc/update.cu",
@@ -389,14 +406,19 @@ def phase_kernels() -> dict:
             t_ops = flops / PEAK_FLOPS[dtype] * 1e3
             r = results[name]
             r["ms"] = _time_ms(kern)
+            r["device_ms"] = _device_ms(kern)[0]
             r["plain_ms"] = _time_ms(plain)
             # the backward's library call computes dq, dk and dv together
+            # (timed by device time only)
             r["library_ms"] = (_time_ms(library[name]) if name in library
                                else bwd_ms)
+            r["library_device_ms"] = (_device_ms(library[name])[0]
+                                      if name in library else bwd_ms)
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             r["bytes"], r["flops"] = nbytes, flops
-            print(f"  {name:18s} kernel {r['ms']:.4f} ms  plain "
+            print(f"  {name:18s} kernel {r['ms']:.4f} ms (device "
+                  f"{r['device_ms']:.4f})  plain "
                   f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -510,46 +532,143 @@ def _bitwise(name: str, label: str, out, ref) -> None:
     check(same, f"{name} {label}: kernel differs from its plain version")
 
 
+def _bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time in ms for ``nbytes`` of memory traffic and ``ops``
+    float32 operations, and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
 def _time_triple(name: str, kern, plain, library, nbytes: int,
                  ops: int) -> dict:
     """Kernel, plain and library times plus the bound (bytes over the
-    memory rate or float32 operations over the CUDA-core rate)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
-    r = {"ms": _time_ms(kern), "plain_ms": _time_ms(plain),
+    memory rate or float32 operations over the CUDA-core rate).  The
+    kernel and the library call are timed twice: by CUDA events
+    (``ms``, ``library_ms``) and by profiler device time
+    (``device_ms``, ``library_device_ms``), which leaves out the
+    events' own ≈ 4–6 µs — as long as a codec kernel's bound."""
+    bound, by = _bound(nbytes, ops)
+    r = {"ms": _time_ms(kern), "device_ms": _device_ms(kern)[0],
+         "plain_ms": _time_ms(plain),
          "library_ms": _time_ms(library) if library is not None else None,
-         "bound_ms": max(t_bytes, t_ops),
-         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_device_ms": (_device_ms(library)[0]
+                               if library is not None else None),
+         "bound_ms": bound, "bound_by": by,
          "bytes": nbytes, "ops": ops, "max_abs_err": 0.0}
-    print(f"  {name:10s} kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f}"
-          f" ms  library {r['library_ms']} ms  bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}: {nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop)")
+    lib = ("none" if library is None else f"{r['library_ms']:.4f} ms "
+           f"(device {r['library_device_ms']:.4f})")
+    print(f"  {name:16s} kernel {r['ms']:.4f} ms (device "
+          f"{r['device_ms']:.4f})  plain {r['plain_ms']:.4f} ms  library "
+          f"{lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+          f"{nbytes / 1e6:.1f} MB, {ops / 1e6:.1f} Mop)")
     return r
 
 
+def _codec_frames(g) -> dict:
+    """Events and profiler device time of the quantizer (both routes:
+    the generic kernel is the vec kernel's predecessor) and the
+    dequantizer on each of :data:`CODEC_FRAMES`, and of ``torch.mul``
+    (the dequantizer's library yardstick) on the int8 codes, each beside
+    its bound."""
+    from split_learning_torch.ops.kernels import quant as kq
+    out = {}
+    for label, dtype, bits in CODEC_FRAMES:
+        x = (torch.randn(FRAME_SHAPE, generator=g, device="cuda") * 3).to(
+            dtype)
+        n, t_count = x.numel(), x.numel() // 256
+        q, s = kq.quantize_tiles(x, tile=256, bits=bits)
+        codes_b = q.numel()
+        quant_b = x.element_size() * n + codes_b + 4 * t_count
+        calls = {f"quantize {route}": (
+            lambda route=route: kq._launch_quantize(route, x, 256, bits),
+            quant_b, 5 * n) for route in kq.QUANT_ROUTES}
+        calls["dequantize"] = (
+            lambda: kq.dequantize_tiles(q, s, tile=256, bits=bits),
+            codes_b + 4 * t_count + 4 * n, n)
+        if bits == 8:
+            calls["torch.mul"] = (
+                lambda: torch.mul(q.view(t_count, 256), s[:, None]),
+                codes_b + 4 * t_count + 4 * n, n)
+        rows = {}
+        for name, (fn, nbytes, ops) in calls.items():
+            bound, by = _bound(nbytes, ops)
+            rows[name] = {"ms": _time_ms(fn), "device_ms": _device_ms(fn)[0],
+                          "bound_ms": bound, "bound_by": by}
+            r = rows[name]
+            share = r["bound_ms"] / r["device_ms"]
+            print(f"  codec frame {label:9s} {name:20s} device "
+                  f"{r['device_ms']:.4f} ms ({share:.0%} of the bound "
+                  f"{r['bound_ms']:.4f}), events {r['ms']:.4f}")
+        out[label] = rows
+    return out
+
+
+def _launched(kq, call, route: str, label: str):
+    """``call()``, checked by the launch counters to launch the
+    quantizer kernel of ``route`` and no other kernel."""
+    before = dict(kq.LAUNCHES)
+    out = call()
+    took = {k for k in kq.LAUNCHES if kq.LAUNCHES[k] != before[k]}
+    check(took == {kq.QUANT_ROUTES[route]},
+          f"quantize {label}: launched {took}, expected route {route}")
+    return out
+
+
 def phase_wire_kernels() -> dict:
-    """The quantizer, dequantizer and stage-update kernels against their
-    plain versions, bit for bit, then timed at the main path's shapes:
-    one bf16 activation frame (8 x 256 x 2048, tile 256) and the largest
-    parameter leaf (32000 x 2048 float32)."""
+    """The quantizer (each case on the route it names), dequantizer and
+    stage-update kernels against their plain versions, bit for bit,
+    then timed at the main path's shapes: one bf16 activation frame
+    (8 x 256 x 2048, tile 256; both quantizer routes, and the
+    :data:`CODEC_FRAMES`) and the largest parameter leaf (32000 x 2048
+    float32)."""
     from split_learning_torch.ops.kernels import quant as kq
     from split_learning_torch.ops.kernels import update as ku
 
     g = torch.Generator(device="cuda").manual_seed(23)
-    frame = (torch.randn(FRAME_SHAPE, generator=g, device="cuda") * 3).to(
-        torch.bfloat16)
-    flat = frame.view(-1)
-    flat[256 * 5:256 * 6] = 0               # an all-zero tile
-    flat[256 * 9 + 17] = float("nan")       # a NaN tile
-    flat[256 * 12 + 3] = float("inf")       # an inf tile
+
+    def wire_frame(dtype):
+        x = (torch.randn(FRAME_SHAPE, generator=g, device="cuda") * 3).to(
+            dtype)
+        flat = x.view(-1)
+        flat[256 * 5:256 * 6] = 0               # an all-zero tile
+        flat[256 * 9 + 17] = float("nan")       # a NaN tile
+        flat[256 * 12 + 3] = float("inf")       # an inf tile
+        return x
+
+    frame = wire_frame(torch.bfloat16)
+    frame16, frame32 = wire_frame(torch.float16), wire_frame(torch.float32)
     odd = torch.randn(1001, generator=g, device="cuda") * 2
     odd[40] = float("-inf")
-    cases = [("slice frame bf16 int8 tile 256", frame, 256, 8),
-             ("slice frame bf16 int4 tile 256", frame, 256, 4),
-             ("ragged f32 int8 tile 7 n=1001", odd, 7, 8),
-             ("ragged f32 int4 tile 7 n=1001", odd, 7, 4)]
-    for label, x, tile, bits in cases:
-        q, s = kq.quantize_tiles(x, tile=tile, bits=bits)
+    # a ragged leaf whose last tile (and, in bf16, last 16-byte chunk)
+    # is partial
+    ragged = (torch.randn(256 * 37 + 77, generator=g, device="cuda")
+              * 3).to(torch.bfloat16)
+    # 2 bytes off 16-byte alignment: the generic route
+    shifted = frame.view(-1)[1:1 + 256 * 64]
+    cases = []
+    for bits in (8, 4):
+        cases += [
+            (f"slice frame bf16 int{bits} tile 256", frame, 256, bits, "vec"),
+            (f"frame fp16 int{bits} tile 256", frame16, 256, bits, "vec"),
+            (f"frame f32 int{bits} tile 256", frame32, 256, bits, "vec"),
+            (f"bf16 int{bits} tile 1024", frame, 1024, bits, "vec"),
+            (f"f32 int{bits} tile 1024", frame32, 1024, bits, "vec"),
+            (f"bf16 int{bits} tile 2048", frame, 2048, bits, "generic"),
+            (f"bf16 int{bits} tile 64", frame, 64, bits, "generic"),
+            (f"ragged bf16 int{bits} tile 256 n=9549", ragged, 256, bits,
+             "vec"),
+            (f"ragged f32 int{bits} tile 256 n=1001", odd, 256, bits,
+             "vec"),
+            (f"ragged f32 int{bits} tile 7 n=1001", odd, 7, bits,
+             "generic"),
+            (f"view +2 B bf16 int{bits} tile 256", shifted, 256, bits,
+             "generic")]
+    for label, x, tile, bits, route in cases:
+        q, s = _launched(kq, lambda: kq.quantize_tiles(x, tile=tile,
+                                                       bits=bits),
+                         route, label)
         qr, sr = kq.quantize_reference(x, tile, bits)
         torch.cuda.synchronize()
         _bitwise("quantize", label + " codes", q, qr)
@@ -569,6 +688,32 @@ def phase_wire_kernels() -> dict:
         check(bool((~ok).sum() == (~torch.isfinite(
             xf.reshape(-1, tile))).any(dim=1).sum()),
               f"quantize {label}: NaN scales do not mark the bad tiles")
+    # Edge tiles, bitwise against the plain version on both routes:
+    # amax = qmax, so scale 1, holding values half-way between two codes
+    # (round half to even: 2.5 -> 2, 3.5 -> 4, -0.5 -> 0); and a float32
+    # tile whose amax / 127 underflows to a zero scale (its values
+    # decode to zeros, so it has no round trip to check).
+    for bits in (8, 4):
+        qmax = 127.0 if bits == 8 else 7.0
+        ties = torch.tensor([2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5, -1.5],
+                            device="cuda").repeat(32)
+        ties[7] = qmax
+        tiny = torch.zeros(256, device="cuda")
+        tiny[:4] = torch.tensor([3e-45, -3e-45, 1.4e-45, -0.0])
+        edges = [(f"ties bf16 int{bits}", ties.to(torch.bfloat16)),
+                 (f"ties f32 int{bits}", ties),
+                 (f"zero scale f32 int{bits}", tiny)]
+        for label, x in edges:
+            for route in kq.QUANT_ROUTES:
+                q, s = _launched(kq, lambda: kq._launch_quantize(
+                    route, x, 256, bits), route, label)
+                qr, sr = kq.quantize_reference(x, 256, bits)
+                torch.cuda.synchronize()
+                _bitwise("quantize", f"{label} {route} codes", q, qr)
+                _bitwise("quantize", f"{label} {route} scales", s, sr)
+                _bitwise("dequantize", f"{label} {route}",
+                         kq.dequantize_tiles(q, s, tile=256, bits=bits),
+                         kq.dequantize_reference(q, s, 256, bits))
 
     acc = torch.randn(LEAF_SHAPE, generator=g, device="cuda") * 50
     small = torch.randn(4096, 64, generator=g, device="cuda") * 50
@@ -614,11 +759,17 @@ def phase_wire_kernels() -> dict:
     t_count = s.numel()
     tw_t = torch.tensor(tw, dtype=torch.float32, device="cuda")
     leaf_n = acc.numel()
-    return {
+    frames = _codec_frames(g)
+    out = {
         # bf16 in, int8 codes + float32 scales out; abs, max, divide,
-        # round and clip a value
+        # round and clip a value.  Both routes on the same frame
         "quantize": _time_triple(
             "quantize", lambda: kq.quantize_tiles(frame, tile=256, bits=8),
+            lambda: kq.quantize_reference(frame, 256, 8), None,
+            2 * n + n + 4 * t_count, 5 * n),
+        "quantize_generic": _time_triple(
+            "quantize_generic",
+            lambda: kq._launch_quantize("generic", frame, 256, 8),
             lambda: kq.quantize_reference(frame, 256, 8), None,
             2 * n + n + 4 * t_count, 5 * n),
         # int8 codes + scales in, float32 out; one multiply a value.
@@ -643,6 +794,8 @@ def phase_wire_kernels() -> dict:
                                           torch.float32), None,
             20 * leaf_n, 5 * leaf_n),
     }
+    out["quantize"]["frames"] = frames
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -847,9 +1000,11 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
     version bit for bit, so the two runs' validation losses and final
     parameters must agree to float32 noise (1e-5: cuBLAS may pick other
     GEMM algorithms between the runs).  Its float32 forward and backward
-    take the CUDA-core kernels: returns their launches in the first run."""
+    take the CUDA-core kernels: returns their launches, and the codec
+    kernels' (either quantizer route may run here), in the first run."""
     from split_learning_torch.config import from_dict
     from split_learning_torch.ops import flash_attention as fa
+    from split_learning_torch.ops.kernels import quant as kq
 
     runs = []
     for flags in (True, False):
@@ -858,8 +1013,10 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
                                                "dequantize": flags,
                                                "stage-update": flags}})
         fa.reset_launches()
+        kq.reset_launches()
         _, _, _, res = run_protocol(from_dict(d), timeout=120)
         if flags:
+            codec = dict(kq.LAUNCHES)
             simt = {n: fa.LAUNCHES[n] for n in SIMT_KERNELS}
             check(all(simt.values()) and not any(
                 fa.LAUNCHES[n] for n in fa.LAUNCHES if n not in simt),
@@ -881,8 +1038,9 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
           "(tol 1e-5)")
     check(loss_err <= 1e-5 and param_err <= 1e-5,
           "tiny protocol round: kernels disagree with the plain chains")
-    print(f"  tiny float32 round: CUDA-core kernels launched {simt}")
-    return simt
+    print(f"  tiny float32 round: CUDA-core kernels launched {simt}, "
+          f"codec kernels {codec}")
+    return {**simt, **codec}
 
 
 def protocol_config(workdir: pathlib.Path, momentum: float, rounds: int):
@@ -1006,19 +1164,23 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
           f"plain FedAvg protocol round failed: {res0.history}")
     total = {k: launches[k] + launches0[k] for k in launches}
     for name, n in total.items():
-        if name in SIMT_KERNELS:
-            check(n == 0, f"the CUDA-core {name} ran {n} times on the bf16 "
-                  "protocol path")
+        if name in OFF_PATH_KERNELS:
+            check(n == 0, f"{name} ran {n} times on the bf16 protocol path")
         else:
             check(n > 0, f"kernel {name} was not launched on the protocol "
                   "path")
-    # the backward once per block per training batch of the round
-    per_round = (mk.get("n_block", 22) * n_edge
-                 * cfg.distribution.num_samples // lrn.batch_size)
-    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+    # the backward once per block per training batch of the round; the
+    # vec quantizer and the dequantizer once per training batch per cut
+    # per direction
+    batches = n_edge * cfg.distribution.num_samples // lrn.batch_size
+    per_round = mk.get("n_block", 22) * batches
+    frames = batches * len(cfg.topology.cut_layers) * 2
+    for name, want in (("flash_bwd_dkv", per_round),
+                       ("flash_bwd_dq", per_round), ("quantize", frames),
+                       ("dequantize", frames)):
         got = (launches[name] / len(res.history), launches0[name])
-        check(got == (per_round, per_round), f"tensor-core {name} launches "
-              f"per protocol round {got}, expected {per_round}")
+        check(got == (want, want), f"{name} launches per protocol round "
+              f"{got}, expected {want}")
 
     seq = 256
     rounds = [{"round": r.round_idx, "wall_s": r.wall_s,
@@ -1071,7 +1233,7 @@ def main() -> int:
     phase_model_check()
     with tempfile.TemporaryDirectory(prefix="slt_smoke_") as tmp:
         workdir = pathlib.Path(tmp)
-        tiny_simt = phase_protocol_check(workdir)
+        tiny = phase_protocol_check(workdir)
         print("[slice]")
         cfg = slice_config(workdir)
         sl = phase_slice(cfg)
@@ -1085,8 +1247,8 @@ def main() -> int:
         by_path = {"protocol": proto["launches_total"][name]}
         if name in sl["launches"]:
             by_path["slice"] = sl["launches"][name]
-        if name in tiny_simt:   # the float32 route
-            by_path["tiny_float32_protocol_check"] = tiny_simt[name]
+        if name in tiny:   # the float32 flash route, either quantizer
+            by_path["tiny_float32_protocol_check"] = tiny[name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -1097,7 +1259,11 @@ def main() -> int:
                 proto["launches_per_round"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # profiler device times beside the events' ms
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
+            **({"frames": r["frames"]} if "frames" in r else {})})
     print(json.dumps({"slice": sl, "profile": prof, "protocol": proto}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -16,9 +16,11 @@ semantics, not a fallback.  With a flag on, a CUDA tensor launches the
 kernel or raises; a CPU tensor takes the kernel's plain version.
 
 The JAX package's ``pick_block``/``pick_pair_block`` grid sizing and the
-plan's ``block`` target have no counterpart: the quantizer's CUDA blocks
-own a fixed, even run of tiles (so int4 code pairs never cross a block)
-and the update kernels run a flat grid-stride loop.
+plan's ``block`` target have no counterpart: the quantizer's vec kernel
+gives each warp whole tiles (a persistent grid, walked tile by tile),
+its generic kernel gives each block a fixed, even run of tiles (so int4
+code pairs never cross a block), and the update kernels run a flat
+grid-stride loop.
 """
 
 from __future__ import annotations

@@ -15,8 +15,17 @@ int8 / 7 int4), an all-zero tile gets scale 1, a non-finite tile a NaN
 scale and zero codes; codes round half to even and clip; int4 codes are
 two's-complement nibbles, low nibble first.
 
+The quantizer has two CUDA kernels, and :func:`_quant_route` picks one
+from the leaf's dtype, the tile width and the leaf's alignment alone:
+``"vec"`` (``quantize_kernel``, one warp per tile held in registers,
+16-byte loads; counted as ``LAUNCHES["quantize"]``) for a tile of 512,
+1024, 2048 or 4096 bytes and at most 1024 values on a 16-byte aligned
+leaf — at the wire's tile 256, every bf16, fp16 and float32 leaf — and
+``"generic"`` (``quantize_generic_kernel``, any tile and alignment;
+counted as ``LAUNCHES["quantize_generic"]``) otherwise.
+
 Each wrapper takes the plain version (``*_reference``) only because the
-tensor it was given lies on the CPU; for a CUDA tensor it launches the
+tensor it was given lies on the CPU; for a CUDA tensor it launches a
 kernel or raises.  Each launch adds one to its entry in
 :data:`LAUNCHES`.
 """
@@ -28,9 +37,16 @@ import ctypes
 import torch
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
-LAUNCHES = {"quantize": 0, "dequantize": 0}
+LAUNCHES = {"quantize": 0, "quantize_generic": 0, "dequantize": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
+#: quantizer route -> its kernel's entry in :data:`LAUNCHES`
+QUANT_ROUTES = {"vec": "quantize", "generic": "quantize_generic"}
+#: the widest tile (values) the vec route holds in registers: at 1024 a
+#: float32 tile is 8 chunks a lane, twice over (the next tile's loads go
+#: out before the current one's codes), 64 registers of data
+VEC_MAX_TILE = 1024
 
 
 def reset_launches() -> None:
@@ -104,9 +120,10 @@ def _library():
     lib = load("quant")
     if not getattr(lib, "_slt_typed", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.slt_quantize.argtypes = [i, p, ll, i, ll, i, p, p, p]
+        for fn in (lib.slt_quantize, lib.slt_quantize_generic):
+            fn.argtypes = [i, p, ll, i, ll, i, p, p, p]
+            fn.restype = ctypes.c_int
         lib.slt_dequantize.argtypes = [p, p, ll, i, i, p, p]
-        lib.slt_quantize.restype = ctypes.c_int
         lib.slt_dequantize.restype = ctypes.c_int
         lib._slt_typed = True
     return lib
@@ -140,6 +157,46 @@ def _check_args(tile: int, bits: int) -> None:
         raise ValueError(f"tile must be >= 1, got {tile}")
 
 
+def _quant_route(dtype: torch.dtype, tile: int, data_ptr: int) -> str:
+    """The quantizer kernel for a leaf of ``dtype`` at ``data_ptr``:
+    ``"vec"`` when a tile is one, two, four or eight 16-byte chunks a
+    lane of a warp (``tile * itemsize`` of 512, 1024, 2048 or 4096
+    bytes), at most :data:`VEC_MAX_TILE` values, and the leaf is 16-byte
+    aligned; ``"generic"`` otherwise.  The code width takes no part: a
+    vec tile is even, so its 16-byte chunks hold whole int4 code pairs
+    and int4 adds no tile of padding."""
+    chunks, rest = divmod(tile * _ITEMSIZE[dtype], 512)
+    if (rest == 0 and chunks in (1, 2, 4, 8) and tile <= VEC_MAX_TILE
+            and data_ptr % 16 == 0):
+        return "vec"
+    return "generic"
+
+
+def _launch_quantize(route: str, x: torch.Tensor, tile: int, bits: int):
+    """Launch the quantizer kernel of ``route`` on a checked CUDA leaf;
+    ``(codes, scales)``."""
+    n = x.numel()
+    t_count = padded_tiles(n, tile, bits)
+    if t_count == 0:
+        raise ValueError("the quantize kernel needs a non-empty leaf")
+    if route == "vec" and _quant_route(x.dtype, tile,
+                                       x.data_ptr()) != "vec":
+        raise ValueError(f"the vec quantizer does not take {x.dtype} at "
+                         f"tile {tile} from {x.data_ptr():#x}")
+    n_codes = t_count * tile // (2 if bits == 4 else 1)
+    codes = torch.empty(n_codes, device=x.device,
+                        dtype=torch.int8 if bits == 8 else torch.uint8)
+    scales = torch.empty(t_count, device=x.device, dtype=torch.float32)
+    lib = _library()
+    fn = lib.slt_quantize if route == "vec" else lib.slt_quantize_generic
+    name = QUANT_ROUTES[route]
+    err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), n, tile, t_count, bits,
+             codes.data_ptr(), scales.data_ptr(), _stream(x))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return codes, scales
+
+
 def quantize_tiles(x: torch.Tensor, *, tile: int, bits: int):
     """One pass: ``(codes, scales)`` of a float leaf (any shape, float32,
     bfloat16 or float16, contiguous)."""
@@ -151,20 +208,8 @@ def quantize_tiles(x: torch.Tensor, *, tile: int, bits: int):
                         f"float16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("the quantize kernel needs a contiguous leaf")
-    n = x.numel()
-    t_count = padded_tiles(n, tile, bits)
-    if t_count == 0:
-        raise ValueError("the quantize kernel needs a non-empty leaf")
-    n_codes = t_count * tile // (2 if bits == 4 else 1)
-    codes = torch.empty(n_codes, device=x.device,
-                        dtype=torch.int8 if bits == 8 else torch.uint8)
-    scales = torch.empty(t_count, device=x.device, dtype=torch.float32)
-    err = _library().slt_quantize(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), n, tile, t_count, bits,
-        codes.data_ptr(), scales.data_ptr(), _stream(x))
-    _raise_on(err, "quantize")
-    LAUNCHES["quantize"] += 1
-    return codes, scales
+    return _launch_quantize(_quant_route(x.dtype, tile, x.data_ptr()), x,
+                            tile, bits)
 
 
 def dequantize_tiles(q: torch.Tensor, scale: torch.Tensor, *, tile: int,

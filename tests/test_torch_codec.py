@@ -17,7 +17,11 @@ of the 5000-value, tile-7 case), and a quotient at a .5 boundary can
 then round the other way.  Dequantizing the same codes and scales is
 bitwise in both.
 Cases: an all-zero tile, a NaN tile, an inf tile, a ragged length, tile
-256, an odd tile 7 (int4 pairs straddle tiles), and a bf16 leaf.
+256, an odd tile 7 (int4 pairs straddle tiles), and a bf16 leaf; then
+the CUDA quantizer's route function (which of its two kernels a leaf
+takes, from dtype, tile and alignment) and the shapes the chip check
+holds each route on: rounding ties, tiles 1024 and 2048, fp16, ragged
+leaves at tile 256, and a tile whose scale underflows to zero.
 """
 
 import jax.numpy as jnp
@@ -199,3 +203,122 @@ def test_padding_rule_matches():
                           (4096, 256, 4)):
         ref = jq.quantize_np(np.ones(n, np.float32), tile, bits)
         assert kq.padded_tiles(n, tile, bits) == ref.scale.size
+
+
+# -- the quantizer's kernel routes ------------------------------------------
+
+# (dtype, tile, byte offset of the leaf, route): a tile of 512, 1024, 2048
+# or 4096 bytes and at most 1024 values, on a 16-byte aligned leaf, takes
+# the vec kernel; everything else the generic one
+ROUTES = [
+    (torch.bfloat16, 256, 0, "vec"), (torch.float16, 256, 0, "vec"),
+    (torch.float32, 256, 0, "vec"), (torch.float32, 128, 0, "vec"),
+    (torch.bfloat16, 512, 0, "vec"), (torch.bfloat16, 1024, 0, "vec"),
+    (torch.float32, 1024, 0, "vec"),
+    (torch.bfloat16, 64, 0, "generic"),     # 128 B: part of a warp load
+    (torch.bfloat16, 128, 0, "generic"),
+    (torch.float32, 64, 0, "generic"),
+    (torch.bfloat16, 768, 0, "generic"),    # three chunks a lane
+    (torch.bfloat16, 2048, 0, "generic"),   # past the register cap
+    (torch.float32, 2048, 0, "generic"),
+    (torch.float32, 7, 0, "generic"),
+    (torch.bfloat16, 256, 2, "generic"),    # off 16-byte alignment
+    (torch.float32, 256, 4, "generic"),
+    (torch.float16, 256, 8, "generic"),
+    (torch.float32, 256, 32, "vec"),
+]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype,tile,offset,route", ROUTES)
+def test_quant_route(dtype, tile, offset, route, bits):
+    """The route depends on dtype, tile and alignment alone.  The code
+    width takes no part because a vec tile holds whole int4 code pairs:
+    it is even, so int4 pads a leaf to the same tiles as int8."""
+    assert kq._quant_route(dtype, tile, 0x7f0000000000 + offset) == route
+    assert kq.QUANT_ROUTES[route] in kq.LAUNCHES
+    if route == "vec":
+        for n in (1, tile - 1, 3 * tile + 1):
+            assert kq.padded_tiles(n, tile, bits) == -(-n // tile)
+
+
+def test_vec_launch_refuses_other_shapes():
+    """Forcing the vec kernel on a shape it does not take raises before
+    anything is built or launched; a CPU leaf takes the plain version
+    and launches nothing."""
+    x = torch.zeros(4096, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="vec quantizer does not take"):
+        kq._launch_quantize("vec", x, 64, 8)
+    kq.reset_launches()
+    q, s = kq.quantize_tiles(x, tile=256, bits=8)
+    assert q.shape == (4096,) and s.shape == (16,)
+    assert not any(kq.LAUNCHES.values())
+
+
+def _ties(qmax: float) -> np.ndarray:
+    """A tile of amax qmax (scale exactly 1) holding values half-way
+    between two codes: round half to even gives 2, -2, 4, -4, 0, 0, 2."""
+    t = np.array([2.5, -2.5, 3.5, -3.5, 0.5, -0.5, 1.5, -1.5] * 32,
+                 np.float32)
+    t[7] = qmax
+    return t
+
+
+def _edge_leaf(case: str, bits: int):
+    """The chip check's phase-3 shapes at a CPU size: (float32 values,
+    the dtype the port quantizes them in, tile)."""
+    rng = np.random.default_rng(len(case) + bits)
+    if case.startswith("ties"):
+        x = _ties(127.0 if bits == 8 else 7.0)
+        return x, (torch.bfloat16 if "bf16" in case else torch.float32), 256
+    tile = {"tile 1024": 1024, "tile 2048": 2048}.get(case[:9], 256)
+    n = 2 * tile + 77 if "ragged" in case else 2 * tile
+    x = (rng.standard_normal(n) * 3).astype(np.float32)
+    x[tile + 5] = np.nan
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(
+        case.split()[-1], torch.float32)
+    return x, dtype, tile
+
+
+EDGE_CASES = ["ties bf16", "ties f32", "tile 1024 bf16", "tile 1024 f32",
+              "tile 2048 bf16", "fp16", "ragged bf16", "ragged f32"]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_route_shapes_match_jax_codec(case, bits):
+    """The shapes the two kernel routes are held on: the port's plain
+    version bitwise against the numpy twin, and against the JAX device
+    chain at the file's tolerances (scales within one ulp, codes one
+    step off at most where a scale differs)."""
+    x, dtype, tile = _edge_leaf(case, bits)
+    tx = torch.from_numpy(x).to(dtype)
+    xf = tx.float().numpy()          # the values the port quantizes
+    q, s = tq._quantize_dev(tx, tile, bits)
+    ref = jq.quantize_np(xf, tile, bits)
+    assert _bytes(q) == _bytes(ref.q) and _bytes(s) == _bytes(ref.scale)
+    jcodes, jscale = jq._quantize_dev(jnp.asarray(xf), tile, bits)
+    _match_device_chain(q, s, jcodes, jscale, tile, bits)
+    if case.startswith("ties"):
+        assert s.tolist() == [1.0]
+        assert _codes(q, bits)[:8].tolist() == [2, -2, 4, -4, 0, 0, 2,
+                                                int(x[7])]
+    d = tq._dequantize_dev(q, s, tile, bits, (x.size,))
+    assert _bytes(d) == _bytes(jq.dequantize_leaf_np(ref))
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_zero_scale_tile_matches_numpy_twin(bits):
+    """A float32 tile whose amax / qmax underflows to a zero scale: the
+    port divides in IEEE float32 as the numpy twin does (nonzero values
+    clip to +-qmax, zeros give 0).  The JAX device chain on the CPU
+    treats these subnormal inputs as zeros (scale 1, codes 0), so it is
+    not the oracle here."""
+    x = np.zeros(256, np.float32)
+    x[:4] = [3e-45, -3e-45, 1.4e-45, -0.0]
+    q, s = tq._quantize_dev(torch.from_numpy(x), 256, bits)
+    ref = jq.quantize_np(x, 256, bits)
+    assert _bytes(q) == _bytes(ref.q) and _bytes(s) == _bytes(ref.scale)
+    qmax = 127 if bits == 8 else 7
+    assert s.tolist() == [0.0]
+    assert _codes(q, bits)[:4].tolist() == [qmax, -qmax, qmax, 0]
