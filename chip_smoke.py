@@ -58,8 +58,20 @@ Phases, each fatal on failure:
    tensor-core backward kernel 176 launches a round, the vec quantizer
    and the dequantizer 48, the CUDA-core kernels and the generic
    quantizer 0);
-7. summary — a ``{"kernels": [...]}`` line, then the last line
+7. protocol_tcp — the same 2 rounds in the deployment shape: one
+   ``python -m split_learning_torch.broker`` and one process each for the
+   server and the five clients, all on the card, over TCP with the async
+   sender and receive prefetch.  The samples and each kernel's launches
+   across the processes must equal the in-process 2-round run's; reports
+   the phase walls beside the in-process ones, the broker's bytes by
+   queue family, each process's peak memory and the card's by
+   ``nvidia-smi``;
+8. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --participant MODULE ARG...`` is phase 7's
+participant runner: it runs ``MODULE.main(ARG...)`` and prints that
+process's launch counts and peak memory.
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when
 there is no CUDA device or when the port's package is not beside it.
@@ -71,11 +83,14 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import signal
 import tempfile
+import threading
 import time
 
 import torch
@@ -518,6 +533,36 @@ def phase_model_check() -> None:
     print(f"  tiny TinyLlama f32 flash vs dense: logits max_abs_err "
           f"{err:.3e}, grads max_abs_err {gerr:.3e} (tol 5e-4)")
     check(err <= 5e-4 and gerr <= 5e-4, "tiny model flash vs dense")
+    phase_loss_check()
+
+
+def phase_loss_check(devices=("cpu", "cuda")) -> None:
+    """The pipeline's bf16 cross entropy on the card against the same
+    function on the CPU (which tests/test_torch_bf16_loss.py holds equal
+    to optax's): bf16 logits (512, 32000), sigma 3, from a numpy seed.
+    The loss must be equal and the logits' gradients within one bf16 ulp
+    of the largest gradient."""
+    import numpy as np
+    from split_learning_torch.parallel.pipeline import PipelineModel
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal((512, 32000)) * 3).astype(
+        np.float32)).to(torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, 32000, 512))
+    out = []
+    for dev in devices:
+        xd = x.clone().to(dev).requires_grad_(True)
+        loss = PipelineModel.loss_from_logits(xd, y.to(dev))
+        loss.backward()
+        out.append((float(loss.detach()), xd.grad.float().cpu()))
+    (cpu, cpu_g), (card, card_g) = out
+    f32 = float(F.cross_entropy(x.float(), y))
+    gerr = float((cpu_g - card_g).abs().max())
+    gmax = float(cpu_g.abs().max())
+    print(f"  bf16 loss (512, 32000): card {card} cpu {cpu} float32 "
+          f"{f32:.6f}; grads max_abs_err {gerr:.3e} (tol "
+          f"{2 ** -8 * gmax:.3e})")
+    check(card == cpu and gerr <= 2 ** -8 * gmax,
+          "bf16 loss on the card differs from the CPU's")
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -975,6 +1020,49 @@ def run_protocol(cfg, timeout: float = 600.0):
     return run.server, run.clients, run.bus, run.result
 
 
+def run_protocol_tcp_threads(cfg, timeout: float = 600.0):
+    """The protocol deployment with every frame over TCP, participants
+    in threads of this process: a :class:`Broker` on a free port, and the
+    server and each client building their transport stack from the
+    config (``make_runtime_transport``: TCP, receive prefetch, the async
+    sender)."""
+    import threading as th
+    from split_learning_torch.runtime.bus import Broker
+    from split_learning_torch.runtime.client import ProtocolClient
+    from split_learning_torch.runtime.log import Logger
+    from split_learning_torch.runtime.server import ProtocolServer
+    broker = Broker("127.0.0.1", 0)
+    errors = []
+    try:
+        cfg = dataclasses.replace(cfg, transport=dataclasses.replace(
+            cfg.transport, kind="tcp", port=broker.port))
+        server = ProtocolServer(cfg, device=DEVICE, client_timeout=timeout,
+                                logger=Logger.for_run(cfg, "server"))
+        clients = [ProtocolClient(cfg, f"client_{s}_{i}", s, device=DEVICE)
+                   for s, n in enumerate(cfg.clients, start=1)
+                   for i in range(n)]
+
+        def run(c):
+            try:
+                c.run()
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+        threads = [th.Thread(target=run, args=(c,), daemon=True)
+                   for c in clients]
+        for t in threads:
+            t.start()
+        res = server.serve()
+        for t in threads:
+            t.join(timeout=120)
+    except Exception as e:
+        raise SmokeFailure(f"TCP protocol round failed: {e!r}") from e
+    finally:
+        broker.close()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"TCP protocol client failed: {errors}")
+    return res
+
+
 TINY_PROTOCOL = {
     "model": "TinyLlama", "dataset": "TINYSTORIES", "clients": [1, 1, 1],
     "global-rounds": 2, "synthetic-size": 64, "val-max-batches": 2,
@@ -999,7 +1087,9 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
     each stage steps in a fixed order, and each kernel equals its plain
     version bit for bit, so the two runs' validation losses and final
     parameters must agree to float32 noise (1e-5: cuBLAS may pick other
-    GEMM algorithms between the runs).  Its float32 forward and backward
+    GEMM algorithms between the runs).  Then the kernels-on round once
+    more with every frame over TCP (participants in threads, the async
+    sender), held to the in-process one the same way.  Its float32 forward and backward
     take the CUDA-core kernels: returns their launches, and the codec
     kernels' (either quantizer route may run here), in the first run."""
     from split_learning_torch.config import from_dict
@@ -1038,6 +1128,27 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
           "(tol 1e-5)")
     check(loss_err <= 1e-5 and param_err <= 1e-5,
           "tiny protocol round: kernels disagree with the plain chains")
+    # the same kernels-on round with every frame over TCP: the codec,
+    # fetch and encode of each activation and gradient run on the async
+    # sender thread, on the training thread's stream
+    d = dict(TINY_PROTOCOL, **{"log-path": str(workdir / "tiny_tcp"),
+                               "kernels": {"quantize": True,
+                                           "dequantize": True,
+                                           "stage-update": True}})
+    tcp = run_protocol_tcp_threads(from_dict(d), timeout=120)
+    tcp_loss = max(abs(a.val_loss - b.val_loss)
+                   for a, b in zip(on.history, tcp.history))
+    tcp_param = max(float((on.params[layer][k] - t).abs().max())
+                    for layer, sd in tcp.params.items()
+                    for k, t in sd.items())
+    print(f"  tiny protocol round over TCP (async sender) vs in process: "
+          f"samples {[r.num_samples for r in tcp.history]}, max |loss "
+          f"diff| {tcp_loss:.3e}, max |param diff| {tcp_param:.3e} "
+          "(tol 1e-5)")
+    check([r.num_samples for r in tcp.history]
+          == [r.num_samples for r in on.history]
+          and tcp_loss <= 1e-5 and tcp_param <= 1e-5,
+          "tiny protocol round over TCP differs from the in-process one")
     print(f"  tiny float32 round: CUDA-core kernels launched {simt}, "
           f"codec kernels {codec}")
     return {**simt, **codec}
@@ -1071,17 +1182,11 @@ def protocol_config(workdir: pathlib.Path, momentum: float, rounds: int):
         log_path=str(workdir / "logs_protocol")).validate()
 
 
-def _family(queue: str) -> str:
-    for fam in ("intermediate", "gradient"):
-        if queue.startswith(fam + "_queue"):
-            return fam
-    return "reply" if queue.startswith("reply_") else "rpc"
-
-
 def phase_protocol(workdir: pathlib.Path) -> dict:
     from split_learning_torch.ops import flash_attention as fa
     from split_learning_torch.ops.kernels import quant as kq
     from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime.bus import queue_family
     from split_learning_torch.runtime.checkpoint import load_checkpoint
 
     def reset():
@@ -1131,11 +1236,11 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
     # equivalent (the compression ratio's denominator)
     actual: dict = {}
     for q, nb in bus.bytes_out_snapshot().items():
-        actual[_family(q)] = actual.get(_family(q), 0) + nb
+        actual[queue_family(q)] = actual.get(queue_family(q), 0) + nb
     raw: dict = {}
     for c in clients:
         for q, nb in c.raw_bytes_out.items():
-            raw[_family(q)] = raw.get(_family(q), 0) + nb
+            raw[queue_family(q)] = raw.get(queue_family(q), 0) + nb
     wire = {fam: {"bytes": actual.get(fam, 0), "raw_bytes": raw.get(fam),
                   "ratio": (raw[fam] / actual[fam]
                             if raw.get(fam) and actual.get(fam) else None)}
@@ -1222,6 +1327,266 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 7. protocol_tcp: the deployment shape, one process per participant
+# --------------------------------------------------------------------------
+
+#: the prefix of the one JSON line each participant runner prints
+PARTICIPANT_TAG = "chip_smoke participant: "
+
+
+def _launch_counts() -> dict:
+    from split_learning_torch.ops import flash_attention as fa
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    return {**fa.LAUNCHES, **kq.LAUNCHES, **ku.LAUNCHES}
+
+
+def participant_main(argv: list) -> int:
+    """``chip_smoke.py --participant MODULE ARG...``: run one protocol
+    participant, ``MODULE.main(ARG...)``, in this process, then print one
+    line, :data:`PARTICIPANT_TAG` and a JSON object: the process's kernel
+    launch counts (sender thread included) and its peak device memory."""
+    import importlib
+    module, args = argv[0], argv[1:]
+    t0 = time.perf_counter()
+    role = importlib.import_module(module).main(args)
+    wall = time.perf_counter() - t0
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if cuda:
+        torch.cuda.synchronize()
+    # the role's async sender: seconds waited for room, in thunks (codec,
+    # fetch, encode) and on the socket
+    bus = getattr(role, "bus", None) or getattr(
+        getattr(role, "ctx", None), "bus", None)
+    print(PARTICIPANT_TAG + json.dumps({
+        "module": module, "argv": args, "wall_s": wall,
+        "sender": {k: getattr(bus, k) for k in (
+            "send_hwm", "publish_wait_s", "thunk_s", "send_s")
+            if hasattr(bus, k)},
+        "launches": _launch_counts(),
+        "max_memory_allocated_bytes":
+            torch.cuda.max_memory_allocated() if cuda else 0,
+        "max_memory_reserved_bytes":
+            torch.cuda.max_memory_reserved() if cuda else 0}), flush=True)
+    return 0
+
+
+class _SmiPoll:
+    """The card's used memory by ``nvidia-smi``, polled every second in
+    a thread while a phase runs; :attr:`peak_mib` is the largest
+    reading."""
+
+    def __init__(self):
+        self.peak_mib = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.is_set():
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30).stdout.split()
+                self.peak_mib = max([self.peak_mib, *map(int, out[:1])])
+            except (OSError, ValueError, subprocess.SubprocessError):
+                pass
+            self._stop.wait(1.0)
+
+    def stop(self) -> int:
+        self._stop.set()
+        self._thread.join(timeout=60)
+        return self.peak_mib
+
+
+def _read_port(log: pathlib.Path, proc, deadline: float) -> int:
+    while time.monotonic() < deadline:
+        text = log.read_text()
+        if "python broker on" in text:
+            return int(text.split("python broker on ")[1].split()[0]
+                       .rsplit(":", 1)[1])
+        check(proc.poll() is None, f"broker exited: {text[-2000:]}")
+        time.sleep(0.1)
+    raise SmokeFailure("broker did not start")
+
+
+def _metrics(log_path: pathlib.Path) -> list:
+    """Every metrics record the participants wrote under ``log_path``."""
+    return [json.loads(line)
+            for f in sorted(log_path.glob("artifacts/runs/*/metrics.jsonl"))
+            for line in f.read_text().splitlines() if line.strip()]
+
+
+def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
+                       timeout: float = 900.0) -> dict:
+    """The protocol round in its deployment shape: one
+    ``python -m split_learning_torch.broker`` and, through
+    :func:`participant_main`, one ``split_learning_torch.server`` and one
+    ``split_learning_torch.client`` per client of ``clients: [2, 1, 1,
+    1]``, all on ``cuda:0``, over TCP (async sender and receive
+    prefetch, as ``make_runtime_transport`` builds them), at the in-process
+    ``protocol`` phase's configuration (2 rounds of FedAvgM 0.9).  All
+    run in one process group, killed on any failure.  ``inproc`` is that
+    phase's result: the samples and the kernel launches must equal its
+    2-round run's."""
+    from split_learning_torch.config import to_dict
+    from split_learning_torch.runtime.bus import (
+        BROKER_STATS_QUEUE, TcpTransport,
+    )
+
+    d = workdir / "tcp"
+    d.mkdir(parents=True)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()   # this process's cache from earlier phases
+    procs: dict = {}
+    group = None
+
+    def spawn(name: str, args: list):
+        nonlocal group
+        log = d / f"{name}.log"
+        procs[name] = (subprocess.Popen(
+            [sys.executable, *args], cwd=HERE, stdout=log.open("w"),
+            stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONUNBUFFERED": "1"},
+            process_group=0 if group is None else group), log)
+        if group is None:
+            group = procs[name][0].pid
+        return procs[name][0]
+
+    deadline = time.monotonic() + timeout
+    smi = _SmiPoll()
+    t0 = time.perf_counter()
+    try:
+        broker = spawn("broker", ["-m", "split_learning_torch.broker",
+                                  "--port", "0"])
+        port = _read_port(procs["broker"][1], broker, deadline)
+        cfg = protocol_config(d, momentum=0.9, rounds=2)
+        cfg = dataclasses.replace(cfg, transport=dataclasses.replace(
+            cfg.transport, kind="tcp", port=port))
+        cfg_path = d / "config.json"   # JSON is YAML
+        cfg_path.write_text(json.dumps(to_dict(cfg)))
+        common = ["--config", str(cfg_path), "--device", DEVICE]
+        me = [str(HERE / "chip_smoke.py"), "--participant"]
+        spawn("server", [*me, "split_learning_torch.server", *common,
+                         "--client_timeout", str(timeout)])
+        for s, n in enumerate(cfg.clients, start=1):
+            for i in range(n):
+                cid = f"client_{s}_{i}"
+                spawn(cid, [*me, "split_learning_torch.client", *common,
+                            "--layer_id", str(s), "--client_id", cid])
+        for name, (p, log) in procs.items():
+            if name == "broker":
+                continue
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{name} missed the {timeout:.0f} s "
+                                   "deadline") from None
+            check(rc == 0, f"{name} exited {rc}: "
+                  f"{log.read_text()[-3000:]}")
+        wall = time.perf_counter() - t0
+        probe = TcpTransport("127.0.0.1", port)
+        stats = json.loads(bytes(probe.get(BROKER_STATS_QUEUE, 30)))
+        probe.close()
+        broker.terminate()
+        check(broker.wait(timeout=30) == 0, "broker did not exit cleanly")
+    finally:
+        card_peak_mib = smi.stop()
+        if group is not None:
+            try:
+                os.killpg(group, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        for p, _ in procs.values():
+            p.wait(timeout=30)
+
+    reports = {}
+    for name, (_, log) in procs.items():
+        if name == "broker":
+            continue
+        lines = [ln for ln in log.read_text().splitlines()
+                 if ln.startswith(PARTICIPANT_TAG)]
+        check(len(lines) == 1, f"{name} printed no report")
+        reports[name] = json.loads(lines[0][len(PARTICIPANT_TAG):])
+    launches = {k: sum(r["launches"].get(k, 0) for r in reports.values())
+                for k in reports["server"]["launches"]}
+
+    records = _metrics(pathlib.Path(cfg.log_path))
+    phases = [r for r in records if r.get("kind") == "phases"]
+    aggs = [r for r in records if r.get("kind") == "agg"]
+    rounds = sorted((r for r in records if r.get("kind") == "round"),
+                    key=lambda r: r["round_idx"])
+    n_rounds = cfg.global_rounds
+    check(len(rounds) == len(phases) == len(aggs) == n_rounds,
+          f"expected {n_rounds} rounds, phases and folds: {len(rounds)}, "
+          f"{len(phases)}, {len(aggs)}")
+    want = [r["samples"] for r in inproc["rounds"]]
+    for rec, agg, n in zip(rounds, aggs, want):
+        check(rec["ok"] and math.isfinite(rec["val_loss"]),
+              f"TCP round not ok: {rec}")
+        check(rec["num_samples"] == n, f"TCP round {rec['round_idx']}: "
+              f"{rec['num_samples']} samples, in-process {n}")
+        check(agg["folded"] == sum(cfg.clients),
+              f"TCP round folded {agg['folded']} of {sum(cfg.clients)}")
+    for name, n in launches.items():
+        if name in OFF_PATH_KERNELS:
+            check(n == 0, f"{name} ran {n} times on the TCP path")
+    for name in ("quantize", "dequantize", "momentum", "flash_fwd",
+                 "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launches[name] > 0, f"kernel {name} was not launched on "
+              "the TCP path")
+        check(launches[name] == inproc["launches"][name],
+              f"{name}: {launches[name]} launches over TCP, "
+              f"{inproc['launches'][name]} in process")
+
+    out = {
+        "run_wall_s": wall, "rounds": [
+            {"round": r["round_idx"], "wall_s": r["wall_s"],
+             "samples": r["num_samples"], "val_loss": r["val_loss"]}
+            for r in rounds],
+        "phases": [{k: v for k, v in p.items() if k.endswith("_s")}
+                   for p in phases],
+        "inproc_phases": inproc["phases"],
+        "launches": launches,
+        "launches_per_round": {k: v / n_rounds for k, v in launches.items()},
+        "broker": {k: stats[k] for k in (
+            "bytes_in", "bytes_out", "published", "delivered", "depth_hwm",
+            "stored_bytes_hwm", "get_timeouts", "backpressure_pauses",
+            "published_bytes_by_family", "delivered_bytes_by_family")},
+        "processes": {n: {k: r[k] for k in (
+            "wall_s", "max_memory_allocated_bytes",
+            "max_memory_reserved_bytes", "sender")}
+            for n, r in reports.items()},
+        # the server's send queue: cumulative at each round's end
+        "server_sender": [{k: w[k] for k in w if k.startswith(
+            "cumulative_")} for w in records if w.get("kind") == "wire"],
+        "card_memory_used_peak_mib": card_peak_mib,
+    }
+    for r, p, q in zip(out["rounds"], out["phases"], inproc["phases"]):
+        print(f"  TCP round {r['round']}: wall {r['wall_s']:.3f} s, "
+              f"{r['samples']} samples, val_loss {r['val_loss']:.4f}; "
+              "phases " + ", ".join(
+                  f"{k} {v:.3f} (in process {q.get(k, float('nan')):.3f})"
+                  for k, v in p.items()))
+    print(f"  TCP run {wall:.3f} s; broker in {stats['bytes_in']} B, out "
+          f"{stats['bytes_out']} B, published by family "
+          f"{stats['published_bytes_by_family']}, queue high-water "
+          f"{stats['stored_bytes_hwm']} B, backpressure pauses "
+          f"{stats['backpressure_pauses']}")
+    for n, r in out["processes"].items():
+        print(f"  {n}: peak allocated "
+              f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB, "
+              f"reserved {r['max_memory_reserved_bytes'] / 2**30:.2f} GiB, "
+              f"wall {r['wall_s']:.1f} s, sender {r['sender']}")
+    print(f"  server send queue at each round's end: {out['server_sender']}")
+    print(f"  card memory used, peak by nvidia-smi: {card_peak_mib} MiB; "
+          f"launches {launches}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -1241,10 +1606,13 @@ def main() -> int:
         prof = phase_profile(cfg)
         print("[protocol]")
         proto = phase_protocol(workdir)
+        print("[protocol_tcp]")
+        tcp = phase_protocol_tcp(workdir, proto)
     entries = []
     for name, r in kernels.items():
         source, replaces = KERNELS[name]
-        by_path = {"protocol": proto["launches_total"][name]}
+        by_path = {"protocol": proto["launches_total"][name],
+                   "protocol_tcp": tcp["launches"][name]}
         if name in sl["launches"]:
             by_path["slice"] = sl["launches"][name]
         if name in tiny:   # the float32 flash route, either quantizer
@@ -1264,7 +1632,8 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
             **({"frames": r["frames"]} if "frames" in r else {})})
-    print(json.dumps({"slice": sl, "profile": prof, "protocol": proto}))
+    print(json.dumps({"slice": sl, "profile": prof, "protocol": proto,
+                      "protocol_tcp": tcp}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -1275,6 +1644,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--participant"]:
+            sys.exit(participant_main(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -90,9 +90,14 @@ class PipelineModel:
     def loss_from_logits(logits, labels):
         """Mean softmax cross entropy over every token; the logits stay
         in the model's compute dtype, as the reference feeds bf16 logits
-        to its cross entropy."""
+        to its cross entropy.  Per-token losses first, then one mean
+        (accumulated in float32, rounded once to the logits' dtype), as
+        optax's ``softmax_cross_entropy_with_integer_labels(...).mean()``
+        reduces: ``F.cross_entropy``'s own mean reduction of bf16 loses
+        up to a bf16 ulp more."""
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                               labels.reshape(-1).long())
+                               labels.reshape(-1).long(),
+                               reduction="none").mean()
 
     def _stage_apply(self, s: int, x, labels):
         out = self.stage_models[s](x, train=True)

@@ -18,8 +18,13 @@ One generic :class:`ShardRunner` plays the reference's three roles:
 
 Each client runs on the caller's device (CUDA unless the CPU is asked
 for).  Many client threads may share one card: every op launches on the
-thread's current stream, and tensors cross threads only as host bytes
-through the bus.
+thread's current stream, and tensors cross participants only as host
+bytes through the bus.  Without a transport from the caller, a client
+builds its configured stack (``runtime/chaos.py``
+``make_runtime_transport``).  On a deferred bus (the async sender) an
+activation or gradient's codec, device-to-host fetch and frame encode
+run in a thunk on the sender thread, on the CUDA stream that produced
+the tensor.
 
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): async decoupled mode and auxiliary heads, server-side data
@@ -80,20 +85,10 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _cast_for_wire(tree, dtype: torch.dtype):
-    """Cast float leaves to the wire dtype ON the device, before the
-    device-to-host fetch (a float32 wire ships as-is)."""
-    if dtype == torch.float32:
-        return tree
-    return _map(lambda t: t.to(dtype)
-                if isinstance(t, torch.Tensor) and t.is_floating_point()
-                else t, tree)
-
-
 def _to_wire_tree(tree, dtype: torch.dtype):
-    """Device tree -> host payload: float leaves at the wire dtype
-    (bfloat16 stays a CPU tensor, numpy cannot hold it), others at their
-    own dtype."""
+    """Device tree -> host payload: float leaves cast to the wire dtype
+    on the device, then fetched (bfloat16 stays a CPU tensor, numpy
+    cannot hold it); others at their own dtype."""
     def conv(leaf):
         if not isinstance(leaf, torch.Tensor):
             return leaf
@@ -209,13 +204,9 @@ class ProtocolClient:
     for), speaking over ``transport``."""
 
     def __init__(self, cfg: Config, client_id: str, stage: int,
-                 transport: Transport, cluster: int | None = None,
-                 profile: dict | None = None,
+                 transport: Transport | None = None,
+                 cluster: int | None = None, profile: dict | None = None,
                  logger: Logger | None = None, device=None):
-        if transport is None:
-            raise ValueError("pass the transport: an in-process round "
-                             "shares one InProcTransport between the "
-                             "server and every client")
         lrn = cfg.learning
         if lrn.mode == "async":
             raise NotImplementedError(
@@ -231,6 +222,13 @@ class ProtocolClient:
         self.cluster = cluster
         self.profile = profile
         self.device = resolve_device(device)
+        # a stack built here is closed (its sender flushed) by run()
+        self._own_bus = transport is None
+        if transport is None:
+            from split_learning_torch.runtime.chaos import (
+                make_runtime_transport,
+            )
+            transport = make_runtime_transport(cfg, client_id)
         self.bus = transport
         from split_learning_torch.runtime.trace import default_fault_counters
         self.faults = default_fault_counters
@@ -271,31 +269,51 @@ class ProtocolClient:
             self.log.warning(f"dropping undecodable frame on {queue}: {e}")
             return None
 
-    def _publish_parts(self, queue: str, parts: list[bytes]) -> None:
-        for part in parts:
-            self.bus.publish(queue, part)
+    def _publish_parts(self, queue: str, build) -> None:
+        """Data-plane publish: ``build()`` produces the frame part list.
+        On a deferred bus the thunk is enqueued and runs on the sender
+        thread, so batch k's codec, fetch and encode overlap batch k+1's
+        compute; on a plain bus it runs inline.
+
+        The thunk holds a reference to every tensor it reads, so the
+        caching allocator cannot hand that memory on, and those tensors
+        are fresh outputs (a forward's result, an input gradient) that
+        the training thread never writes again.  On the card it runs on
+        the stream that was current here at publish time, so its
+        kernels and its copy are ordered after the ones that produced
+        its inputs."""
+        if not getattr(self.bus, "deferred", False):
+            for part in build():
+                self.bus.publish(queue, part)
+            return
+        if self.device.type == "cuda":
+            stream, inner = torch.cuda.current_stream(self.device), build
+
+            def build():
+                with torch.cuda.stream(stream):
+                    return inner()
+        self.bus.publish(queue, build)
 
     # -- wire codec plumbing -----------------------------------------------
 
-    def _wire_out(self, tree, family: str, queue: str):
-        """Device-side wire stage: codec ``prepare`` when a policy covers
-        ``family``, else the plain device cast.  Counts the pre-codec
-        dense-equivalent bytes so the compression ratio is measured."""
-        c = self.codecs.get(family)
-        if c is None:
-            return _cast_for_wire(tree, self.wire_dtype)
-        self.raw_bytes_out[queue] = (self.raw_bytes_out.get(queue, 0)
-                                     + wire_raw_nbytes(tree,
-                                                       self.wire_dtype))
-        return c.prepare(tree, key=queue)
+    def _count_raw(self, tree, family: str, queue: str) -> None:
+        """Counts the pre-codec dense-equivalent bytes of a codec'd
+        payload (on the training thread), so the compression ratio is
+        measured."""
+        if family in self.codecs:
+            self.raw_bytes_out[queue] = (self.raw_bytes_out.get(queue, 0)
+                                         + wire_raw_nbytes(
+                                             tree, self.wire_dtype))
 
-    def _wire_host(self, tree, family: str):
-        """Host-side wire stage: codec ``encode`` or the plain host
-        cast."""
+    def _wire_payload(self, tree, family: str, queue: str):
+        """Device tree -> wire payload tree: codec ``prepare`` (the
+        quantize kernel) then ``encode`` (the fetch) when a policy
+        covers ``family``, else the plain device cast and host fetch.
+        Runs inside the publish thunk."""
         c = self.codecs.get(family)
         if c is None:
             return _to_wire_tree(tree, self.wire_dtype)
-        return c.encode(tree)
+        return c.encode(c.prepare(tree, key=queue))
 
     def register(self):
         self.bus.publish(RPC_QUEUE, encode(Register(
@@ -304,9 +322,16 @@ class ProtocolClient:
         self.log.info(f"[>>>] REGISTER stage={self.stage}")
 
     def run(self):
-        """Blocking lifecycle loop; returns on STOP.
+        """Blocking lifecycle loop; returns on STOP (and then closes a
+        transport stack it built itself)."""
+        try:
+            self._run()
+        finally:
+            if self._own_bus:
+                self.bus.close()
 
-        Until the first START arrives, REGISTER is re-sent every few
+    def _run(self):
+        """Until the first START arrives, REGISTER is re-sent every few
         seconds: a client that comes up before the server would
         otherwise lose its registration to the server's startup purge."""
         self.register()
@@ -415,12 +440,15 @@ class ProtocolClient:
                                 for k, t in sd.items()}
                         for layer, sd in self.runner.state_tree().items()}
         # TENSOR-framed and chunked: a shard UPDATE is the biggest frame
-        # a client publishes
-        self._publish_parts(RPC_QUEUE, encode_parts(Update(
+        # a client publishes.  The weights were fetched above, on this
+        # thread: the next START loads into the same parameters in place
+        msg = Update(
             client_id=self.client_id, stage=self.stage,
             cluster=self.cluster, params=params_h, batch_stats={},
             num_samples=self.num_samples, ok=self.round_ok,
-            round_idx=self.fence, version=self.fence), self._chunk_bytes))
+            round_idx=self.fence, version=self.fence)
+        self._publish_parts(
+            RPC_QUEUE, lambda: encode_parts(msg, self._chunk_bytes))
         # the next START re-initialises the moments anyway: free them now,
         # while the server folds, rather than holding them on the card
         self.runner.optimizer = None
@@ -483,19 +511,20 @@ class ProtocolClient:
     def _send_gradient(self, gx, data_id: str, trace: list) -> None:
         origin = trace[-1]
         q = gradient_queue(self.stage - 1, origin)
-        wire = self._wire_out(gx, "gradient", q)
-        self._publish_parts(q, encode_parts(Gradient(
-            data_id=data_id, data=self._wire_host(wire, "gradient"),
-            trace=list(trace)[:-1], round_idx=self.fence),
-            self._chunk_bytes))
+        self._count_raw(gx, "gradient", q)
+        trace, fence = list(trace)[:-1], self.fence
+        self._publish_parts(q, lambda: encode_parts(Gradient(
+            data_id=data_id, data=self._wire_payload(gx, "gradient", q),
+            trace=trace, round_idx=fence), self._chunk_bytes))
 
     def _send_activation(self, out, q: str, data_id: str, labels,
                          trace: list) -> None:
-        wire = self._wire_out(out, "intermediate", q)
-        self._publish_parts(q, encode_parts(Activation(
-            data_id=data_id, data=self._wire_host(wire, "intermediate"),
-            labels=labels, trace=trace, cluster=self.cluster,
-            round_idx=self.fence), self._chunk_bytes))
+        self._count_raw(out, "intermediate", q)
+        cluster, fence = self.cluster, self.fence
+        self._publish_parts(q, lambda: encode_parts(Activation(
+            data_id=data_id, data=self._wire_payload(out, "intermediate", q),
+            labels=labels, trace=trace, cluster=cluster, round_idx=fence),
+            self._chunk_bytes))
 
     def _train_first(self) -> Pause:
         """Bounded-in-flight 1F1B streaming (``src/train/VGG16.py:61-136``)."""

@@ -36,11 +36,12 @@ import numpy as np
 import torch
 
 from split_learning_torch.config import Config
+from split_learning_torch.device import resolve_device
 from split_learning_torch.models import shard_params
 from split_learning_torch.parallel.mesh import stage_ranges
 from split_learning_torch.runtime import aggregate as agg_plane
 from split_learning_torch.runtime.bus import (
-    InProcTransport, QueueClosed, Transport, make_transport,
+    InProcTransport, QueueClosed, Transport, queue_family,
 )
 from split_learning_torch.runtime.codec import make_codecs
 from split_learning_torch.runtime.context import TorchContext
@@ -99,7 +100,8 @@ class ProtocolContext(TorchContext):
 
     def __init__(self, cfg: Config, transport: Transport,
                  logger: Logger | None = None,
-                 client_timeout: float = 600.0, device=None):
+                 client_timeout: float = 600.0,
+                 ready_timeout: float | None = None, device=None):
         _refuse_unported(cfg)
         super().__init__(cfg, device=device)
         self.bus = transport
@@ -108,6 +110,10 @@ class ProtocolContext(TorchContext):
         self._assembler = FrameAssembler()   # chunked UPDATE reassembly
         self.log = logger or Logger.for_run(cfg, "server", console=False)
         self.client_timeout = client_timeout
+        # the READY barrier's deadline; registration keeps the full
+        # client_timeout (it covers client process start-up)
+        self.ready_timeout = (client_timeout if ready_timeout is None
+                              else ready_timeout)
         self._registrations: dict[str, Registration] = {}
         self._ready: set = set()
         self._notified: set = set()
@@ -328,7 +334,8 @@ class ProtocolContext(TorchContext):
         ids = {cid for cid, _ in active}
         if not self._pump_until(
                 lambda: ids <= self._ready,
-                lambda: f"READY from {ids - self._ready}"):
+                lambda: f"READY from {ids - self._ready}",
+                deadline=time.monotonic() + self.ready_timeout):
             ids &= self._ready   # drop unresponsive clients mid-round
         if self._fold is not None:
             # stop the reorder window waiting for clients dropped at the
@@ -384,19 +391,22 @@ class ProtocolContext(TorchContext):
                 f"fold={result.fold_s:.3f}s update={result.update_s:.3f}s",
                 "cyan")
         # wire audit: CUMULATIVE transport-wide publish bytes by queue
-        # kind (reply_* = server down; rpc = clients up; data =
-        # activation/gradient plane); on the shared in-process bus this
-        # covers every participant
+        # family (reply = server down; rpc = clients up; data = the
+        # intermediate and gradient plane); on the shared in-process bus
+        # this covers every participant
         totals = {"reply": 0, "rpc": 0, "data": 0}
         for q, n in self.bus.bytes_out_snapshot().items():
-            kind = ("reply" if q.startswith("reply_")
-                    else "rpc" if q == RPC_QUEUE else "data")
-            totals[kind] += n
+            family = queue_family(q)
+            totals[family if family in ("reply", "rpc") else "data"] += n
+        # and, on the async sender, the seconds the server waited for
+        # room in its send queue and the sender spent on the socket
+        sender = {f"cumulative_{k}": getattr(self.bus, k) for k in (
+            "publish_wait_s", "send_s") if hasattr(self.bus, k)}
         self.log.metric(kind="wire", gen=self._cur_gen,
                         round_idx=round_idx, cluster=plan.cluster_id,
                         cumulative_reply_bytes=totals["reply"],
                         cumulative_rpc_bytes=totals["rpc"],
-                        cumulative_data_bytes=totals["data"])
+                        cumulative_data_bytes=totals["data"], **sender)
         self.round_phases.append(phases)
         self.log.metric(kind="phases", gen=self._cur_gen,
                         round_idx=round_idx, cluster=plan.cluster_id,
@@ -417,20 +427,29 @@ class ProtocolContext(TorchContext):
 
 class ProtocolServer:
     """Top-level server (reference ``server.py:20-30``) on ``device``
-    (CUDA unless the CPU is asked for)."""
+    (CUDA unless the CPU is asked for).  Without a transport from the
+    caller it builds its configured stack (``runtime/chaos.py``
+    ``make_runtime_transport``)."""
 
-    def __init__(self, cfg: Config, transport: Transport,
+    def __init__(self, cfg: Config, transport: Transport | None = None,
                  logger: Logger | None = None,
-                 client_timeout: float = 600.0, device=None):
-        if transport is None:
-            raise ValueError("pass the transport: an in-process round "
-                             "shares one InProcTransport between the "
-                             "server and every client")
+                 client_timeout: float = 600.0,
+                 ready_timeout: float | None = None, device=None):
         self.cfg = cfg
+        # fail on a missing card before connecting to anything
+        device = resolve_device(device)
         self.log = logger or Logger.for_run(cfg, "server", console=True)
+        # a stack built here is closed (its sender flushed) by serve()
+        self._own_bus = transport is None
+        if transport is None:
+            from split_learning_torch.runtime.chaos import (
+                make_runtime_transport,
+            )
+            transport = make_runtime_transport(cfg, "server")
         transport.purge()   # queue hygiene at startup (src/Utils.py:8-32)
         self.ctx = ProtocolContext(cfg, transport, logger=self.log,
                                    client_timeout=client_timeout,
+                                   ready_timeout=ready_timeout,
                                    device=device)
 
     def serve(self, init_params: Any | None = None) -> TrainResult:
@@ -443,6 +462,8 @@ class ProtocolServer:
         finally:
             self.ctx.stop_all()
             self.ctx.shutdown()
+            if self._own_bus:
+                self.ctx.bus.close()
 
 
 @dataclasses.dataclass
@@ -464,7 +485,12 @@ def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
     its error is raised here."""
     from split_learning_torch.runtime.client import ProtocolClient
 
-    bus = make_transport(cfg.transport.kind)   # inproc; tcp raises
+    if cfg.transport.kind != "inproc":
+        raise ValueError(
+            f"run_inproc runs every participant over one in-process bus; "
+            f"transport.kind is {cfg.transport.kind!r}: start the broker, "
+            "server and clients as processes for it")
+    bus = InProcTransport()
     server = ProtocolServer(cfg, bus, logger=logger,
                             client_timeout=client_timeout, device=device)
     clients = [ProtocolClient(cfg, f"client_{s}_{i}", s, bus,

@@ -120,8 +120,11 @@ def test_entry_points_run_on_cpu_when_asked(no_gpu, tmp_path, capsys):
 
 def test_protocol_entry_points_raise_without_gpu(no_gpu, tmp_path):
     """The protocol server and client default to CUDA and raise without
-    it; the transport is never made up for the caller."""
-    from split_learning_torch.runtime.bus import InProcTransport
+    it, before they build a transport; without a transport from the
+    caller they build the configured stack."""
+    from split_learning_torch.runtime.bus import (
+        AsyncTransport, InProcTransport,
+    )
     from split_learning_torch.runtime.client import ProtocolClient
     from split_learning_torch.runtime.server import ProtocolServer
     cfg, bus = _cfg(tmp_path), InProcTransport()
@@ -129,8 +132,12 @@ def test_protocol_entry_points_raise_without_gpu(no_gpu, tmp_path):
         ProtocolServer(cfg, bus)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ProtocolClient(cfg, "client_1_0", 1, bus)
-    with pytest.raises(ValueError, match="transport"):
-        ProtocolClient(cfg, "client_1_0", 1, None, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProtocolServer(cfg)
+    own = ProtocolClient(cfg, "client_1_0", 1, None, device="cpu")
+    assert isinstance(own.bus, AsyncTransport)
+    assert isinstance(own.bus.inner, InProcTransport)
+    own.bus.close()
     ProtocolClient(cfg, "client_1_0", 1, bus, device="cpu")
 
 
