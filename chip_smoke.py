@@ -30,9 +30,15 @@ Phases, each fatal on failure:
    checked by the launch counters to take the route it names, the
    dequantizer, finalize (float32, bf16, fp16, int32 with rounding and
    ties, ragged n % 4 = 1, 2, 3, a view 4 bytes off 16-byte alignment)
-   and momentum bit for bit; the codec kernels (both quantizer routes)
-   and ``torch.mul`` timed by events and by profiler device time on the
-   bf16 int8 frame and on bf16 int4 and float32 int8 frames.  A tiny
+   and momentum bit for bit, among them the VGG round's own shapes (the
+   (32, 16, 16, 64) bf16 and float32 frames at tile 256, int8 and int4;
+   the (4096, 4096) and (64,) float32 leaves); the codec and
+   stage-update kernels then timed, beside their plain versions, library
+   calls and bounds, at the VGG round's shapes (the bf16 int8 frame, the
+   float32 int8 frame beside it, the (4096, 4096) leaf) and at the
+   TinyLlama shapes of earlier slices (an (8, 256, 2048) frame, bf16
+   int8, bf16 int4 and float32 int8; the (32000, 2048) leaf), by events
+   and by profiler device time.  A tiny
    TinyLlama's logits and gradients through the flash kernels are held
    against its dense-attention path, and a tiny protocol round with every
    kernel flag on against the same round through the plain chains;
@@ -66,8 +72,33 @@ Phases, each fatal on failure:
    the phase walls beside the in-process ones, the broker's bytes by
    queue family, each process's peak memory and the card's by
    ``nvidia-smi``;
-8. summary — a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. vgg_step_check — one float32 VGG16/CIFAR10 train step (dropout off)
+   on the CPU and on the card from the same weights, statistics and
+   batch: loss, every new BatchNorm statistic and two gradients within
+   stated tolerances;
+9. vgg_slice — the default round in process (``run_local``) on
+   ``config.yaml`` (1 round, ``[1, 1]``) and on
+   ``configs/baseline1.yaml`` (5 rounds, ``[2, 2]``: two lockstep
+   columns) as written, bf16, with every launch counter 0 (every
+   ``kernels:`` flag is off); samples, validation, the checkpoint's
+   parameters and statistics checked; then ``config.yaml``'s round once
+   more, warm and traced (vgg_profile);
+10. vgg_protocol — baseline 1 as the protocol round in one process with
+   the int8 codec on both cut directions, every kernel flag on and the
+   sharded fold: one round at ``server-momentum: 0.9``, one at 0.  The
+   quantizer, dequantizer, momentum and finalize kernels must launch, the
+   quantizer on bf16 activation frames and float32 gradient frames, once
+   per frame, and every one of their launches is held bit for bit
+   against the kernel's plain version on the same inputs;
+11. vgg_tcp — ``config.yaml`` as processes over TCP (broker, server, two
+   clients), one round, with the samples of the same round in one
+   process;
+12. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+   its main path: the VGG protocol round for the codec and stage-update
+   kernels, the TinyLlama protocol round for the flash kernels; every
+   path's in ``launches_by_path``; the times and bounds at that path's
+   shapes), then the last line ``{"ok": true,
+   "device": {...}}``.
 
 ``python3 chip_smoke.py --participant MODULE ARG...`` is phase 7's
 participant runner: it runs ``MODULE.main(ARG...)`` and prints that
@@ -119,6 +150,15 @@ CODEC_FRAMES = (("bf16 int4", torch.bfloat16, 4),
                 ("f32 int8", torch.float32, 8))
 # the largest parameter leaf (embedding and LM head): (vocab, hidden)
 LEAF_SHAPE = (32000, 2048)
+# the VGG round's shapes, where the codec and stage-update kernels run on
+# their main path: the cut-7 activation / gradient frame at batch 32
+# (bf16 activations, float32 gradients, tile 256), the largest parameter
+# leaf (layer 50's Dense) and the smallest statistics leaf
+VGG_FRAME_SHAPE = (32, 16, 16, 64)
+VGG_LEAF_SHAPE = (4096, 4096)
+VGG_STATS_SHAPE = (64,)
+# the VGG frames timed beside the bf16 int8 one of the kernel rows
+VGG_CODEC_FRAMES = (("f32 int8", torch.float32, 8),)
 SOURCES = ("flash_attention", "quant", "update")
 # where the protocol phases run (a CPU rehearsal of the script sets "cpu")
 DEVICE = "cuda"
@@ -611,17 +651,16 @@ def _time_triple(name: str, kern, plain, library, nbytes: int,
     return r
 
 
-def _codec_frames(g) -> dict:
+def _codec_frames(g, shape, frames) -> dict:
     """Events and profiler device time of the quantizer (both routes:
     the generic kernel is the vec kernel's predecessor) and the
-    dequantizer on each of :data:`CODEC_FRAMES`, and of ``torch.mul``
-    (the dequantizer's library yardstick) on the int8 codes, each beside
-    its bound."""
+    dequantizer on each ``(label, dtype, bits)`` of ``frames`` at
+    ``shape``, and of ``torch.mul`` (the dequantizer's library
+    yardstick) on the int8 codes, each beside its bound."""
     from split_learning_torch.ops.kernels import quant as kq
     out = {}
-    for label, dtype, bits in CODEC_FRAMES:
-        x = (torch.randn(FRAME_SHAPE, generator=g, device="cuda") * 3).to(
-            dtype)
+    for label, dtype, bits in frames:
+        x = (torch.randn(shape, generator=g, device="cuda") * 3).to(dtype)
         n, t_count = x.numel(), x.numel() // 256
         q, s = kq.quantize_tiles(x, tile=256, bits=bits)
         codes_b = q.numel()
@@ -661,13 +700,66 @@ def _launched(kq, call, route: str, label: str):
     return out
 
 
+def _wire_times(frame, acc, base, vel, tw: float) -> dict:
+    """The kernel rows of the codec and stage-update kernels: each timed
+    beside its plain version, its library call and its bound, on one
+    activation ``frame`` at tile 256 (int8, both quantizer routes) and
+    one float32 parameter leaf ``acc`` (with ``base`` and ``vel`` for
+    momentum)."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+
+    n, esize = frame.numel(), frame.element_size()
+    q, s = kq.quantize_tiles(frame, tile=256, bits=8)
+    t_count = s.numel()
+    tw_t = torch.tensor(tw, dtype=torch.float32, device="cuda")
+    leaf_n = acc.numel()
+    return {
+        # float in, int8 codes + float32 scales out; abs, max, divide,
+        # round and clip a value.  Both routes on the same frame
+        "quantize": _time_triple(
+            "quantize", lambda: kq.quantize_tiles(frame, tile=256, bits=8),
+            lambda: kq.quantize_reference(frame, 256, 8), None,
+            esize * n + n + 4 * t_count, 5 * n),
+        "quantize_generic": _time_triple(
+            "quantize_generic",
+            lambda: kq._launch_quantize("generic", frame, 256, 8),
+            lambda: kq.quantize_reference(frame, 256, 8), None,
+            esize * n + n + 4 * t_count, 5 * n),
+        # int8 codes + scales in, float32 out; one multiply a value.
+        # library: one broadcast multiply of the codes by their scales
+        "dequantize": _time_triple(
+            "dequantize", lambda: kq.dequantize_tiles(q, s, tile=256,
+                                                       bits=8),
+            lambda: kq.dequantize_reference(q, s, 256, 8),
+            lambda: torch.mul(q.view(t_count, 256), s[:, None]),
+            n + 4 * t_count + 4 * n, n),
+        # float32 in and out; one divide.  library: torch.div
+        "finalize": _time_triple(
+            "finalize", lambda: ku.finalize_leaf(acc, tw, torch.float32),
+            lambda: ku.finalize_reference(acc, tw, torch.float32),
+            lambda: torch.div(acc, tw_t), 8 * leaf_n, leaf_n),
+        # acc, base, velocity in; params, velocity out; five operations.
+        # No single PyTorch call computes both outputs
+        "momentum": _time_triple(
+            "momentum", lambda: ku.momentum_leaf(acc, base, vel, tw, 0.9,
+                                                 torch.float32),
+            lambda: ku.momentum_reference(acc, base, vel, tw, 0.9,
+                                          torch.float32), None,
+            20 * leaf_n, 5 * leaf_n),
+    }
+
+
 def phase_wire_kernels() -> dict:
     """The quantizer (each case on the route it names), dequantizer and
-    stage-update kernels against their plain versions, bit for bit,
-    then timed at the main path's shapes: one bf16 activation frame
-    (8 x 256 x 2048, tile 256; both quantizer routes, and the
-    :data:`CODEC_FRAMES`) and the largest parameter leaf (32000 x 2048
-    float32)."""
+    stage-update kernels against their plain versions, bit for bit —
+    among the cases the VGG round's own shapes, its main path — then
+    timed (:func:`_wire_times`) at those shapes: the bf16 cut-7 frame
+    (32 x 16 x 16 x 64, tile 256; the float32 gradient frame beside it)
+    and layer 50's float32 (4096 x 4096) leaf.  The TinyLlama shapes
+    timed by earlier slices (an 8 x 256 x 2048 bf16 frame and the
+    32000 x 2048 leaf, with the :data:`CODEC_FRAMES`) stand beside
+    them in each row's ``tinyllama_shapes``."""
     from split_learning_torch.ops.kernels import quant as kq
     from split_learning_torch.ops.kernels import update as ku
 
@@ -692,9 +784,14 @@ def phase_wire_kernels() -> dict:
               * 3).to(torch.bfloat16)
     # 2 bytes off 16-byte alignment: the generic route
     shifted = frame.view(-1)[1:1 + 256 * 64]
+    vgg16 = (torch.randn(VGG_FRAME_SHAPE, generator=g, device="cuda")
+             * 3).to(torch.bfloat16)
+    vgg32 = torch.randn(VGG_FRAME_SHAPE, generator=g, device="cuda") * 1e-3
     cases = []
     for bits in (8, 4):
         cases += [
+            (f"VGG frame bf16 int{bits} tile 256", vgg16, 256, bits, "vec"),
+            (f"VGG frame f32 int{bits} tile 256", vgg32, 256, bits, "vec"),
             (f"slice frame bf16 int{bits} tile 256", frame, 256, bits, "vec"),
             (f"frame fp16 int{bits} tile 256", frame16, 256, bits, "vec"),
             (f"frame f32 int{bits} tile 256", frame32, 256, bits, "vec"),
@@ -782,15 +879,32 @@ def phase_wire_kernels() -> dict:
                             False),
                            (f"ragged n%4={r} int32 rnd", ragged,
                             torch.int32, True)]
+    # the VGG round's leaves: layer 50's Dense kernel and a statistics
+    # leaf, folded over its four clients' weights
+    vgg_acc = torch.randn(VGG_LEAF_SHAPE, generator=g, device="cuda") * 50
+    vgg_stat = torch.rand(VGG_STATS_SHAPE, generator=g, device="cuda") * 9
+    vgg_tw = 4 * 2496.0
+    finalize_cases += [("VGG leaf 4096x4096 f32", vgg_acc, torch.float32,
+                        False),
+                       ("VGG statistics (64,) f32", vgg_stat, torch.float32,
+                        False)]
     for label, a, dt, rnd in finalize_cases:
         _bitwise("finalize", label, ku.finalize_leaf(a, tw, dt, rnd=rnd),
                  ku.finalize_reference(a, tw, dt, rnd))
     base = torch.randn(LEAF_SHAPE, generator=g, device="cuda")
     vel = torch.randn(LEAF_SHAPE, generator=g, device="cuda") * 0.01
-    p, nv = ku.momentum_leaf(acc, base, vel, tw, 0.9, torch.float32)
-    pr, nvr = ku.momentum_reference(acc, base, vel, tw, 0.9, torch.float32)
-    _bitwise("momentum", "leaf params", p, pr)
-    _bitwise("momentum", "leaf velocity", nv, nvr)
+    vgg_base = torch.randn(VGG_LEAF_SHAPE, generator=g, device="cuda")
+    vgg_vel = torch.randn(VGG_LEAF_SHAPE, generator=g, device="cuda") * 0.01
+    momentum_cases = [
+        ("leaf", acc, base, vel, tw),
+        ("VGG leaf 4096x4096", vgg_acc, vgg_base, vgg_vel, vgg_tw),
+        ("VGG statistics (64,)", vgg_stat, vgg_stat * 0.5,
+         vgg_stat * 0.01, vgg_tw)]
+    for label, a, b, v, w in momentum_cases:
+        p, nv = ku.momentum_leaf(a, b, v, w, 0.9, torch.float32)
+        pr, nvr = ku.momentum_reference(a, b, v, w, 0.9, torch.float32)
+        _bitwise("momentum", f"{label} params", p, pr)
+        _bitwise("momentum", f"{label} velocity", nv, nvr)
     p, nv = ku.momentum_leaf(small, small * 0.5, small * 0.1, 3.0, 0.5,
                              torch.bfloat16)
     pr, nvr = ku.momentum_reference(small, small * 0.5, small * 0.1, 3.0,
@@ -798,48 +912,23 @@ def phase_wire_kernels() -> dict:
     _bitwise("momentum", "bf16 params", p, pr)
     _bitwise("momentum", "bf16 velocity", nv, nvr)
 
-    # times at the main path's shapes
-    n = frame.numel()
-    q, s = kq.quantize_tiles(frame, tile=256, bits=8)
-    t_count = s.numel()
-    tw_t = torch.tensor(tw, dtype=torch.float32, device="cuda")
-    leaf_n = acc.numel()
-    frames = _codec_frames(g)
-    out = {
-        # bf16 in, int8 codes + float32 scales out; abs, max, divide,
-        # round and clip a value.  Both routes on the same frame
-        "quantize": _time_triple(
-            "quantize", lambda: kq.quantize_tiles(frame, tile=256, bits=8),
-            lambda: kq.quantize_reference(frame, 256, 8), None,
-            2 * n + n + 4 * t_count, 5 * n),
-        "quantize_generic": _time_triple(
-            "quantize_generic",
-            lambda: kq._launch_quantize("generic", frame, 256, 8),
-            lambda: kq.quantize_reference(frame, 256, 8), None,
-            2 * n + n + 4 * t_count, 5 * n),
-        # int8 codes + scales in, float32 out; one multiply a value.
-        # library: one broadcast multiply of the codes by their scales
-        "dequantize": _time_triple(
-            "dequantize", lambda: kq.dequantize_tiles(q, s, tile=256,
-                                                       bits=8),
-            lambda: kq.dequantize_reference(q, s, 256, 8),
-            lambda: torch.mul(q.view(t_count, 256), s[:, None]),
-            n + 4 * t_count + 4 * n, n),
-        # float32 in and out; one divide.  library: torch.div
-        "finalize": _time_triple(
-            "finalize", lambda: ku.finalize_leaf(acc, tw, torch.float32),
-            lambda: ku.finalize_reference(acc, tw, torch.float32),
-            lambda: torch.div(acc, tw_t), 8 * leaf_n, leaf_n),
-        # acc, base, velocity in; params, velocity out; five operations.
-        # No single PyTorch call computes both outputs
-        "momentum": _time_triple(
-            "momentum", lambda: ku.momentum_leaf(acc, base, vel, tw, 0.9,
-                                                 torch.float32),
-            lambda: ku.momentum_reference(acc, base, vel, tw, 0.9,
-                                          torch.float32), None,
-            20 * leaf_n, 5 * leaf_n),
-    }
-    out["quantize"]["frames"] = frames
+    # times at the VGG round's shapes, then at the TinyLlama shapes
+    print("  times at the VGG round's shapes (frame bf16 "
+          f"{VGG_FRAME_SHAPE} tile 256, leaf f32 {VGG_LEAF_SHAPE}):")
+    vgg_frame = (torch.randn(VGG_FRAME_SHAPE, generator=g, device="cuda")
+                 * 3).to(torch.bfloat16)
+    out = _wire_times(vgg_frame, vgg_acc, vgg_base, vgg_vel, vgg_tw)
+    vgg_frames = _codec_frames(g, VGG_FRAME_SHAPE, VGG_CODEC_FRAMES)
+    print("  times at the TinyLlama shapes (frame bf16 "
+          f"{FRAME_SHAPE} tile 256, leaf f32 {LEAF_SHAPE}):")
+    tiny = _wire_times(frame, acc, base, vel, tw)
+    tiny["quantize"]["frames"] = _codec_frames(g, FRAME_SHAPE, CODEC_FRAMES)
+    for name, r in out.items():
+        r["shapes"] = ("frame bf16 (32, 16, 16, 64) tile 256"
+                       if name.startswith(("quantize", "dequantize"))
+                       else "leaf f32 (4096, 4096)")
+        r["tinyllama_shapes"] = tiny[name]
+    out["quantize"]["frames"] = vgg_frames
     return out
 
 
@@ -1183,18 +1272,10 @@ def protocol_config(workdir: pathlib.Path, momentum: float, rounds: int):
 
 
 def phase_protocol(workdir: pathlib.Path) -> dict:
-    from split_learning_torch.ops import flash_attention as fa
-    from split_learning_torch.ops.kernels import quant as kq
-    from split_learning_torch.ops.kernels import update as ku
     from split_learning_torch.runtime.bus import queue_family
     from split_learning_torch.runtime.checkpoint import load_checkpoint
 
-    def reset():
-        for mod in (fa, kq, ku):
-            mod.reset_launches()
-
-    def read():
-        return {**fa.LAUNCHES, **kq.LAUNCHES, **ku.LAUNCHES}
+    reset, read = _reset_launches, _launch_counts
 
     cfg = protocol_config(workdir, momentum=0.9, rounds=2)
     mk, lrn = cfg.model_kwargs, cfg.learning
@@ -1419,24 +1500,22 @@ def _metrics(log_path: pathlib.Path) -> list:
             for line in f.read_text().splitlines() if line.strip()]
 
 
-def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
-                       timeout: float = 900.0) -> dict:
-    """The protocol round in its deployment shape: one
+def _run_tcp(d: pathlib.Path, make_cfg, timeout: float) -> tuple:
+    """One protocol deployment as processes, all on ``cuda:0``: one
     ``python -m split_learning_torch.broker`` and, through
     :func:`participant_main`, one ``split_learning_torch.server`` and one
-    ``split_learning_torch.client`` per client of ``clients: [2, 1, 1,
-    1]``, all on ``cuda:0``, over TCP (async sender and receive
-    prefetch, as ``make_runtime_transport`` builds them), at the in-process
-    ``protocol`` phase's configuration (2 rounds of FedAvgM 0.9).  All
-    run in one process group, killed on any failure.  ``inproc`` is that
-    phase's result: the samples and the kernel launches must equal its
-    2-round run's."""
+    ``split_learning_torch.client`` per configured client, over TCP
+    (async sender and receive prefetch, as ``make_runtime_transport``
+    builds them).  ``make_cfg(d)`` gives the configuration, whose
+    transport is pointed at the broker here.  All run in one process
+    group, killed on any failure.  Returns (the configuration, the wall,
+    the broker's stats frame, each participant's report, the card's peak
+    used memory by ``nvidia-smi``)."""
     from split_learning_torch.config import to_dict
     from split_learning_torch.runtime.bus import (
         BROKER_STATS_QUEUE, TcpTransport,
     )
 
-    d = workdir / "tcp"
     d.mkdir(parents=True)
     import gc
     gc.collect()
@@ -1463,7 +1542,7 @@ def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
         broker = spawn("broker", ["-m", "split_learning_torch.broker",
                                   "--port", "0"])
         port = _read_port(procs["broker"][1], broker, deadline)
-        cfg = protocol_config(d, momentum=0.9, rounds=2)
+        cfg = make_cfg(d)
         cfg = dataclasses.replace(cfg, transport=dataclasses.replace(
             cfg.transport, kind="tcp", port=port))
         cfg_path = d / "config.json"   # JSON is YAML
@@ -1511,6 +1590,19 @@ def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
                  if ln.startswith(PARTICIPANT_TAG)]
         check(len(lines) == 1, f"{name} printed no report")
         reports[name] = json.loads(lines[0][len(PARTICIPANT_TAG):])
+    return cfg, wall, stats, reports, card_peak_mib
+
+
+def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
+                       timeout: float = 900.0) -> dict:
+    """The protocol round in its deployment shape (:func:`_run_tcp`):
+    the broker, the server and one process per client of ``clients: [2,
+    1, 1, 1]``, at the in-process ``protocol`` phase's configuration (2
+    rounds of FedAvgM 0.9).  ``inproc`` is that phase's result: the
+    samples and the kernel launches must equal its 2-round run's."""
+    cfg, wall, stats, reports, card_peak_mib = _run_tcp(
+        workdir / "tcp",
+        lambda d: protocol_config(d, momentum=0.9, rounds=2), timeout)
     launches = {k: sum(r["launches"].get(k, 0) for r in reports.values())
                 for k in reports["server"]["launches"]}
 
@@ -1587,6 +1679,467 @@ def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
     return out
 
 
+# --------------------------------------------------------------------------
+# 8-11. the default round: VGG16/CIFAR10 with BatchNorm statistics
+# --------------------------------------------------------------------------
+
+def vgg_config(workdir: pathlib.Path, path: str):
+    """The YAML at ``path`` as written, with its checkpoints and logs in
+    ``workdir``."""
+    from split_learning_torch.config import from_yaml
+
+    cfg = from_yaml(HERE / path)
+    return dataclasses.replace(
+        cfg, checkpoint=dataclasses.replace(
+            cfg.checkpoint, directory=str(workdir / "ckpt")),
+        log_path=str(workdir / "logs")).validate()
+
+
+def _reset_launches() -> None:
+    from split_learning_torch.ops import flash_attention as fa
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    for mod in (fa, kq, ku):
+        mod.reset_launches()
+
+
+def _expected_samples(cfg, protocol: bool) -> int:
+    """A round's samples: every stage-1 client's loader batches in the
+    protocol round, whole M-batch steps in process."""
+    lrn = cfg.learning
+    batches = cfg.distribution.num_samples // lrn.batch_size
+    if not protocol:
+        steps = max(1, batches // lrn.control_count)
+        batches = min(steps * lrn.control_count, batches)
+    return cfg.clients[0] * batches * lrn.batch_size
+
+
+def _check_stats_checkpoint(cfg, result, rounds: int) -> None:
+    """The checkpoint holds the run's last parameters and its 13 layers
+    of BatchNorm statistics."""
+    from split_learning_torch.runtime.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(cfg.checkpoint.directory, cfg.model_key)
+    check(ck is not None and ck["round_idx"] == rounds,
+          f"checkpoint missing or at the wrong round: "
+          f"{ck and ck['round_idx']}")
+    check(len(result.stats) == 13 and len(ck["batch_stats"]) == 13,
+          f"statistics of {len(result.stats)} layers, checkpoint "
+          f"{len(ck['batch_stats'])}")
+    for tree, ck_tree in ((result.params, ck["params"]),
+                          (result.stats, ck["batch_stats"])):
+        for layer, leaves in tree.items():
+            for key, t in leaves.items():
+                check(torch.equal(ck_tree[layer][key], t.cpu()),
+                      f"checkpoint {layer}.{key} differs from the result")
+                check(bool(torch.isfinite(t).all()),
+                      f"non-finite {layer}.{key}")
+
+
+def phase_vgg_step_check() -> dict:
+    """One float32 VGG16_CIFAR10 train step (cut 7, 4 microbatches of 32)
+    on the CPU and on the card from the same weights, statistics and
+    batch, with dropout off (rate 0, as in every parity recipe).  TF32 is
+    off, so the card's convs and GEMMs are IEEE float32 (cuDNN, cuBLAS),
+    as oneDNN's are on the CPU; the two sum in different orders.
+    Tolerances: the loss within 1e-5 relative; each new running
+    statistic within 1e-4 of its leaf's largest value; the first conv's
+    and the first dense layer's gradients, in norm, no farther from the
+    same step in float64 on the CPU than twice the CPU's own float32
+    step is, plus 1e-3.  A gradient is compared in norm, and against
+    that yardstick, because a pre-activation within float32 noise of
+    zero flips its ReLU mask, which moves a few entries by their whole
+    value: how far that carries depends on the weights and the batch."""
+    import numpy as np
+
+    from split_learning_torch.data import make_data_loader
+    from split_learning_torch.models import build_model
+    from split_learning_torch.models.split import Dropout
+    from split_learning_torch.parallel.pipeline import PipelineModel
+
+    loader = make_data_loader("CIFAR10", 32, train=True, seed=3,
+                              synthetic_size=256)
+    batches = list(loader)[:4]
+    x = torch.from_numpy(np.stack([b[0] for b in batches]))
+    y = torch.from_numpy(np.stack([b[1] for b in batches]).astype(np.int32))
+    ref = build_model("VGG16_CIFAR10",
+                      generator=torch.Generator().manual_seed(0))
+    params, stats = ref.state_tree(), ref.stats_tree()
+    out = {}
+    for key, dev, dtype in (("cpu", "cpu", torch.float32),
+                            (DEVICE, DEVICE, torch.float32),
+                            ("float64", "cpu", torch.float64)):
+        model = build_model("VGG16_CIFAR10", device=dev, dtype=dtype)
+        model.load_state_tree(params)
+        model.load_stats_tree(stats)
+        for mod in model.layers.values():
+            if isinstance(mod, Dropout):
+                mod.rate = 0.0
+        model.train()
+        pipe = PipelineModel(model, [7], example_input=x[0].to(dev),
+                             num_microbatches=4)
+        loss = pipe.accumulate(x.to(dev), y.to(dev))
+        out[key] = {
+            "loss": float(loss),
+            "stats": {k: {n: t.cpu() for n, t in v.items()}
+                      for k, v in model.stats_tree().items()},
+            "grads": {name: model.layers[name].weight.grad.cpu()
+                      for name in ("layer1", "layer47")}}
+    cpu, card = out["cpu"], out[DEVICE]
+    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    stat_err = max(float((card["stats"][k][n] - cpu["stats"][k][n]).abs()
+                         .max() / cpu["stats"][k][n].abs().max())
+                   for k in cpu["stats"] for n in ("mean", "var"))
+    grad_err = {name: {"norm": float((card["grads"][name] - g).norm()
+                                     / g.norm()),
+                       "max_of_largest": float(
+                           (card["grads"][name] - g).abs().max()
+                           / g.abs().max())}
+                for name, g in cpu["grads"].items()}
+    f64 = out["float64"]["grads"]
+    res = {"loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "loss_float64": out["float64"]["loss"],
+           "loss_rel_err": loss_err, "stats_err_of_largest": stat_err,
+           "grad_err": grad_err,
+           "grad_norm_err_vs_float64": {
+               side: {name: float((out[side]["grads"][name] - g).norm()
+                                  / g.norm()) for name, g in f64.items()}
+               for side in ("cpu", DEVICE)}}
+    print(f"  one float32 VGG16 step, CPU vs card: {res}")
+    check(loss_err <= 1e-5, f"card loss differs from the CPU's by "
+          f"{loss_err:.3g} relative")
+    check(stat_err <= 1e-4, f"card statistics differ from the CPU's by "
+          f"{stat_err:.3g} of a leaf's largest value")
+    errs = res["grad_norm_err_vs_float64"]
+    for name, err in errs[DEVICE].items():
+        bound = 2 * errs["cpu"][name] + 1e-3
+        check(err <= bound, f"card {name} gradient differs from the "
+              f"float64 step's by {err:.3g} in norm (bound {bound:.3g})")
+    return res
+
+
+#: the kernels on the VGG protocol path (every flag on): the codec on
+#: both cut directions and the stage update of the sharded fold
+VGG_PATH_KERNELS = ("quantize", "quantize_generic", "dequantize",
+                    "finalize", "momentum")
+#: the in-process VGG runs: (label, YAML)
+VGG_SLICES = (("config", "config.yaml"),
+              ("baseline1", "configs/baseline1.yaml"))
+
+
+def phase_vgg_slice(workdir: pathlib.Path) -> dict:
+    """``run_local`` on ``config.yaml`` (1 round, ``clients: [1, 1]``)
+    and on ``configs/baseline1.yaml`` (5 rounds, ``[2, 2]``: two lockstep
+    columns), each as written: VGG16/CIFAR10 in bfloat16 compute, cut at
+    layer 7, SGD with momentum, FedAvg, validation on the 2000 synthetic
+    test images, a checkpoint.  Every ``kernels:`` flag is off, so no
+    kernel of the port may launch (the KernelPlan gate)."""
+    from split_learning_torch.run import run_local
+
+    out = {}
+    for label, path in VGG_SLICES:
+        cfg = vgg_config(workdir / f"vgg_{label}", path)
+        lrn = cfg.learning
+        print(f"  {label}: {cfg.model_key} clients={list(cfg.clients)} "
+              f"cuts={list(cfg.topology.cut_layers)} batch="
+              f"{lrn.batch_size} control-count={lrn.control_count} "
+              f"{lrn.optimizer} lr {lrn.learning_rate} {cfg.compute_dtype} "
+              f"samples/client={cfg.distribution.num_samples} rounds "
+              f"{cfg.global_rounds} remat {lrn.remat}")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = run_local(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        check(not any(launches.values()), f"{label}: kernels launched with "
+              f"every kernels flag off: {launches}")
+        check(len(result.history) == cfg.global_rounds,
+              f"{label}: {len(result.history)} rounds")
+        want = _expected_samples(cfg, protocol=False)
+        rounds = []
+        for rec in result.history:
+            check(rec.ok and math.isfinite(rec.val_loss)
+                  and math.isfinite(rec.val_accuracy),
+                  f"{label}: round not ok: {rec}")
+            check(rec.num_samples == want, f"{label} round "
+                  f"{rec.round_idx}: {rec.num_samples} samples, expected "
+                  f"{want}")
+            rounds.append({"round": rec.round_idx, "wall_s": rec.wall_s,
+                           "samples": rec.num_samples,
+                           "train_samples_per_s": rec.num_samples
+                           / rec.wall_s, "val_loss": rec.val_loss,
+                           "val_accuracy": rec.val_accuracy})
+        _check_stats_checkpoint(cfg, result, cfg.global_rounds)
+        peak = torch.cuda.max_memory_allocated()
+        out[label] = {"run_local_wall_s": wall, "rounds": rounds,
+                      "max_memory_allocated_bytes": peak,
+                      "launches": launches}
+        for r in rounds:
+            print(f"  {label} round {r['round']}: wall {r['wall_s']:.3f} s, "
+                  f"{r['samples']} samples, {r['train_samples_per_s']:.1f} "
+                  f"training samples/s, val_loss {r['val_loss']:.4f} "
+                  f"val_acc {r['val_accuracy']:.4f}")
+        print(f"  {label}: run_local {wall:.3f} s, peak memory "
+              f"{peak / 2**30:.2f} GiB, launches {launches}")
+    return out
+
+
+def vgg_protocol_config(workdir: pathlib.Path, momentum: float):
+    """``configs/baseline1.yaml`` as the protocol slice runs it: one
+    round, an int8 codec on both cut directions, every kernel flag on,
+    the sharded (CUDA) fold with ``server-momentum`` = ``momentum``."""
+    cfg = vgg_config(workdir, "configs/baseline1.yaml")
+    return dataclasses.replace(
+        cfg, global_rounds=1,
+        transport=dataclasses.replace(
+            cfg.transport, codec={"intermediate": "int8",
+                                  "gradient": "int8"}),
+        kernels=dataclasses.replace(cfg.kernels, quantize=True,
+                                    dequantize=True, stage_update=True),
+        aggregation=dataclasses.replace(
+            cfg.aggregation, sharded=True,
+            server_momentum=momentum)).validate()
+
+
+def _hold_on_path(kq, ku, held: dict, seen: dict) -> dict:
+    """Wrap the codec and stage-update wrappers so that every launch the
+    path makes is held, bit for bit, against the kernel's plain version
+    on the same inputs (no kernel launched for it).  ``held`` gathers,
+    per kernel, the launches held by input shape and dtype, the
+    mismatches and the seconds the holding took; ``seen`` the
+    quantizer's input dtypes.  Returns the originals to restore."""
+    originals = {(kq, "quantize_tiles"): kq.quantize_tiles,
+                 (kq, "dequantize_tiles"): kq.dequantize_tiles,
+                 (ku, "finalize_leaf"): ku.finalize_leaf,
+                 (ku, "momentum_leaf"): ku.momentum_leaf}
+    lock = threading.Lock()
+
+    def hold(name, x, out, ref_fn):
+        t0 = time.perf_counter()
+        outs = out if isinstance(out, tuple) else (out,)
+        ref = ref_fn()
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        same = all(o.dtype == r.dtype and o.shape == r.shape
+                   and torch.equal(_bits(o), _bits(r))
+                   for o, r in zip(outs, refs))
+        key = f"{tuple(x.shape)} {x.dtype}".replace("torch.", "")
+        with lock:
+            h = held.setdefault(name, {"launches": 0, "by_input": {},
+                                       "mismatches": [], "s": 0.0})
+            h["launches"] += 1
+            h["by_input"][key] = h["by_input"].get(key, 0) + 1
+            if not same:
+                h["mismatches"].append(key)
+            h["s"] += time.perf_counter() - t0
+
+    def quantize_tiles(x, *, tile, bits):
+        with lock:
+            seen[str(x.dtype)] = seen.get(str(x.dtype), 0) + 1
+        out = originals[kq, "quantize_tiles"](x, tile=tile, bits=bits)
+        hold("quantize", x, out,
+             lambda: kq.quantize_reference(x, tile, bits))
+        return out
+
+    def dequantize_tiles(q, scale, *, tile, bits):
+        out = originals[kq, "dequantize_tiles"](q, scale, tile=tile,
+                                                bits=bits)
+        hold("dequantize", q, out,
+             lambda: kq.dequantize_reference(q, scale, tile, bits))
+        return out
+
+    def finalize_leaf(acc, tw, dtype, *, rnd=False):
+        out = originals[ku, "finalize_leaf"](acc, tw, dtype, rnd=rnd)
+        hold("finalize", acc, out,
+             lambda: ku.finalize_reference(acc, tw, dtype, rnd))
+        return out
+
+    def momentum_leaf(acc, base, vel, tw, m, dtype):
+        out = originals[ku, "momentum_leaf"](acc, base, vel, tw, m, dtype)
+        hold("momentum", acc, out, lambda: ku.momentum_reference(
+            acc, base, vel, tw, m, dtype))
+        return out
+
+    kq.quantize_tiles, kq.dequantize_tiles = quantize_tiles, dequantize_tiles
+    ku.finalize_leaf, ku.momentum_leaf = finalize_leaf, momentum_leaf
+    return originals
+
+
+def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
+    """BASELINE config 1 as the protocol round in one process
+    (``run_inproc``): one round with ``server-momentum: 0.9`` (the
+    momentum kernel on the parameters, finalize on the statistics), then
+    one at 0 (finalize on every leaf), counts zeroed before each and
+    read after.  The activations cross the cut in bfloat16, the
+    gradients in float32 (the last stage's input is the dequantized
+    float32 frame), so the vec quantizer runs on both dtypes; the dtypes
+    it was handed are tallied here.  Every launch of the codec and
+    stage-update kernels on this path is held bit for bit against the
+    plain version on its own inputs (:func:`_hold_on_path`): the round
+    walls include that holding, whose seconds are reported beside
+    them."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime.bus import queue_family
+
+    seen: dict = {}
+    held_by_run: dict = {}
+    runs = {}
+    for m in (0.9, 0.0):
+        held = held_by_run.setdefault(m, {})
+        originals = _hold_on_path(kq, ku, held, seen)
+        try:
+            cfg = vgg_protocol_config(workdir / f"vgg_protocol_{m}", m)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            server, clients, bus, res = run_protocol(cfg)
+            torch.cuda.synchronize()
+            runs[m] = (cfg, server, clients, bus, res,
+                       time.perf_counter() - t0, _launch_counts(),
+                       torch.cuda.max_memory_allocated())
+        finally:
+            for (mod, attr), fn in originals.items():
+                setattr(mod, attr, fn)
+    out = {"runs": {}, "quantized_dtypes": seen}
+    total: dict = {}
+    for m, (cfg, server, clients, bus, res, wall, launches, peak) in \
+            runs.items():
+        rec = res.history[0]
+        want = _expected_samples(cfg, protocol=True)
+        check(len(res.history) == 1 and rec.ok
+              and math.isfinite(rec.val_loss),
+              f"VGG protocol round (momentum {m}) failed: {res.history}")
+        check(rec.num_samples == want, f"VGG protocol round: "
+              f"{rec.num_samples} samples, expected {want}")
+        check(server.ctx.last_fold.folded == sum(cfg.clients),
+              f"folded {server.ctx.last_fold.folded}")
+        _check_stats_checkpoint(cfg, res, 1)
+        fam: dict = {}
+        for q, nb in bus.bytes_out_snapshot().items():
+            fam[queue_family(q)] = fam.get(queue_family(q), 0) + nb
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        out["runs"][str(m)] = {
+            "round_wall_s": rec.wall_s, "run_wall_s": wall,
+            "samples": rec.num_samples,
+            "train_samples_per_s": rec.num_samples / rec.wall_s,
+            "val_loss": rec.val_loss, "val_accuracy": rec.val_accuracy,
+            "phases": server.ctx.round_phases, "bytes_by_family": fam,
+            "fold_update_s": server.ctx.last_fold.update_s,
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "held": held_by_run[m]}
+        for name in ("quantize", "dequantize", "finalize", "momentum"):
+            h = held_by_run[m].get(name, {"launches": 0, "by_input": {},
+                                          "mismatches": [], "s": 0.0})
+            counted = launches[name] + (launches["quantize_generic"]
+                                        if name == "quantize" else 0)
+            print(f"  momentum {m}: {name:10s} {h['launches']} launches "
+                  f"held against the plain version ({h['s']:.3f} s), "
+                  f"{len(h['mismatches'])} differ; by input "
+                  f"{h['by_input']}")
+            check(not h["mismatches"], f"{name} differs from its plain "
+                  f"version on the VGG protocol path at {h['mismatches']}")
+            check(h["launches"] == counted, f"{name}: {h['launches']} "
+                  f"launches held, {counted} counted")
+        print(f"  momentum {m}: round wall {rec.wall_s:.3f} s (run "
+              f"{wall:.3f} s), {rec.num_samples} samples, "
+              f"{rec.num_samples / rec.wall_s:.1f} training samples/s, "
+              f"val_loss {rec.val_loss:.4f} val_acc {rec.val_accuracy:.4f};"
+              f" phases " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in server.ctx.round_phases[0]
+                  .items()) + f"; bytes by queue family {fam}; peak "
+              f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    for name, n in total.items():
+        if name in OFF_PATH_KERNELS:
+            check(n == 0, f"{name} ran {n} times on the VGG protocol path")
+    for name in ("quantize", "dequantize", "momentum", "finalize"):
+        check(total[name] > 0, f"kernel {name} was not launched on the VGG "
+              "protocol path")
+    check(runs[0.9][6]["momentum"] > 0 and runs[0.0][6]["finalize"] > 0,
+          "the momentum round or the plain FedAvg round missed its kernel")
+    check(seen.get("torch.float32", 0) > 0
+          and seen.get("torch.bfloat16", 0) > 0,
+          f"the quantizer was not handed both frame dtypes: {seen}")
+    # one activation and one gradient frame per training batch
+    batches = 2 * sum(r["samples"] for r in out["runs"].values()) // 32
+    for name in ("quantize", "dequantize"):
+        check(total[name] == batches, f"{name} launched {total[name]} "
+              f"times, expected {batches}")
+    out["launches_total"] = total
+    print(f"  quantizer input dtypes {seen}; launches over both rounds "
+          f"{total}")
+    return out
+
+
+def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
+    """``config.yaml`` with ``transport.kind: tcp`` in its deployment
+    shape (:func:`_run_tcp`: broker, server and two clients as
+    processes), one round, against the same configuration run as the
+    protocol round in one process: the samples must be equal, and no
+    kernel runs in either (every flag off)."""
+    cfg_in = vgg_config(workdir / "vgg_inproc", "config.yaml")
+    _reset_launches()
+    t0 = time.perf_counter()
+    _, _, _, res = run_protocol(cfg_in)
+    torch.cuda.synchronize()
+    wall_in = time.perf_counter() - t0
+    check(not any(_launch_counts().values()), "kernels launched in the "
+          "in-process config.yaml protocol round")
+    rec_in = res.history[0]
+    check(rec_in.ok and rec_in.num_samples
+          == _expected_samples(cfg_in, protocol=True),
+          f"in-process config.yaml protocol round: {rec_in}")
+    _check_stats_checkpoint(cfg_in, res, 1)
+
+    cfg, wall, stats, reports, card_peak_mib = _run_tcp(
+        workdir / "vgg_tcp",
+        lambda d: vgg_config(d, "config.yaml"), timeout)
+    launches = {k: sum(r["launches"].get(k, 0) for r in reports.values())
+                for k in reports["server"]["launches"]}
+    check(not any(launches.values()), f"kernels launched on the VGG TCP "
+          f"path: {launches}")
+    records = _metrics(pathlib.Path(cfg.log_path))
+    rounds = [r for r in records if r.get("kind") == "round"]
+    phases = [r for r in records if r.get("kind") == "phases"]
+    check(len(rounds) == 1 and rounds[0]["ok"]
+          and math.isfinite(rounds[0]["val_loss"]),
+          f"VGG TCP round failed: {rounds}")
+    check(rounds[0]["num_samples"] == rec_in.num_samples,
+          f"VGG TCP round: {rounds[0]['num_samples']} samples, in process "
+          f"{rec_in.num_samples}")
+    out = {"run_wall_s": wall, "round_wall_s": rounds[0]["wall_s"],
+           "samples": rounds[0]["num_samples"],
+           "train_samples_per_s": rounds[0]["num_samples"]
+           / rounds[0]["wall_s"],
+           "val_loss": rounds[0]["val_loss"],
+           "val_accuracy": rounds[0]["val_accuracy"],
+           "phases": [{k: v for k, v in p.items() if k.endswith("_s")}
+                      for p in phases],
+           "inproc": {"round_wall_s": rec_in.wall_s, "run_wall_s": wall_in,
+                      "train_samples_per_s": rec_in.num_samples
+                      / rec_in.wall_s, "val_loss": rec_in.val_loss},
+           "launches": launches,
+           "broker_published_bytes_by_family":
+               stats["published_bytes_by_family"],
+           "processes": {n: {k: r[k] for k in (
+               "wall_s", "max_memory_allocated_bytes")}
+               for n, r in reports.items()},
+           "card_memory_used_peak_mib": card_peak_mib}
+    print(f"  config.yaml over TCP: round wall {out['round_wall_s']:.3f} s "
+          f"(in process {rec_in.wall_s:.3f} s), {out['samples']} samples, "
+          f"{out['train_samples_per_s']:.1f} training samples/s (in "
+          f"process {out['inproc']['train_samples_per_s']:.1f}), "
+          f"val_loss {out['val_loss']:.4f} (in process "
+          f"{rec_in.val_loss:.4f}); phases {out['phases']}; broker bytes "
+          f"by family {out['broker_published_bytes_by_family']}; card "
+          f"memory peak {card_peak_mib} MiB")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -1608,6 +2161,17 @@ def main() -> int:
         proto = phase_protocol(workdir)
         print("[protocol_tcp]")
         tcp = phase_protocol_tcp(workdir, proto)
+        print("[vgg_step_check]")
+        vgg_step = phase_vgg_step_check()
+        print("[vgg_slice]")
+        vgg_sl = phase_vgg_slice(workdir)
+        print("[vgg_profile]")
+        vgg_prof = phase_profile(vgg_config(workdir / "vgg_profile",
+                                            "config.yaml"))
+        print("[vgg_protocol]")
+        vgg_proto = phase_vgg_protocol(workdir)
+        print("[vgg_tcp]")
+        vgg_tcp = phase_vgg_tcp(workdir)
     entries = []
     for name, r in kernels.items():
         source, replaces = KERNELS[name]
@@ -1617,23 +2181,47 @@ def main() -> int:
             by_path["slice"] = sl["launches"][name]
         if name in tiny:   # the float32 flash route, either quantizer
             by_path["tiny_float32_protocol_check"] = tiny[name]
+        for label, run in vgg_sl.items():
+            by_path[f"vgg_slice_{label}"] = run["launches"][name]
+        by_path["vgg_protocol"] = vgg_proto["launches_total"][name]
+        by_path["vgg_tcp"] = vgg_tcp["launches"][name]
+        # each kernel's main path: the VGG protocol round for the codec
+        # and stage-update kernels, the TinyLlama protocol round for the
+        # flash kernels
+        # (VGG has no attention).  The times and bounds of a codec or
+        # stage-update row are taken at the VGG round's shapes (``shapes``;
+        # the TinyLlama shapes' in ``tinyllama_shapes``), and each of its
+        # launches on that path was held against its plain version
+        if name in VGG_PATH_KERNELS:
+            main_path = "vgg_protocol"
+            per_round = {f"server-momentum {m}": run["launches"][name]
+                         for m, run in vgg_proto["runs"].items()}
+            held = sum(run["held"].get(name, {}).get("launches", 0)
+                       for run in vgg_proto["runs"].values())
+        else:
+            main_path = "protocol"
+            per_round = proto["launches_per_round"][name]
+            held = None
+        extra = {k: r[k] for k in ("shapes", "tinyllama_shapes", "frames")
+                 if k in r}
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the launches of this slice's main path, the protocol round
-            "launches": proto["launches_total"][name],
+            "launches": by_path[main_path], "launches_path": main_path,
             "launches_by_path": by_path,
-            "launches_per_protocol_round":
-                proto["launches_per_round"][name],
+            "launches_per_round": per_round,
+            **({} if held is None else {"launches_held_bitwise": held}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             # profiler device times beside the events' ms
             "device_ms": r["device_ms"],
-            "library_device_ms": r["library_device_ms"],
-            **({"frames": r["frames"]} if "frames" in r else {})})
+            "library_device_ms": r["library_device_ms"], **extra})
     print(json.dumps({"slice": sl, "profile": prof, "protocol": proto,
-                      "protocol_tcp": tcp}))
+                      "protocol_tcp": tcp, "vgg_step_check": vgg_step,
+                      "vgg_slice": vgg_sl, "vgg_profile": vgg_prof,
+                      "vgg_protocol": vgg_proto,
+                      "vgg_tcp": vgg_tcp}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

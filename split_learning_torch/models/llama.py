@@ -31,33 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from split_learning_torch.models.split import (
-    LayerSpec, register_model, module_plain_fn as _plain_fn,
+    Dense, LayerSpec, register_model, module_plain_fn as _plain_fn,
 )
 from split_learning_torch.ops.flash_attention import flash_attention
-
-# flax's truncated_normal(-2, 2) has std 0.8796...; lecun_normal divides
-# it out so the drawn values have the requested variance
-_TRUNC_STD = 0.87962566103423978
-
-
-class Dense(nn.Module):
-    """``nn.Dense(use_bias=False)``: weight (out, in), lecun-normal
-    (truncated) init, computed in ``dtype``."""
-    jax_param = "kernel"
-
-    def __init__(self, in_features: int, out_features: int,
-                 dtype=torch.float32, device=None, generator=None):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(
-            out_features, in_features, device=device))
-        std = math.sqrt(1.0 / in_features) / _TRUNC_STD
-        nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-
-    def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-
 
 class Embed(nn.Module):
     """``nn.Embed``: weight (vocab, features) ~ N(0, 1/features),
@@ -128,8 +104,8 @@ class LlamaAttention(nn.Module):
         self.dtype = dtype
         self.use_flash = use_flash
         hd = self.head_dim
-        dense = functools.partial(Dense, dtype=dtype, device=device,
-                                  generator=generator)
+        dense = functools.partial(Dense, use_bias=False, dtype=dtype,
+                                  device=device, generator=generator)
         self.q_proj = dense(hidden_size, num_heads * hd)
         self.k_proj = dense(hidden_size, num_kv_heads * hd)
         self.v_proj = dense(hidden_size, num_kv_heads * hd)
@@ -175,9 +151,10 @@ class LlamaBlock(nn.Module):
                                         num_kv_heads, use_flash=use_flash,
                                         **kw)
         self.post_norm = RMSNorm(hidden_size, **kw)
-        self.gate_proj = Dense(hidden_size, intermediate_size, **kw)
-        self.up_proj = Dense(hidden_size, intermediate_size, **kw)
-        self.down_proj = Dense(intermediate_size, hidden_size, **kw)
+        dense = functools.partial(Dense, use_bias=False, **kw)
+        self.gate_proj = dense(hidden_size, intermediate_size)
+        self.up_proj = dense(hidden_size, intermediate_size)
+        self.down_proj = dense(intermediate_size, hidden_size)
 
     def forward(self, x):
         x = x + self.attention(self.input_norm(x))
@@ -200,7 +177,8 @@ def _llama_specs(vocab_size: int = 32000, hidden_size: int = 2048,
     specs.append(LayerSpec(f"layer{2 + n_block}", make=functools.partial(
         RMSNorm, hidden_size, dtype=dtype), fn=_plain_fn))
     specs.append(LayerSpec(f"layer{3 + n_block}", make=functools.partial(
-        Dense, hidden_size, vocab_size, dtype=dtype), fn=_plain_fn))
+        Dense, hidden_size, vocab_size, use_bias=False, dtype=dtype),
+        fn=_plain_fn))
     return tuple(specs)
 
 

@@ -10,14 +10,30 @@ level is the layer name (the same in every shard and in the full
 model), the inner dict is that layer module's ``state_dict``.  So shard
 state transfer, FedAvg across shards and full-model reassembly are plain
 dict slicing, as in the reference.
+
+BatchNorm running statistics are a second tree of the same shape, keyed
+as flax keys its ``batch_stats`` collection: ``{"layer2": {"mean": t,
+"var": t}, ...}`` (:meth:`SplitModel.stats_tree`).  A train-mode
+forward does not change them: each :class:`BatchNorm` leaves its new
+statistics pending, and the caller keeps them with
+:meth:`SplitModel.commit_stats` once per consumed batch — so a forward
+that is recomputed for its backward still updates them once.
+
+Layers compute in NHWC, as the JAX package's: a conv runs on the NCHW
+view ``x.permute(0, 3, 1, 2)`` of an NHWC-contiguous tensor, which is
+``channels_last`` memory, and its output is permuted back to an
+NHWC-contiguous tensor.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import zlib
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -74,6 +90,8 @@ class SplitModel(nn.Module):
                 yield i, spec
 
     def forward(self, x, train: bool = False):
+        """Run the owned layers; in train mode each BatchNorm leaves its
+        new statistics pending (:meth:`commit_stats` keeps them)."""
         for _, spec in self._owned_specs():
             if spec.make:
                 mod = self.layers[spec.name]
@@ -89,10 +107,12 @@ class SplitModel(nn.Module):
                           layers=dict(self.layers.items()))
 
     def state_tree(self) -> dict:
-        """``{layer name: layer state_dict}`` of the owned layers (the
-        live tensors, detached; clone before mutating the model)."""
-        return {name: {k: t.detach() for k, t in mod.state_dict().items()}
+        """``{layer name: layer state_dict}`` of the owned layers that
+        hold parameters (the live tensors, detached; clone before
+        mutating the model)."""
+        tree = {name: {k: t.detach() for k, t in mod.state_dict().items()}
                 for name, mod in self.layers.items()}
+        return {name: sd for name, sd in tree.items() if sd}
 
     @torch.no_grad()
     def load_state_tree(self, tree: dict) -> None:
@@ -102,6 +122,51 @@ class SplitModel(nn.Module):
         for name, mod in self.layers.items():
             if name in tree:
                 mod.load_state_dict(tree[name])
+
+    def _batchnorms(self):
+        return [(name, mod) for name, mod in self.layers.items()
+                if isinstance(mod, BatchNorm)]
+
+    def stats_tree(self) -> dict:
+        """``{layer name: {"mean", "var"}}`` running statistics of the
+        owned BatchNorm layers (the live tensors, detached)."""
+        return {name: mod.stats() for name, mod in self._batchnorms()}
+
+    @torch.no_grad()
+    def load_stats_tree(self, tree: dict) -> None:
+        """Copy a statistics tree into the owned BatchNorm layers; a
+        layer the tree does not name starts from flax's initial
+        statistics (mean 0, var 1), as a flax apply without that
+        layer's ``batch_stats`` does."""
+        for name, mod in self._batchnorms():
+            mod.load_stats(tree.get(name) or mod.initial_stats())
+
+    def commit_stats(self) -> None:
+        """Keep every owned BatchNorm's pending statistics (from its
+        latest train-mode forward) as its running statistics."""
+        for _, mod in self._batchnorms():
+            mod.commit()
+
+    def _dropouts(self) -> list:
+        return [mod for mod in self.layers.values()
+                if isinstance(mod, Dropout)]
+
+    def seed_dropout(self, seed: int) -> None:
+        """Reseed every owned dropout layer's generator from ``seed`` and
+        the layer's name."""
+        for name, mod in self.layers.items():
+            if isinstance(mod, Dropout):
+                mod.generator.manual_seed(
+                    zlib.crc32(f"{seed}:{name}".encode()))
+
+    def rng_state(self) -> list:
+        """The owned dropout generators' states (for a recompute that
+        must draw the same masks)."""
+        return [mod.generator.get_state() for mod in self._dropouts()]
+
+    def set_rng_state(self, state: list) -> None:
+        for mod, st in zip(self._dropouts(), state):
+            mod.generator.set_state(st)
 
 
 # --------------------------------------------------------------------------
@@ -173,6 +238,181 @@ def merge_shard_params(full_tree: dict, *shard_trees: dict) -> dict:
     for sd in shard_trees:
         out.update(sd)
     return out
+
+
+# --------------------------------------------------------------------------
+# layers with train-mode behaviour
+# --------------------------------------------------------------------------
+
+# flax's truncated_normal(-2, 2) has std 0.8796...; lecun_normal divides
+# it out so the drawn values have the requested variance
+TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int,
+                  generator=None) -> None:
+    """flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, of variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std,
+                          generator=generator)
+
+
+class Dense(nn.Module):
+    """``nn.Dense``: weight (out, in), lecun-normal (truncated) init,
+    zero bias unless ``use_bias`` is false; the product is computed (and
+    rounded) in ``dtype`` before the bias is added in ``dtype``."""
+    jax_param = "kernel"
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype=torch.float32, device=None,
+                 generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            out_features, in_features, device=device))
+        lecun_normal_(self.weight, in_features, generator)
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if use_bias else None)
+
+    def forward(self, x):
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last (channel)
+    axis, in flax's numerics.
+
+    Train mode normalises with the batch statistics, computed in float32
+    as flax's fast variance: ``var = max(E[x^2] - E[x]^2, 0)``, the
+    biased variance, which also enters the running average
+    ``0.9 * running + 0.1 * batch``.  That new average is left pending
+    (:meth:`commit`), never written by the forward itself — torch's
+    ``nn.BatchNorm2d`` would feed the unbiased variance in, on every
+    forward.  Eval mode normalises with the running statistics.  The
+    normalisation runs in float32 and casts to ``dtype``.  The running
+    statistics are non-persistent buffers, so the parameter tree holds
+    ``weight`` (flax ``scale``) and ``bias`` only."""
+    jax_param = "scale"
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, dtype=torch.float32, device=None,
+                 generator=None):
+        super().__init__()
+        del generator   # ones and zeros
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device),
+                             persistent=False)
+        self.register_buffer("var", torch.ones(features, device=device),
+                             persistent=False)
+        self.pending: dict | None = None
+
+    def forward(self, x, train: bool = False):
+        # at least float32, as flax's statistics (float64 stays float64)
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        if train:
+            axes = tuple(range(x.ndim - 1))
+            mean = x32.mean(dim=axes)
+            var = torch.clamp_min((x32 * x32).mean(dim=axes)
+                                  - mean * mean, 0.0)
+            m = self.momentum
+            self.pending = {
+                "mean": m * self.mean + (1 - m) * mean.detach(),
+                "var": m * self.var + (1 - m) * var.detach()}
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean) * mul + self.bias).to(self.dtype)
+
+    def stats(self) -> dict:
+        return {"mean": self.mean.detach(), "var": self.var.detach()}
+
+    def initial_stats(self) -> dict:
+        return {"mean": torch.zeros_like(self.mean),
+                "var": torch.ones_like(self.var)}
+
+    @torch.no_grad()
+    def load_stats(self, tree: dict) -> None:
+        self.mean.copy_(tree["mean"])
+        self.var.copy_(tree["var"])
+
+    @torch.no_grad()
+    def commit(self) -> None:
+        if self.pending is not None:
+            self.mean.copy_(self.pending["mean"])
+            self.var.copy_(self.pending["var"])
+            self.pending = None
+
+
+class Dropout(nn.Module):
+    """``nn.Dropout(rate)``: in train mode keeps each element with
+    probability ``1 - rate`` and scales it by ``1 / (1 - rate)``; the
+    identity in eval mode.  Masks come from the layer's own generator on
+    its device (seeded from the build generator, reseeded by
+    :meth:`SplitModel.seed_dropout`)."""
+
+    def __init__(self, rate: float, device=None, generator=None):
+        super().__init__()
+        self.rate = rate
+        device = torch.device("cpu" if device is None else device)
+        seed = (0 if generator is None else
+                int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                  device=generator.device)))
+        self.generator = torch.Generator(device=device).manual_seed(seed)
+
+    def forward(self, x, train: bool = False):
+        if not train or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+# --------------------------------------------------------------------------
+# layer functions for LayerSpec.fn (NHWC activations)
+# --------------------------------------------------------------------------
+
+def relu_fn(_, x, train):
+    return F.relu(x)
+
+
+def maxpool2_fn(_, x, train):
+    """2x2 max pool, stride 2, VALID (an odd edge row/column is dropped)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=2, stride=2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def flatten_fn(_, x, train):
+    """Flatten in NHWC order, as the JAX package does."""
+    return x.reshape(x.shape[0], -1)
+
+
+def dropout_layer(rate: float):
+    """``(make, fn)`` of a dropout layer of ``rate``."""
+    def make(device=None, generator=None):
+        return Dropout(rate, device=device, generator=generator)
+
+    def fn(mod, x, train):
+        return mod(x, train)
+    return make, fn
+
+
+def batchnorm_fn(mod, x, train):
+    return mod(x, train)
+
+
+def conv_fn(mod, x, train):
+    return mod(x)
+
+
+def identity_fn(_, x, train):
+    return x
 
 
 def module_plain_fn(mod, x, train):

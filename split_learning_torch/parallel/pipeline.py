@@ -22,7 +22,14 @@ device holds every stage:
   backward, ``"none"`` stores every stage's activations, and ``"wide"``
   (default) recomputes exactly the stages whose per-sample boundary
   width (max of input and output) exceeds ``REMAT_WIDE_THRESHOLD``.
-  Recompute is ``torch.utils.checkpoint`` with ``use_reentrant=False``.
+  Recompute is ``torch.utils.checkpoint`` with ``use_reentrant=False``;
+  a recomputed stage replays its dropout generators' states, so it
+  draws the masks of its first run;
+* **BatchNorm statistics**: every stage's train-mode forward leaves its
+  new running statistics pending and the schedule keeps them once per
+  microbatch, after that microbatch's backward, in microbatch order —
+  the JAX scan carries them tick by tick — so a recomputed stage does
+  not update them twice.
 
 The replicated/sliced multi-device layouts, TP/SP/EP and LoRA wait for
 later slices.
@@ -106,10 +113,33 @@ class PipelineModel:
             return self.loss_from_logits(out, labels).float()
         return out
 
+    def _replaying(self, s: int):
+        """Stage ``s``'s apply for ``torch.utils.checkpoint``: its
+        recompute restores the dropout generators to their states at the
+        first run (checkpoint preserves only the default generators),
+        then puts back the states it found."""
+        fn = functools.partial(self._stage_apply, s)
+        model = self.stage_models[s]
+        first = model.rng_state()
+        calls = []
+
+        def apply(h, labels):
+            if not calls:
+                calls.append(1)
+                return fn(h, labels)
+            now = model.rng_state()
+            model.set_rng_state(first)
+            try:
+                return fn(h, labels)
+            finally:
+                model.set_rng_state(now)
+        return apply
+
     def microbatch_backward(self, x, labels, loss_scale: float):
         """Forward one microbatch stage by stage, then backward stage by
         stage, accumulating ``loss_scale * d loss`` into the parameters'
-        ``.grad``.  Returns the microbatch loss (detached)."""
+        ``.grad``, then keep the microbatch's BatchNorm statistics.
+        Returns the microbatch loss (detached)."""
         inputs, outputs = [], []
         h = x
         for s in range(self.n_stages):
@@ -117,9 +147,11 @@ class PipelineModel:
                 # the cut: the next stage receives the activation as a
                 # fresh leaf; its gradient is handed back below
                 h = h.detach().requires_grad_(h.is_floating_point())
-            fn = functools.partial(self._stage_apply, s)
-            out = (checkpoint(fn, h, labels, use_reentrant=False)
-                   if self.stage_remat[s] else fn(h, labels))
+            if self.stage_remat[s]:
+                out = checkpoint(self._replaying(s), h, labels,
+                                 use_reentrant=False)
+            else:
+                out = self._stage_apply(s, h, labels)
             inputs.append(h)
             outputs.append(out)
             h = out
@@ -133,25 +165,41 @@ class PipelineModel:
             if s > 0:
                 grad = inputs[s].grad
             outputs[s] = None   # free the stage's graph as soon as done
+        self.full_model.commit_stats()
         return loss.detach()
+
+    def accumulate(self, x, labels) -> torch.Tensor:
+        """The gradients of one synchronous update, from
+        ``num_microbatches`` microbatches (``x``/``labels`` are (M, mb,
+        ...)), into the parameters' ``.grad`` (which must start empty).
+        Returns the mean microbatch loss (a device scalar)."""
+        M = self.num_microbatches
+        total = None
+        for m in range(M):
+            loss = self.microbatch_backward(x[m], labels[m], 1.0 / M)
+            total = loss if total is None else total + loss
+        return total / M
+
+    @staticmethod
+    def apply(optimizer: torch.optim.Optimizer,
+              clip_grad_norm: float | None = None) -> None:
+        """Clip (``optax.clip_by_global_norm``) and step on the
+        accumulated gradients."""
+        if clip_grad_norm:
+            clip_by_global_norm(
+                [p for g in optimizer.param_groups for p in g["params"]],
+                clip_grad_norm)
+        optimizer.step()
 
     def train_step(self, optimizer: torch.optim.Optimizer, x, labels,
                    clip_grad_norm: float | None = None) -> torch.Tensor:
         """One synchronous update from ``num_microbatches`` microbatches:
         ``x``/``labels`` are (M, mb, ...).  Returns the mean microbatch
         loss (a device scalar)."""
-        M = self.num_microbatches
         optimizer.zero_grad(set_to_none=True)
-        total = None
-        for m in range(M):
-            loss = self.microbatch_backward(x[m], labels[m], 1.0 / M)
-            total = loss if total is None else total + loss
-        if clip_grad_norm:
-            clip_by_global_norm(
-                [p for g in optimizer.param_groups for p in g["params"]],
-                clip_grad_norm)
-        optimizer.step()
-        return total / M
+        loss = self.accumulate(x, labels)
+        self.apply(optimizer, clip_grad_norm)
+        return loss
 
 
 @torch.no_grad()

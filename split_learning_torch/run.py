@@ -6,8 +6,10 @@ by the in-process context — no transport in the hot path.  It runs on
 the CUDA device unless ``--device cpu`` is given; without a GPU and
 without ``--device cpu`` it raises.
 
-Usage::
+Usage (the default config is ``config.yaml``: VGG16/CIFAR10 cut at
+layer 7)::
 
+    python -m split_learning_torch.run
     python -m split_learning_torch.run --config configs/baseline5.yaml
 """
 

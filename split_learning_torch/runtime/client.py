@@ -128,7 +128,13 @@ def learning_from_dict(learning: dict | None) -> LearningConfig:
 
 
 class ShardRunner:
-    """Forward / recompute-backward / optimizer step for one shard."""
+    """Forward / recompute-backward / optimizer step for one shard.
+
+    BatchNorm statistics change once per consumed batch, as in the JAX
+    package: the graph-free forward leaves them as they are, and
+    :meth:`apply_update` keeps those of the backward's recompute (or of
+    the last stage's one forward) with the optimizer step.  The
+    recompute replays the forward's dropout masks."""
 
     def __init__(self, model_key: str, start_layer: int, end_layer: int,
                  learning: dict | None, model_kwargs: dict, device,
@@ -148,24 +154,32 @@ class ShardRunner:
         self.model.train()
         self.optimizer = None
 
-    def load(self, params: dict) -> None:
-        """Adopt a START shard and a fresh optimizer (the reference
-        rebuilds its optimizer every round)."""
+    def load(self, params: dict, stats: dict | None = None) -> None:
+        """Adopt a START shard (parameters and BatchNorm statistics) and
+        a fresh optimizer (the reference rebuilds its optimizer every
+        round)."""
         self.model.load_state_tree(params)
+        self.model.load_stats_tree(stats or {})
         self.optimizer = make_optimizer(self.learning,
                                         self.model.parameters())
 
-    def fwd(self, x: torch.Tensor) -> torch.Tensor:
-        """Forward without a graph: the backward recomputes it."""
+    def fwd(self, x: torch.Tensor):
+        """Forward without a graph: the backward recomputes it.  Returns
+        (output, the dropout generators' states for that recompute)."""
+        rng = self.model.rng_state()
         with torch.no_grad():
-            return self.model(x, train=True)
+            return self.model(x, train=True), rng
 
-    def bwd(self, x: torch.Tensor, ct: torch.Tensor):
-        """Recompute the forward, backpropagate the received cotangent
-        into the parameters' ``.grad``; returns the input gradient (None
-        for integer inputs)."""
+    def bwd(self, x: torch.Tensor, ct: torch.Tensor, rng: list):
+        """Recompute the forward with the masks of :meth:`fwd` (``rng``)
+        and backpropagate the received cotangent into the parameters'
+        ``.grad``; returns the input gradient (None for integer
+        inputs)."""
+        now = self.model.rng_state()
+        self.model.set_rng_state(rng)
         xr = x.detach().requires_grad_(x.is_floating_point())
         out = self.model(xr, train=True)
+        self.model.set_rng_state(now)
         out.backward(ct.to(out.dtype))
         return xr.grad
 
@@ -181,6 +195,9 @@ class ShardRunner:
         return loss.detach(), xr.grad
 
     def apply_update(self) -> None:
+        """The optimizer step on the batch's gradients, and the batch's
+        BatchNorm statistics kept."""
+        self.model.commit_stats()
         params = list(self.model.parameters())
         if self.learning.clip_grad_norm:
             clip_by_global_norm(params, self.learning.clip_grad_norm)
@@ -190,12 +207,16 @@ class ShardRunner:
     def state_tree(self) -> dict:
         return self.model.state_tree()
 
+    def stats_tree(self) -> dict:
+        return self.model.stats_tree()
+
 
 @dataclasses.dataclass
 class _Inflight:
     x: Any
     trace: list
     n: int = 0   # batch size; counted into num_samples at BACKWARD time
+    rng: list = dataclasses.field(default_factory=list)   # fwd's masks
 
 
 class ProtocolClient:
@@ -396,7 +417,9 @@ class ProtocolClient:
                 msg.learning, model_kwargs, self.device,
                 seed=self.cfg.seed
                 + zlib.crc32(self.client_id.encode()) % 100000)
-        self.runner.load(_from_wire_tree(msg.params, self.device))
+        self.runner.load(_from_wire_tree(msg.params, self.device),
+                         _from_wire_tree(msg.batch_stats or {},
+                                         self.device))
         self._build_loader(msg)
 
     def _build_loader(self, msg: Start):
@@ -434,17 +457,20 @@ class ProtocolClient:
         # the round's ONE host sync of the NaN sentinel
         if self._ok_dev is not None and not bool(self._ok_dev):
             self.round_ok = False
-        params_h = None
+        params_h = stats_h = None
         if with_weights:
-            params_h = {layer: {k: t.detach().cpu().numpy()
-                                for k, t in sd.items()}
-                        for layer, sd in self.runner.state_tree().items()}
+            params_h, stats_h = (
+                {layer: {k: t.detach().cpu().numpy()
+                         for k, t in sd.items()}
+                 for layer, sd in tree.items()}
+                for tree in (self.runner.state_tree(),
+                             self.runner.stats_tree()))
         # TENSOR-framed and chunked: a shard UPDATE is the biggest frame
         # a client publishes.  The weights were fetched above, on this
         # thread: the next START loads into the same parameters in place
         msg = Update(
             client_id=self.client_id, stage=self.stage,
-            cluster=self.cluster, params=params_h, batch_stats={},
+            cluster=self.cluster, params=params_h, batch_stats=stats_h,
             num_samples=self.num_samples, ok=self.round_ok,
             round_idx=self.fence, version=self.fence)
         self._publish_parts(
@@ -500,7 +526,8 @@ class ProtocolClient:
 
     def _backward(self, ent: _Inflight, g: Gradient):
         """Recompute + backprop one received gradient, step, count."""
-        gx = self.runner.bwd(ent.x, _from_wire_tree(g.data, self.device))
+        gx = self.runner.bwd(ent.x, _from_wire_tree(g.data, self.device),
+                             ent.rng)
         self.runner.apply_update()
         # counted here, not at dispatch: a mid-loop PAUSE abandons
         # in-flight forwards, and the FedAvg weight must only cover
@@ -565,9 +592,10 @@ class ProtocolClient:
                 next_item = next(data_iter, None)
                 x = torch.from_numpy(np.asarray(x)).to(self.device)
                 data_id = uuid.uuid4().hex
+                out, rng = r.fwd(x)
                 inflight[data_id] = _Inflight(x=x, trace=[self.client_id],
-                                              n=len(labels))
-                self._send_activation(r.fwd(x), out_q, data_id,
+                                              n=len(labels), rng=rng)
+                self._send_activation(out, out_q, data_id,
                                       np.asarray(labels, np.int32),
                                       [self.client_id])
                 n_fwd += 1
@@ -609,9 +637,10 @@ class ProtocolClient:
                     or isinstance(act, EpochEnd):
                 continue   # corrupt, from a dropped round, or a fence
             x = _from_wire_tree(act.data, self.device)
+            out, rng = r.fwd(x)
             inflight[act.data_id] = _Inflight(x=x, trace=list(act.trace),
-                                              n=len(act.labels))
-            self._send_activation(r.fwd(x), out_q, act.data_id,
+                                              n=len(act.labels), rng=rng)
+            self._send_activation(out, out_q, act.data_id,
                                   act.labels,
                                   list(act.trace) + [self.client_id])
 

@@ -217,6 +217,7 @@ class ProtocolContext(TorchContext):
             msg.batch_stats = None
         elif msg.params is not None:
             msg.params = _torch_tree(msg.params, "cpu")
+            msg.batch_stats = _torch_tree(msg.batch_stats or {}, "cpu")
         self._folded_versions.add(key)
         self._updates.append(msg)
         self.log.received(f"UPDATE {msg.client_id} "
@@ -301,8 +302,9 @@ class ProtocolContext(TorchContext):
         for cid, s in active:
             a, b = ranges[s - 1]
             if (a, b) not in shard_cache:
-                shard_cache[(a, b)] = _np_tree(
-                    shard_params(params, self.specs, a, b))
+                shard_cache[(a, b)] = tuple(
+                    _np_tree(shard_params(tree, self.specs, a, b))
+                    for tree in (params, stats or {}))
             label_counts = None
             if s == 1:
                 label_counts = np.asarray(
@@ -310,8 +312,8 @@ class ProtocolContext(TorchContext):
             end_layer = -1 if s == plan.n_stages else b
             for part in encode_parts(Start(
                     start_layer=a, end_layer=end_layer,
-                    cluster=plan.cluster_id, params=shard_cache[(a, b)],
-                    batch_stats={}, learning=learning,
+                    cluster=plan.cluster_id, params=shard_cache[(a, b)][0],
+                    batch_stats=shard_cache[(a, b)][1], learning=learning,
                     label_counts=label_counts, round_idx=round_idx,
                     extra={"epochs": epochs, "sda_size": 1,
                            "n_stages": plan.n_stages,
@@ -452,13 +454,15 @@ class ProtocolServer:
                                    ready_timeout=ready_timeout,
                                    device=device)
 
-    def serve(self, init_params: Any | None = None) -> TrainResult:
+    def serve(self, init_params: Any | None = None,
+              init_stats: Any | None = None) -> TrainResult:
         """Registration barrier, planning, the round loop, STOP."""
         regs = self.ctx.wait_for_registrations()
         plans = plan_clusters(self.cfg, regs)
         try:
             return run_training(self.cfg, self.ctx, plans, self.log,
-                                init_params=init_params)
+                                init_params=init_params,
+                                init_stats=init_stats)
         finally:
             self.ctx.stop_all()
             self.ctx.shutdown()
@@ -476,7 +480,8 @@ class InProcRun:
 
 def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
                init_params: Any | None = None,
-               logger: Logger | None = None) -> InProcRun:
+               logger: Logger | None = None,
+               init_stats: Any | None = None) -> InProcRun:
     """The whole protocol deployment in this process on ``device`` (CUDA
     unless the CPU is asked for): the server in the calling thread, one
     ``ProtocolClient`` thread per configured client (``client_{stage}_{i}``),
@@ -511,7 +516,8 @@ def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
     for t in threads:
         t.start()
     try:
-        result = server.serve(init_params=init_params)
+        result = server.serve(init_params=init_params,
+                              init_stats=init_stats)
     except QueueClosed as e:
         if errors:
             cid, err = errors[0]

@@ -1,9 +1,11 @@
 """Server-side full-model validation.
 
 Port of the JAX package's ``runtime/validation.py``: after aggregation
-the full model runs the test set; a NaN or exploded loss marks the round
-failed, which the round loop uses to skip checkpointing.  Loss and
-accuracy are counted per token for token datasets.
+the full model runs the test set in eval mode (BatchNorm normalises with
+the running statistics the caller loaded, dropout is the identity); a
+NaN or exploded loss marks the round failed, which the round loop uses
+to skip checkpointing.  Loss and accuracy are counted per token for
+token datasets.
 """
 
 from __future__ import annotations
