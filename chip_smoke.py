@@ -93,7 +93,32 @@ Phases, each fatal on failure:
 11. vgg_tcp — ``config.yaml`` as processes over TCP (broker, server, two
    clients), one round, with the samples of the same round in one
    process;
-12. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+12. profiler — ``python -m split_learning_torch.profiler --config
+   configs/baseline2.yaml`` as a process on the card (``time`` mode: each
+   VGG16 layer's forward at batch 32 by CUDA events), then ``flops``
+   mode; prints each layer's time and boundary bytes, the full forward's
+   samples/s and the bandwidth through an ``InProcTransport``; checks
+   ``size_data`` against the same function on the CPU and the
+   throughput-balance cut from the card's profile (printed beside the
+   even split);
+13. baseline2_slice — BASELINE config 2 in process (``run_local``) as
+   written: 5 rounds, 4 stage-1 clients at 2500 samples clustered by
+   KMeans into 2, selection on, the even cut, every launch counter 0;
+   then 1 round with the card's profile registered for every client
+   (the auto cut from the card's times);
+14. baseline2_protocol — baseline 2 as the protocol round in one process,
+   every client registering the card's profile and one stage-1 client
+   a tenth as fast: GMM selection rejects it (the server's plans equal
+   ``plan_clusters`` on the same registrations, and the rejected client
+   is never STARTed), both clusters train and fold on their own queues;
+   the int8 codec both ways, every kernel flag on, the sharded fold at
+   ``server-momentum`` 0.9 then 0; every quantize, dequantize, momentum
+   and finalize launch held bit for bit against its plain version;
+15. strategies — SDA, relay, cluster relay, periodic and FedAsync in
+   process at full VGG16 width on baseline 2's geometry, 2 rounds of
+   256 samples a client, each held to its own contract (samples,
+   validated rounds, finite losses, FedAsync's per-merge checkpoints);
+16. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
@@ -1092,17 +1117,19 @@ def phase_profile(cfg) -> dict:
 # 6. the protocol round: server + client threads over the in-process bus
 # --------------------------------------------------------------------------
 
-def run_protocol(cfg, timeout: float = 600.0):
+def run_protocol(cfg, timeout: float = 600.0, profiles: dict | None = None):
     """The protocol deployment through the port's entry point
     (``run_inproc``: the server in this thread, one client thread per
-    client over a shared ``InProcTransport``) on the card."""
+    client over a shared ``InProcTransport``, each registering its entry
+    of ``profiles``) on the card."""
     from split_learning_torch.runtime.log import Logger
     from split_learning_torch.runtime.server import run_inproc
     try:
         # the server's protocol log goes to its run directory only
         run = run_inproc(cfg, device=DEVICE, client_timeout=timeout,
                          logger=Logger.for_run(cfg, "server",
-                                               console=False))
+                                               console=False),
+                         profiles=profiles)
     except Exception as e:
         raise SmokeFailure(f"protocol round failed: {e!r} "
                            f"(cause: {e.__cause__!r})") from e
@@ -1703,15 +1730,18 @@ def _reset_launches() -> None:
         mod.reset_launches()
 
 
-def _expected_samples(cfg, protocol: bool) -> int:
-    """A round's samples: every stage-1 client's loader batches in the
-    protocol round, whole M-batch steps in process."""
+def _expected_samples(cfg, protocol: bool,
+                      n_clients: int | None = None) -> int:
+    """A round's samples: every training stage-1 client's (all of them
+    unless ``n_clients`` says) loader batches in the protocol round,
+    whole M-batch steps in process."""
     lrn = cfg.learning
     batches = cfg.distribution.num_samples // lrn.batch_size
     if not protocol:
         steps = max(1, batches // lrn.control_count)
         batches = min(steps * lrn.control_count, batches)
-    return cfg.clients[0] * batches * lrn.batch_size
+    n = cfg.clients[0] if n_clients is None else n_clients
+    return n * batches * lrn.batch_size
 
 
 def _check_stats_checkpoint(cfg, result, rounds: int) -> None:
@@ -1967,6 +1997,58 @@ def _hold_on_path(kq, ku, held: dict, seen: dict) -> dict:
     return originals
 
 
+def _check_held(path: str, m: float, held: dict, launches: dict) -> None:
+    """One protocol run's held launches (:func:`_hold_on_path`): print
+    them, and check that none differs from the kernel's plain version and
+    that as many were held as the launch counters counted."""
+    for name in ("quantize", "dequantize", "finalize", "momentum"):
+        h = held.get(name, {"launches": 0, "by_input": {},
+                            "mismatches": [], "s": 0.0})
+        counted = launches[name] + (launches["quantize_generic"]
+                                    if name == "quantize" else 0)
+        print(f"  momentum {m}: {name:10s} {h['launches']} launches "
+              f"held against the plain version ({h['s']:.3f} s), "
+              f"{len(h['mismatches'])} differ; by input "
+              f"{h['by_input']}")
+        check(not h["mismatches"], f"{name} differs from its plain "
+              f"version on the {path} path at {h['mismatches']}")
+        check(h["launches"] == counted, f"{name}: {h['launches']} "
+              f"launches held, {counted} counted")
+
+
+def _check_path_kernels(path: str, launches_by_m: dict, seen: dict,
+                        samples: int) -> dict:
+    """A protocol path's kernel launches over its momentum round
+    (``launches_by_m[0.9]``) and its plain FedAvg round (``[0.0]``): no
+    off-path kernel, each of the four path kernels launched (momentum in
+    the momentum round, finalize in the plain one), the quantizer handed
+    both frame dtypes, and one activation and one gradient frame per
+    training batch of 32.  Returns the launches over both rounds."""
+    total: dict = {}
+    for launches in launches_by_m.values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    for name, n in total.items():
+        if name in OFF_PATH_KERNELS:
+            check(n == 0, f"{name} ran {n} times on the {path} path")
+    for name in ("quantize", "dequantize", "momentum", "finalize"):
+        check(total[name] > 0, f"kernel {name} was not launched on the "
+              f"{path} path")
+    check(launches_by_m[0.9]["momentum"] > 0
+          and launches_by_m[0.0]["finalize"] > 0,
+          "the momentum round or the plain FedAvg round missed its kernel")
+    check(seen.get("torch.float32", 0) > 0
+          and seen.get("torch.bfloat16", 0) > 0,
+          f"the quantizer was not handed both frame dtypes: {seen}")
+    batches = 2 * samples // 32
+    for name in ("quantize", "dequantize"):
+        check(total[name] == batches, f"{name} launched {total[name]} "
+              f"times, expected {batches}")
+    print(f"  quantizer input dtypes {seen}; launches over both rounds "
+          f"{total}")
+    return total
+
+
 def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
     """BASELINE config 1 as the protocol round in one process
     (``run_inproc``): one round with ``server-momentum: 0.9`` (the
@@ -2005,7 +2087,6 @@ def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
             for (mod, attr), fn in originals.items():
                 setattr(mod, attr, fn)
     out = {"runs": {}, "quantized_dtypes": seen}
-    total: dict = {}
     for m, (cfg, server, clients, bus, res, wall, launches, peak) in \
             runs.items():
         rec = res.history[0]
@@ -2021,8 +2102,6 @@ def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
         fam: dict = {}
         for q, nb in bus.bytes_out_snapshot().items():
             fam[queue_family(q)] = fam.get(queue_family(q), 0) + nb
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
         out["runs"][str(m)] = {
             "round_wall_s": rec.wall_s, "run_wall_s": wall,
             "samples": rec.num_samples,
@@ -2032,19 +2111,7 @@ def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
             "fold_update_s": server.ctx.last_fold.update_s,
             "max_memory_allocated_bytes": peak, "launches": launches,
             "held": held_by_run[m]}
-        for name in ("quantize", "dequantize", "finalize", "momentum"):
-            h = held_by_run[m].get(name, {"launches": 0, "by_input": {},
-                                          "mismatches": [], "s": 0.0})
-            counted = launches[name] + (launches["quantize_generic"]
-                                        if name == "quantize" else 0)
-            print(f"  momentum {m}: {name:10s} {h['launches']} launches "
-                  f"held against the plain version ({h['s']:.3f} s), "
-                  f"{len(h['mismatches'])} differ; by input "
-                  f"{h['by_input']}")
-            check(not h["mismatches"], f"{name} differs from its plain "
-                  f"version on the VGG protocol path at {h['mismatches']}")
-            check(h["launches"] == counted, f"{name}: {h['launches']} "
-                  f"launches held, {counted} counted")
+        _check_held("VGG protocol", m, held_by_run[m], launches)
         print(f"  momentum {m}: round wall {rec.wall_s:.3f} s (run "
               f"{wall:.3f} s), {rec.num_samples} samples, "
               f"{rec.num_samples / rec.wall_s:.1f} training samples/s, "
@@ -2053,25 +2120,9 @@ def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
                   f"{k} {v:.3f}" for k, v in server.ctx.round_phases[0]
                   .items()) + f"; bytes by queue family {fam}; peak "
               f"memory {peak / 2**30:.2f} GiB; launches {launches}")
-    for name, n in total.items():
-        if name in OFF_PATH_KERNELS:
-            check(n == 0, f"{name} ran {n} times on the VGG protocol path")
-    for name in ("quantize", "dequantize", "momentum", "finalize"):
-        check(total[name] > 0, f"kernel {name} was not launched on the VGG "
-              "protocol path")
-    check(runs[0.9][6]["momentum"] > 0 and runs[0.0][6]["finalize"] > 0,
-          "the momentum round or the plain FedAvg round missed its kernel")
-    check(seen.get("torch.float32", 0) > 0
-          and seen.get("torch.bfloat16", 0) > 0,
-          f"the quantizer was not handed both frame dtypes: {seen}")
-    # one activation and one gradient frame per training batch
-    batches = 2 * sum(r["samples"] for r in out["runs"].values()) // 32
-    for name in ("quantize", "dequantize"):
-        check(total[name] == batches, f"{name} launched {total[name]} "
-              f"times, expected {batches}")
-    out["launches_total"] = total
-    print(f"  quantizer input dtypes {seen}; launches over both rounds "
-          f"{total}")
+    out["launches_total"] = _check_path_kernels(
+        "VGG protocol", {m: r[6] for m, r in runs.items()}, seen,
+        sum(r["samples"] for r in out["runs"].values()))
     return out
 
 
@@ -2140,6 +2191,412 @@ def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 12-15. BASELINE config 2: the control plane
+# --------------------------------------------------------------------------
+
+#: BASELINE config 2 (KMeans into 2 clusters, GMM selection)
+BASELINE2 = "configs/baseline2.yaml"
+#: the stage-1 client whose registered speed the protocol phase divides
+#: by 10 (a member of the 3-client cluster, so selection may reject it)
+STRAGGLER = "client_1_1"
+#: strategies phase: samples a client (the YAML's 2500, reduced)
+STRATEGY_SAMPLES = 256
+
+
+def _plan_summary(plans) -> list:
+    return [{"cluster": p.cluster_id, "cuts": list(p.cuts),
+             "clients": [list(ids) for ids in p.clients],
+             "label_counts": p.label_counts.tolist(),
+             "rejected": list(p.rejected)} for p in plans]
+
+
+def phase_profiler(workdir: pathlib.Path) -> dict:
+    """``python -m split_learning_torch.profiler --config
+    configs/baseline2.yaml`` as a process on the card (``time`` mode:
+    each layer's forward by CUDA events, batch 32), then ``flops`` mode
+    in this process, the same function's ``size_data`` on the CPU, and
+    the bandwidth through an ``InProcTransport``.  The throughput-balance
+    cut from the card's profile is printed beside the even split."""
+    from split_learning_torch import profiler
+    from split_learning_torch.config import from_yaml
+    from split_learning_torch.planner import partition
+    from split_learning_torch.runtime.bus import InProcTransport
+
+    cfg = from_yaml(HERE / BASELINE2)
+    out_path = workdir / "profiling.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "split_learning_torch.profiler", "--config",
+         str(HERE / BASELINE2), "--output", str(out_path), "--device",
+         DEVICE], cwd=HERE, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"profiler CLI failed: {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    prof = json.loads(out_path.read_text())
+    kw = dict(cfg.model_kwargs or {})
+    batch = cfg.learning.batch_size
+    flops = profiler.profile_model(cfg.model_key, batch, model_kwargs=kw,
+                                   method="flops", device=DEVICE)
+    on_cpu = profiler.profile_model(cfg.model_key, batch, model_kwargs=kw,
+                                    method="flops", device="cpu",
+                                    repeats=2)
+    network = profiler.profile_network(InProcTransport())
+    n_layer = len(prof["exe_time"])
+    check(summary["layers"] == n_layer == len(prof["size_data"]),
+          f"profile of {n_layer} layers, summary {summary}")
+    check(prof["size_data"] == on_cpu["size_data"] == flops["size_data"],
+          "size_data differs between the card's profile and the CPU's")
+    check(flops["exe_time"] == on_cpu["exe_time"],
+          "flops-mode exe_time differs between the card and the CPU")
+    for name, p in (("time", prof), ("flops", flops)):
+        check(all(t > 0 and math.isfinite(t) for t in p["exe_time"])
+              and p["speed"] > 0, f"{name} profile has a time <= 0: {p}")
+    check(network > 0, f"InProcTransport bandwidth {network}")
+    exe, net = [prof["exe_time"]], [1e9]
+    cut = partition(exe, net, exe, net, prof["size_data"])
+    check(1 <= cut[0] <= n_layer - 1, f"cut {cut} outside [1, {n_layer - 1}]")
+    even = [max(1, n_layer // 2)]
+    print(f"  profiler CLI ({cli_s:.1f} s, time mode, batch {batch}): "
+          f"{n_layer} layers, full forward {prof['speed']:.1f} samples/s "
+          f"(flops-mode run {flops['speed']:.1f})")
+    print("  layer: exe_time ms (time mode), size_data bytes, flops-mode "
+          "exe_time (FLOPs / 1e12)")
+    for i, (t_s, size, f) in enumerate(zip(prof["exe_time"],
+                                           prof["size_data"],
+                                           flops["exe_time"]), start=1):
+        print(f"    {i:2d}: {t_s * 1e3:.4f} ms  {size:>9d} B  {f:.6g}")
+    print(f"  network through an InProcTransport: {network / 1e9:.3f} GB/s")
+    fexe = [flops["exe_time"]]
+    flops_cut = partition(fexe, net, fexe, net, flops["size_data"])
+    print(f"  partition on the card's profile: cut {cut} (even split "
+          f"{even}); on the flops profile {flops_cut}")
+    return {"profile": prof, "flops_profile": flops, "cli_s": cli_s,
+            "network_bytes_per_s": network, "cut": cut, "even_cut": even,
+            "flops_cut": flops_cut, "speed_samples_per_s": prof["speed"]}
+
+
+def baseline2_config(workdir: pathlib.Path, **changes):
+    """``configs/baseline2.yaml`` as written, its checkpoints and logs in
+    ``workdir``, with ``changes`` (``dataclasses.replace`` on the
+    config's sections: ``{section: {field: value}}`` or a top-level
+    field)."""
+    cfg = vgg_config(workdir, BASELINE2)
+    top = {}
+    for key, val in changes.items():
+        if isinstance(val, dict):
+            top[key] = dataclasses.replace(getattr(cfg, key), **val)
+        else:
+            top[key] = val
+    return dataclasses.replace(cfg, **top).validate()
+
+
+def _rounds_summary(label: str, result) -> list:
+    rounds = []
+    for rec in result.history:
+        rounds.append({"round": rec.round_idx, "wall_s": rec.wall_s,
+                       "samples": rec.num_samples,
+                       "train_samples_per_s": rec.num_samples / rec.wall_s,
+                       "validated": rec.val_loss is not None,
+                       "val_loss": rec.val_loss,
+                       "val_accuracy": rec.val_accuracy})
+        val = (f", val_loss {rec.val_loss:.4f} val_acc "
+               f"{rec.val_accuracy:.4f}" if rec.val_loss is not None
+               else ", not validated")
+        print(f"  {label} round {rec.round_idx}: wall {rec.wall_s:.3f} s, "
+              f"{rec.num_samples} samples, "
+              f"{rec.num_samples / rec.wall_s:.1f} training samples/s{val}")
+    return rounds
+
+
+def phase_baseline2_slice(workdir: pathlib.Path, profile: dict) -> dict:
+    """BASELINE config 2 in process (``run_local``) as written: 5 rounds,
+    4 stage-1 clients at 2500 samples each clustered by KMeans into 2,
+    selection on (equal speeds: nobody rejected), the even cut without
+    profiles; every ``kernels:`` flag off, so no kernel may launch.
+    Then 1 round (reduced from 5) with the profiler phase's profile
+    registered for every client: the auto cut from the card's times."""
+    from split_learning_torch.run import run_local, synthesize_registrations
+    from split_learning_torch.runtime.plan import plan_clusters
+
+    out = {}
+    profiles = {f"client_{s}_{i}": profile
+                for s, n in ((1, 4), (2, 2)) for i in range(n)}
+    for label, profs, rounds in (("even_cut", None, None),
+                                 ("profiled_cut", profiles, 1)):
+        changes = {} if rounds is None else {"global_rounds": rounds}
+        cfg = baseline2_config(workdir / f"b2_{label}", **changes)
+        plans = plan_clusters(cfg, synthesize_registrations(cfg, profs))
+        summary = _plan_summary(plans)
+        for p in summary:
+            print(f"  {label}: cluster {p['cluster']}: stage-1 "
+                  f"{p['clients'][0]}, stage-2 {p['clients'][1]}, cuts "
+                  f"{p['cuts']}, rejected {p['rejected']}, label counts "
+                  f"{p['label_counts']}")
+        check(len(plans) == 2 and not any(p.rejected for p in plans),
+              f"{label}: plans {summary}")
+        check(sorted(c for p in plans for c in p.stage1_clients)
+              == [f"client_1_{i}" for i in range(4)],
+              f"{label}: stage-1 clients {summary}")
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = run_local(cfg, device=DEVICE, profiles=profs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        check(not any(launches.values()), f"baseline 2 {label}: kernels "
+              f"launched with every kernels flag off: {launches}")
+        check(len(result.history) == cfg.global_rounds,
+              f"{label}: {len(result.history)} rounds")
+        want = _expected_samples(cfg, protocol=False)
+        for rec in result.history:
+            check(rec.ok and math.isfinite(rec.val_loss)
+                  and math.isfinite(rec.val_accuracy),
+                  f"baseline 2 {label}: round not ok: {rec}")
+            check(rec.num_samples == want, f"baseline 2 {label} round "
+                  f"{rec.round_idx}: {rec.num_samples} samples, expected "
+                  f"{want}")
+        _check_stats_checkpoint(cfg, result, cfg.global_rounds)
+        peak = torch.cuda.max_memory_allocated()
+        out[label] = {"plans": summary, "run_local_wall_s": wall,
+                      "rounds": _rounds_summary(f"baseline 2 {label}",
+                                                result),
+                      "max_memory_allocated_bytes": peak,
+                      "launches": launches}
+        print(f"  baseline 2 {label}: run_local {wall:.3f} s, peak memory "
+              f"{peak / 2**30:.2f} GiB")
+    return out
+
+
+def baseline2_protocol_config(workdir: pathlib.Path, momentum: float):
+    """Baseline 2 as the protocol slice runs it: one round, an int8 codec
+    on both cut directions, every kernel flag on, the sharded (CUDA) fold
+    with ``server-momentum`` = ``momentum``."""
+    return baseline2_config(
+        workdir, global_rounds=1,
+        transport={"codec": {"intermediate": "int8", "gradient": "int8"}},
+        kernels={"quantize": True, "dequantize": True,
+                 "stage_update": True},
+        aggregation={"sharded": True, "server_momentum": momentum})
+
+
+def phase_baseline2_protocol(workdir: pathlib.Path, profile: dict) -> dict:
+    """Baseline 2 as the protocol round in one process: every client
+    registers the card's profile, :data:`STRAGGLER`'s speed divided by 10;
+    one round at ``server-momentum: 0.9``, one at 0.  The server's plans
+    must equal ``plan_clusters`` on the same registrations here (GMM
+    selection rejects exactly the same clients), the rejected client
+    must never be STARTed, both clusters must train and fold on their
+    own queues, and every codec and stage-update launch is held bit for
+    bit against its plain version (:func:`_hold_on_path`)."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.run import synthesize_registrations
+    from split_learning_torch.runtime import server as server_mod
+    from split_learning_torch.runtime.bus import queue_family
+    from split_learning_torch.runtime.plan import plan_clusters
+
+    profiles = {f"client_{s}_{i}": profile
+                for s, n in ((1, 4), (2, 2)) for i in range(n)}
+    profiles[STRAGGLER] = dict(profile, speed=profile["speed"] / 10)
+    seen: dict = {}
+    runs = {}
+    server_plans: list = []
+    folds: list = []
+    plan_fn = server_mod.plan_clusters
+    train = server_mod.ProtocolContext.train_cluster
+
+    def record_plans(cfg, regs, *a, **kw):
+        server_plans.append(plan_fn(cfg, regs, *a, **kw))
+        return server_plans[-1]
+
+    def record_fold(ctx, plan, *a, **kw):
+        ups = train(ctx, plan, *a, **kw)
+        folds.append({"cluster": plan.cluster_id,
+                      "folded": ctx.last_fold.folded,
+                      "samples": ctx.last_fold.n_samples})
+        return ups
+
+    for m in (0.9, 0.0):
+        held: dict = {}
+        originals = _hold_on_path(kq, ku, held, seen)
+        server_mod.plan_clusters = record_plans
+        server_mod.ProtocolContext.train_cluster = record_fold
+        try:
+            cfg = baseline2_protocol_config(workdir / f"b2_protocol_{m}", m)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            server, clients, bus, res = run_protocol(cfg, profiles=profiles)
+            torch.cuda.synchronize()
+            runs[m] = (cfg, server, clients, bus, res,
+                       time.perf_counter() - t0, _launch_counts(),
+                       torch.cuda.max_memory_allocated(), held)
+        finally:
+            for (mod, attr), fn in originals.items():
+                setattr(mod, attr, fn)
+            server_mod.plan_clusters = plan_fn
+            server_mod.ProtocolContext.train_cluster = train
+    cfg = runs[0.9][0]
+    cpu_plans = plan_clusters(cfg, synthesize_registrations(cfg, profiles))
+    want = _plan_summary(cpu_plans)
+    for plans in server_plans:
+        check(_plan_summary(plans) == want, f"server plans "
+              f"{_plan_summary(plans)} differ from plan_clusters' {want}")
+    rejected = [c for p in cpu_plans for c in p.rejected]
+    check(rejected == [STRAGGLER], f"selection rejected {rejected}")
+    for p in want:
+        print(f"  cluster {p['cluster']}: stage-1 {p['clients'][0]}, "
+              f"stage-2 {p['clients'][1]}, cuts {p['cuts']}, rejected "
+              f"{p['rejected']}")
+    out = {"plans": want, "runs": {}, "quantized_dtypes": seen,
+           "folds": folds}
+    n_train = sum(len(p.stage1_clients) for p in cpu_plans)
+    for m, (cfg, server, clients, bus, res, wall, launches, peak,
+            held) in runs.items():
+        rec = res.history[0]
+        expect = _expected_samples(cfg, protocol=True, n_clients=n_train)
+        check(len(res.history) == 1 and rec.ok
+              and math.isfinite(rec.val_loss),
+              f"baseline 2 protocol round (momentum {m}) failed: "
+              f"{res.history}")
+        check(rec.num_samples == expect, f"baseline 2 protocol round: "
+              f"{rec.num_samples} samples, expected {expect}")
+        straggler = next(c for c in clients if c.client_id == STRAGGLER)
+        check(straggler.runner is None, f"{STRAGGLER} was rejected but "
+              "trained")
+        _check_stats_checkpoint(cfg, res, 1)
+        fam: dict = {}
+        queues = set()
+        for q, nb in bus.bytes_out_snapshot().items():
+            fam[queue_family(q)] = fam.get(queue_family(q), 0) + nb
+            if q.startswith("intermediate_queue"):
+                queues.add(q)
+        check(queues == {"intermediate_queue_1_0", "intermediate_queue_1_1"},
+              f"activation queues {sorted(queues)}")
+        _check_held("baseline 2 protocol", m, held, launches)
+        phases = server.ctx.round_phases
+        out["runs"][str(m)] = {
+            "round_wall_s": rec.wall_s, "run_wall_s": wall,
+            "samples": rec.num_samples,
+            "train_samples_per_s": rec.num_samples / rec.wall_s,
+            "val_loss": rec.val_loss, "val_accuracy": rec.val_accuracy,
+            "phases_by_cluster": phases, "bytes_by_family": fam,
+            "max_memory_allocated_bytes": peak, "launches": launches,
+            "held": held}
+        print(f"  momentum {m}: round wall {rec.wall_s:.3f} s (run "
+              f"{wall:.3f} s), {rec.num_samples} samples, "
+              f"{rec.num_samples / rec.wall_s:.1f} training samples/s, "
+              f"val_loss {rec.val_loss:.4f} val_acc {rec.val_accuracy:.4f};"
+              " phases " + "; ".join(
+                  f"cluster {i}: " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in ph.items())
+                  for i, ph in enumerate(phases))
+              + f"; bytes by queue family {fam}; peak memory "
+              f"{peak / 2**30:.2f} GiB; launches {launches}")
+    # both clusters trained and folded, in each run
+    check([f["cluster"] for f in folds] == [0, 1, 0, 1]
+          and all(f["folded"] > 0 and f["samples"] > 0 for f in folds),
+          f"cluster folds {folds}")
+    print(f"  folds {folds}")
+    out["launches_total"] = _check_path_kernels(
+        "baseline 2 protocol", {m: r[6] for m, r in runs.items()}, seen,
+        sum(r["samples"] for r in out["runs"].values()))
+    return out
+
+
+#: strategies phase: strategy -> (aggregation changes, topology changes,
+#: learning changes, checkpoint changes, rounds validated of 2)
+STRATEGY_RUNS = {
+    "sda": ({"strategy": "sda", "local_rounds": 2}, {},
+            {"lr_decay": 0.9, "lr_decay_every": 1}, {}, [True, True]),
+    "relay": ({"strategy": "relay"}, {}, {}, {}, [True, True]),
+    "cluster_relay": ({"strategy": "cluster_relay"}, {}, {}, {},
+                      [True, True]),
+    "periodic": ({"strategy": "periodic", "t_client": 1, "t_global": 2},
+                 {}, {}, {}, [False, True]),
+    "fedasync": ({"strategy": "fedasync"}, {"in_clusters": 2}, {},
+                 {"per_merge": True}, [True, True]),
+}
+
+
+def phase_strategies(workdir: pathlib.Path) -> dict:
+    """Each of the five strategies beside FedAvg in process at full VGG16
+    width on baseline 2's geometry (its plan: 2 KMeans clusters, the
+    even cut), 2 rounds.  Reduced: :data:`STRATEGY_SAMPLES` samples a
+    client (2500 in the YAML) and 2 rounds (5).  Each is held to its
+    own contract: the samples of a round (SDA: 2 local epochs), the
+    rounds it validates (periodic: the ``t-global: 2`` boundary only),
+    finite validation losses, and FedAsync's per-merge checkpoints (one
+    per in-cluster merge, on disk)."""
+    from split_learning_torch.run import run_local, synthesize_registrations
+    from split_learning_torch.runtime import strategies as strat_mod
+    from split_learning_torch.runtime.checkpoint import load_checkpoint
+    from split_learning_torch.runtime.plan import plan_clusters
+
+    out = {"reduced": {"samples_per_client": [2500, STRATEGY_SAMPLES],
+                       "global_rounds": [5, 2]}}
+    save = strat_mod.save_checkpoint
+    for name, (agg, topo, lrn, ck, validated) in STRATEGY_RUNS.items():
+        cfg = baseline2_config(
+            workdir / f"strategy_{name}", global_rounds=2,
+            distribution={"num_samples": STRATEGY_SAMPLES},
+            aggregation=agg, topology=topo, learning=lrn, checkpoint=ck)
+        plans = plan_clusters(cfg, synthesize_registrations(cfg))
+        merges = []
+
+        def spy(*a, **kw):
+            merges.append(kw.get("round_idx"))
+            return save(*a, **kw)
+        strat_mod.save_checkpoint = spy
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            result = run_local(cfg, device=DEVICE)
+        finally:
+            strat_mod.save_checkpoint = save
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(_launch_counts().values()), f"{name}: kernels "
+              "launched with every kernels flag off")
+        epochs = cfg.aggregation.local_rounds if name == "sda" else 1
+        want = epochs * _expected_samples(cfg, protocol=False)
+        check(len(result.history) == 2, f"{name}: {result.history}")
+        for rec, val in zip(result.history, validated):
+            check(rec.ok and rec.num_samples == want,
+                  f"{name} round {rec.round_idx}: {rec.num_samples} "
+                  f"samples (expected {want}), ok {rec.ok}")
+            check((rec.val_loss is not None) == val,
+                  f"{name} round {rec.round_idx}: validated "
+                  f"{rec.val_loss is not None}, expected {val}")
+            check(rec.val_loss is None or (math.isfinite(rec.val_loss)
+                                           and math.isfinite(
+                                               rec.val_accuracy)),
+                  f"{name} round {rec.round_idx}: {rec}")
+        _check_stats_checkpoint(cfg, result, 2)
+        if name == "fedasync":
+            # one merge per in-cluster: 2 of the 3-client cluster, 1 of
+            # the other, each round
+            n_merges = sum(min(2, len(p.stage1_clients)) for p in plans)
+            check(merges == [0] * n_merges + [1] * n_merges,
+                  f"fedasync per-merge checkpoints at rounds {merges}")
+            ck_on_disk = load_checkpoint(cfg.checkpoint.directory,
+                                         cfg.model_key)
+            check(ck_on_disk is not None, "no fedasync checkpoint on disk")
+        else:
+            check(not merges, f"{name} wrote per-merge checkpoints")
+        out[name] = {"run_local_wall_s": wall, "per_merge_checkpoints":
+                     len(merges),
+                     "rounds": _rounds_summary(name, result)}
+        print(f"  {name}: run_local {wall:.3f} s"
+              + (f", {len(merges)} per-merge checkpoints" if merges
+                 else ""))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_device()
@@ -2172,6 +2629,14 @@ def main() -> int:
         vgg_proto = phase_vgg_protocol(workdir)
         print("[vgg_tcp]")
         vgg_tcp = phase_vgg_tcp(workdir)
+        print("[profiler]")
+        prof_b2 = phase_profiler(workdir)
+        print("[baseline2_slice]")
+        b2_slice = phase_baseline2_slice(workdir, prof_b2["profile"])
+        print("[baseline2_protocol]")
+        b2_proto = phase_baseline2_protocol(workdir, prof_b2["profile"])
+        print("[strategies]")
+        strategies = phase_strategies(workdir)
     entries = []
     for name, r in kernels.items():
         source, replaces = KERNELS[name]
@@ -2185,6 +2650,7 @@ def main() -> int:
             by_path[f"vgg_slice_{label}"] = run["launches"][name]
         by_path["vgg_protocol"] = vgg_proto["launches_total"][name]
         by_path["vgg_tcp"] = vgg_tcp["launches"][name]
+        by_path["baseline2_protocol"] = b2_proto["launches_total"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -2221,7 +2687,10 @@ def main() -> int:
                       "protocol_tcp": tcp, "vgg_step_check": vgg_step,
                       "vgg_slice": vgg_sl, "vgg_profile": vgg_prof,
                       "vgg_protocol": vgg_proto,
-                      "vgg_tcp": vgg_tcp}))
+                      "vgg_tcp": vgg_tcp, "profiler": prof_b2,
+                      "baseline2_slice": b2_slice,
+                      "baseline2_protocol": b2_proto,
+                      "strategies": strategies}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

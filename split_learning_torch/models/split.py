@@ -363,7 +363,11 @@ class Dropout(nn.Module):
         seed = (0 if generator is None else
                 int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                   device=generator.device)))
-        self.generator = torch.Generator(device=device).manual_seed(seed)
+        # a model on the meta device (a shape pass) draws no mask, and
+        # torch has no meta generator: its generator stays on the CPU
+        self.generator = torch.Generator(
+            device="cpu" if device.type == "meta" else device
+        ).manual_seed(seed)
 
     def forward(self, x, train: bool = False):
         if not train or self.rate == 0.0:

@@ -396,7 +396,7 @@ class ProtocolClient:
         if int(extra.get("sda_size", 1)) > 1:
             raise NotImplementedError(
                 "server-side data aggregation windows (sda-size > 1, DCSL) "
-                "are not ported yet; they come with the strategies slice")
+                "are not ported to the protocol yet (ROADMAP.md A.4)")
         # server-assigned per-invocation generation: stamps every message
         # this client sends so strays from an abandoned invocation drop
         self.fence = int(extra.get("gen", msg.round_idx))
@@ -404,7 +404,7 @@ class ProtocolClient:
         if msg.params is None:
             raise NotImplementedError(
                 "START without weights (FLEX client-side persistence) is "
-                "not ported yet; it comes with the strategies slice")
+                "not ported to the protocol yet (ROADMAP.md A.4)")
         r = self.runner
         if (r is None or (r.start_layer, r.end_layer)
                 != (msg.start_layer, msg.end_layer)

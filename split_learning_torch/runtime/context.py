@@ -5,9 +5,10 @@ exposes to the round strategies:
 
 * ``init_variables() -> {"params", "batch_stats"}``;
 * ``train_cluster(plan, params, stats, ...) -> list[Update]`` — one round
-  (or ``epochs`` epochs) of split training for one cluster, returning
-  per-(client, stage) shard updates with their parameters and BatchNorm
-  statistics;
+  (or ``epochs`` epochs) of split training for one cluster (or for a
+  subset of its stage-1 clients, each from its own tree if given),
+  returning per-(client, stage) shard updates with their parameters and
+  BatchNorm statistics;
 * ``validate(params, stats) -> ValResult`` — full-model test pass.
 
 :class:`TorchContext` is the counterpart of the JAX package's
@@ -70,7 +71,12 @@ class TrainContext:
 
     def train_cluster(self, plan: ClusterPlan, params, stats, *,
                       round_idx: int = 0, epochs: int = 1,
-                      lr: float | None = None) -> list[Update]:
+                      client_subset: list | None = None,
+                      per_client_params: dict | None = None,
+                      lr: float | None = None,
+                      sync_all_later_stages: bool = False,
+                      send_params: bool | dict = True,
+                      send_weights: bool | dict = True) -> list[Update]:
         raise NotImplementedError
 
     def validate(self, params, stats) -> ValResult:
@@ -206,14 +212,18 @@ class TorchContext(TrainContext):
                 num_microbatches=lrn.control_count, remat=lrn.remat)
         return self._pipes[key]
 
-    def _sync_groups(self, plan: ClusterPlan, n_cols: int) -> dict:
+    def _sync_groups(self, plan: ClusterPlan, n_cols: int,
+                     sync_all: bool = False) -> dict:
         """``{layer name: column groups}`` for the parametric layers of
         every later stage with fewer logical clients than columns (the
-        JAX package's ``_sync_map`` with every column on the mesh)."""
+        JAX package's ``_sync_map`` with every column on the mesh);
+        ``sync_all`` makes every later stage one group (SDA: the later
+        stages train on every feeder's batches)."""
         ranges = stage_ranges(len(self.specs), plan.cuts)
         sync: dict = {}
         for s in range(2, len(ranges) + 1):
-            n_logical = max(1, len(plan.clients[s - 1]))
+            n_logical = (1 if sync_all
+                         else max(1, len(plan.clients[s - 1])))
             if n_logical >= n_cols:
                 continue   # every column its own logical client
             groups = client_groups(n_cols, n_logical)
@@ -290,34 +300,52 @@ class TorchContext(TrainContext):
 
     def train_cluster(self, plan: ClusterPlan, params, stats, *,
                       round_idx: int = 0, epochs: int = 1,
-                      lr: float | None = None) -> list[Update]:
-        stage1 = plan.stage1_clients
+                      client_subset: list | None = None,
+                      per_client_params: dict | None = None,
+                      lr: float | None = None,
+                      sync_all_later_stages: bool = False,
+                      send_params: bool | dict = True,
+                      send_weights: bool | dict = True) -> list[Update]:
+        """Train the plan's stage-1 clients (those in ``client_subset``
+        when given, in the plan's order) as lockstep columns, each from
+        its own tree in ``per_client_params`` or else from ``params``.
+        Column ``i`` is the ``i``-th trained client, as in the JAX
+        package's chunk of columns, and keys its dropout by ``(i,
+        round_idx)``.  ``send_params`` and ``send_weights`` are the
+        protocol's wire economy: in process there is no wire, so they
+        are ignored."""
+        del send_params, send_weights
+        stage1 = [c for c in plan.stage1_clients
+                  if client_subset is None or c in client_subset]
         if not stage1:
             return []
+        trees = per_client_params or {}
         cols = []
         for i, cid in enumerate(stage1):
             model = self._column_model(i)
-            model.load_state_tree(params)
+            model.load_state_tree(trees.get(cid, params))
             model.load_stats_tree(stats or {})
             model.train()
             # each column's masks: a function of (column, round), as the
             # JAX package keys its dropout
             model.seed_dropout(i + round_idx * 1000)
+            counts = plan.label_counts[plan.stage1_clients.index(cid)]
             cols.append(_Column(
                 model, self._pipeline(plan.cuts, i),
                 make_optimizer(self.cfg.learning, model.parameters(), lr),
-                self._loader(cid, plan.label_counts[i], round_idx)))
-        sync = self._sync_groups(plan, len(cols))
+                self._loader(cid, counts, round_idx)))
+        sync = self._sync_groups(plan, len(cols), sync_all_later_stages)
         losses, consumed = self._drive(cols, sync, epochs)
         trained = []
         for c in cols:
             c.optimizer = None   # its moments are re-initialised every round
             trained.append((_clone(c.model.state_tree()),
                             _clone(c.model.stats_tree())))
-        return self._extract_updates(plan, trained, losses, consumed, sync)
+        return self._extract_updates(plan, stage1, trained, losses,
+                                     consumed, sync)
 
-    def _extract_updates(self, plan: ClusterPlan, trained: list,
-                         losses: list, consumed: list,
+    def _extract_updates(self, plan: ClusterPlan, stage1: list,
+                         trained: list, losses: list, consumed: list,
                          sync: dict) -> list[Update]:
         """Per-(logical client, stage) shard updates from the trained
         columns: one stage-1 update per column; for a later stage one
@@ -330,7 +358,7 @@ class TorchContext(TrainContext):
         ok = [bool(np.isfinite(v)) for v in losses]
         out: list[Update] = []
         a, b = ranges[0]
-        for i, cid in enumerate(plan.stage1_clients):
+        for i, cid in enumerate(stage1):
             p, st = trained[i]
             out.append(Update(
                 client_id=cid, stage=1, cluster=plan.cluster_id,

@@ -5,11 +5,12 @@ have registered (``src/Server.py:111-135`` registration
 barrier → ``:87-101`` label-distribution synthesis → ``:300-382``
 ``cluster_and_selection``): KMeans clustering of stage-1 clients by label
 distribution, GMM straggler rejection, and per-cluster cut-point search —
-reimplemented as pure functions in the JAX package's ``planner``.  This
-port covers manual topology (round-robin or manual cluster assignment),
-the even layer split and the profile-driven cut search; KMeans/GMM auto
-mode waits for the planner slice.  The output :class:`ClusterPlan` list is
-what the training context consumes.
+reimplemented as pure functions in :mod:`split_learning_torch.planner`
+(copies of the JAX package's).  The output :class:`ClusterPlan` list is
+what both execution backends (the in-process context and the protocol
+server) consume.  ``pipeline_slots`` and ``prune_plan_members`` of the
+JAX package come with their callers (stage hosts, the elastic server and
+the scheduler).
 """
 
 from __future__ import annotations
@@ -20,7 +21,10 @@ import numpy as np
 
 from split_learning_torch.config import Config
 from split_learning_torch.models import num_layers
-from split_learning_torch.planner import partition, synthesize_label_counts
+from split_learning_torch.planner import (
+    auto_threshold, clustering_algorithm, partition, partition_multiway,
+    synthesize_label_counts,
+)
 
 #: classes per dataset (reference: implicit in each loader/model pairing)
 DATASET_CLASSES = {
@@ -101,7 +105,7 @@ def plan_clusters(cfg: Config,
                 "topology.require_profiles: auto partitioning needs a "
                 "profile (exe_time + size_data) from every stage-1 "
                 f"client; missing from {missing} — run "
-                "`python -m split_learning_tpu.profiler` on each client "
+                "`python -m split_learning_torch.profiler` on each client "
                 "or disable require-profiles")
     n_classes = _num_classes(cfg)
     dist = cfg.distribution
@@ -119,10 +123,7 @@ def plan_clusters(cfg: Config,
     k = cfg.topology.num_clusters
     # -- cluster assignment of stage-1 clients --------------------------
     if cfg.topology.mode == "auto" and k > 1:
-        raise NotImplementedError(
-            "topology.mode: auto with num-clusters > 1 (KMeans/GMM "
-            "clustering, planner/cluster.py) is not ported yet; it comes "
-            "with the planner slice")
+        labels, _ = clustering_algorithm(label_counts, k)
     else:
         # manual: honor Register.cluster when provided (and in range),
         # else round-robin
@@ -132,16 +133,17 @@ def plan_clusters(cfg: Config,
             for i, reg in enumerate(stage1)
         ])
 
-    # -- straggler rejection (GMM on speed): rejects nobody unless the
-    # speeds differ, and that case waits for the planner slice ----------
+    # -- straggler rejection (GMM on speed) -----------------------------
     rejected_ids: set = set()
     if cfg.topology.selection:
-        speeds = [(reg.profile or {}).get("speed", 1.0) for reg in stage1]
-        if len(set(speeds)) > 1:
-            raise NotImplementedError(
-                "topology.selection with differing client speeds (GMM "
-                "straggler rejection, planner/selection.py) is not ported "
-                "yet; it comes with the planner slice")
+        speeds = np.array([
+            (reg.profile or {}).get("speed", 1.0) for reg in stage1
+        ], dtype=float)
+        if len(set(speeds.tolist())) > 1:
+            thr = auto_threshold(speeds)
+            for reg, sp in zip(stage1, speeds):
+                if sp < thr:
+                    rejected_ids.add(reg.client_id)
 
     # -- later-stage clients: manual cluster or round-robin -------------
     later_assign: dict[int, list[list]] = {}
@@ -212,6 +214,5 @@ def _cluster_cuts(cfg: Config, cluster_id: int, stage1_regs: list,
     # only keeps stage-1 size_data — src/Server.py:115-117); mirror group 1
     if n_cuts == 1:
         return partition(exe1, net1, exe1, net1, size_data)
-    from split_learning_torch.planner import partition_multiway
     return partition_multiway([exe1] * (n_cuts + 1),
                               [net1] * (n_cuts + 1), size_data)

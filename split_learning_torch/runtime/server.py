@@ -20,7 +20,11 @@ warning instead of wedging the server.
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): the aggregator tree and remote aggregator nodes, stage hosts, the
 scheduler, elastic re-planning, async mode and the delta shadow (its
-codec raises in ``make_codecs``).  The telemetry exporter, liveness
+codec raises in ``make_codecs``); and the choreography of four round
+strategies (:meth:`ProtocolContext._refuse_choreography`): relay's
+STARTs to a client subset, FLEX's held client state, SDA windows wider
+than one batch or strict SDA, and 2LS's in-cluster queue pairing.  The
+FedAvg and cluster-relay strategies run.  The telemetry exporter, liveness
 monitor, blackbox and tracing spans are not run.
 """
 
@@ -44,7 +48,7 @@ from split_learning_torch.runtime.bus import (
     InProcTransport, QueueClosed, Transport, queue_family,
 )
 from split_learning_torch.runtime.codec import make_codecs
-from split_learning_torch.runtime.context import TorchContext
+from split_learning_torch.runtime.context import TorchContext, client_groups
 from split_learning_torch.runtime.log import Logger
 from split_learning_torch.runtime.loop import TrainResult, run_training
 from split_learning_torch.runtime.plan import (
@@ -97,6 +101,10 @@ class ProtocolContext(TorchContext):
 
     Validation and init reuse the in-process context: the server holds
     the full model on its device for reassembly and test passes."""
+
+    #: remote clients keep their shard between rounds (the periodic
+    #: strategy's wire economy reads this)
+    clients_hold_state = True
 
     def __init__(self, cfg: Config, transport: Transport,
                  logger: Logger | None = None,
@@ -261,10 +269,59 @@ class ProtocolContext(TorchContext):
 
     # -- one round -----------------------------------------------------------
 
+    def _refuse_choreography(self, plan: ClusterPlan, client_subset,
+                             per_client_params, sync_all_later_stages,
+                             send_params, send_weights) -> None:
+        """Raise ``NotImplementedError`` naming the piece of a strategy's
+        protocol choreography that is not ported (ROADMAP.md A.4), so
+        that no strategy runs a different algorithm in silence."""
+        stage1 = list(plan.stage1_clients)
+        agg = self.cfg.aggregation
+        missing = []
+        if client_subset is not None and set(stage1) - set(client_subset):
+            missing.append("STARTs to a subset of a cluster's stage-1 "
+                           "clients (the relay strategy)")
+        flags = [flag for arg in (send_params, send_weights)
+                 for flag in (arg.values() if isinstance(arg, dict)
+                              else [arg])]
+        if per_client_params or not all(flags):
+            missing.append("clients that hold their state between rounds: "
+                           "per-client START trees and the START/PAUSE "
+                           "send flags (the periodic strategy)")
+        if sync_all_later_stages and plan.n_stages >= 2:
+            if min(agg.sda_size, len(stage1)) > 1:
+                missing.append("SDA windows wider than one batch "
+                               "(aggregation.sda-size > 1 with several "
+                               "feeders)")
+            if agg.sda_strict:
+                missing.append("strict SDA epoch fences "
+                               "(aggregation.sda-strict)")
+        n_in = self.cfg.topology.in_clusters
+        if n_in > 1 and plan.n_stages == 2 and len(plan.clients[1]) == len(
+                client_groups(len(stage1), min(n_in, len(stage1)))):
+            missing.append("2LS in-cluster queue pairing (each in-cluster's "
+                           "feeders on its own head's queue)")
+        if missing:
+            raise NotImplementedError(
+                "not ported to the protocol round yet (ROADMAP.md A.4): "
+                + "; ".join(missing) + ". Run this strategy in process")
+
     def train_cluster(self, plan: ClusterPlan, params, stats, *,
                       round_idx: int = 0, epochs: int = 1,
-                      lr: float | None = None) -> list[Update]:
-        """One remote round for one cluster."""
+                      client_subset: list | None = None,
+                      per_client_params: dict | None = None,
+                      lr: float | None = None,
+                      sync_all_later_stages: bool = False,
+                      send_params: bool | dict = True,
+                      send_weights: bool | dict = True) -> list[Update]:
+        """One remote round for one cluster: every stage-1 client of the
+        plan and every later-stage client, each from ``params``.  The
+        strategies' other keywords are accepted and refused where they
+        ask for choreography that is not ported
+        (:meth:`_refuse_choreography`)."""
+        self._refuse_choreography(plan, client_subset, per_client_params,
+                                  sync_all_later_stages, send_params,
+                                  send_weights)
         stage1 = list(plan.stage1_clients)
         if not stage1:
             return []
@@ -481,13 +538,15 @@ class InProcRun:
 def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
                init_params: Any | None = None,
                logger: Logger | None = None,
-               init_stats: Any | None = None) -> InProcRun:
+               init_stats: Any | None = None,
+               profiles: dict | None = None) -> InProcRun:
     """The whole protocol deployment in this process on ``device`` (CUDA
     unless the CPU is asked for): the server in the calling thread, one
-    ``ProtocolClient`` thread per configured client (``client_{stage}_{i}``),
-    one shared :class:`InProcTransport`.  A client that raises closes the
-    bus, so the server fails at once instead of waiting out a barrier;
-    its error is raised here."""
+    ``ProtocolClient`` thread per configured client (``client_{stage}_{i}``,
+    registering ``profiles[client_id]`` when given), one shared
+    :class:`InProcTransport`.  A client that raises closes the bus, so
+    the server fails at once instead of waiting out a barrier; its error
+    is raised here."""
     from split_learning_torch.runtime.client import ProtocolClient
 
     if cfg.transport.kind != "inproc":
@@ -499,7 +558,8 @@ def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
     server = ProtocolServer(cfg, bus, logger=logger,
                             client_timeout=client_timeout, device=device)
     clients = [ProtocolClient(cfg, f"client_{s}_{i}", s, bus,
-                              device=device)
+                              profile=(profiles or {}).get(
+                                  f"client_{s}_{i}"), device=device)
                for s, n in enumerate(cfg.clients, start=1)
                for i in range(n)]
     errors: list = []

@@ -48,6 +48,60 @@ def test_port_and_chip_smoke_import_with_jax_blocked():
     assert "isolated ok" in proc.stdout
 
 
+#: the control plane: planner copies of numpy-only modules of the JAX
+#: package, and the profiler
+CONTROL_PLANE = ("split_learning_torch.planner.cluster",
+                 "split_learning_torch.planner.selection",
+                 "split_learning_torch.planner.throughput",
+                 "split_learning_torch.profiler")
+
+
+def test_control_plane_runs_with_jax_blocked():
+    """The planner modules and the profiler are among the modules
+    imported above, and they run — KMeans, the GMM threshold, the cut
+    re-plan, a profiler shape pass and ``plan_clusters`` in auto mode
+    with selection — in a process where JAX and the JAX package cannot
+    be imported."""
+    assert set(CONTROL_PLANE) <= set(_port_modules())
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "import numpy as np, torch",
+        "from split_learning_torch.planner.cluster import kmeans_cluster",
+        "from split_learning_torch.planner.selection import select_devices",
+        "from split_learning_torch.planner.throughput import replan_cuts",
+        "from split_learning_torch import profiler",
+        "from split_learning_torch.config import from_dict",
+        "from split_learning_torch.run import synthesize_registrations",
+        "from split_learning_torch.runtime.plan import plan_clusters",
+        "labels, sizes = kmeans_cluster(np.eye(4)[[0, 0, 1, 1]], 2)",
+        "assert sorted(sizes) == [[2], [2]]",
+        "keep, thr = select_devices([100, 101, 99, 9.0])",
+        "assert keep.tolist() == [True, True, True, False]",
+        "assert replan_cuts([[[1.0, 1, 1]]] * 2, [[0.0]] * 2, [1.0] * 3,"
+        " [1])['cuts'] in ([1], [2])",
+        "bounds, flops = profiler.shape_pass('VGG16_CIFAR10',"
+        " torch.zeros(2, 32, 32, 3))",
+        "assert len(bounds) == 52 and flops[0] > 0",
+        "cfg = from_dict({'model': 'VGG16', 'dataset': 'CIFAR10',"
+        " 'clients': [4, 2], 'topology': {'mode': 'auto',"
+        " 'num-clusters': 2, 'selection': True}, 'distribution':"
+        " {'mode': 'dirichlet', 'alpha': 0.3}})",
+        "regs = synthesize_registrations(cfg, {'client_1_1':"
+        " {'speed': 1.0}})",
+        "assert len(plan_clusters(cfg, regs)) == 2",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
+        " and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('control plane ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "control plane ok" in proc.stdout
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_names_a_blocked_package(path):
