@@ -20,7 +20,9 @@ Phases, each fatal on failure:
    backward case checked to take the kernels its route names (bf16
    D >= 16: the tensor-core kernels; float32 and D = 8: the CUDA-core
    ones); the CUDA-core forward and backward pair also at the slice's
-   shapes, timed beside the tensor-core kernels and SDPA (the backward
+   shapes (in float32, the dtype of their route, bounded by float32
+   bytes and the 67 TFLOP/s CUDA-core rate), timed beside the
+   tensor-core kernels and SDPA (the backward
    against SDPA's backward with its backend pinned, by profiler device
    time beside that of delta + dK/dV + dQ); the quantizer on both of its
    routes (bf16, fp16 and float32 frames at tile 256 with NaN, inf and
@@ -32,10 +34,13 @@ Phases, each fatal on failure:
    ties, ragged n % 4 = 1, 2, 3, a view 4 bytes off 16-byte alignment)
    and momentum bit for bit, among them the VGG round's own shapes (the
    (32, 16, 16, 64) bf16 and float32 frames at tile 256, int8 and int4;
-   the (4096, 4096) and (64,) float32 leaves); the codec and
-   stage-update kernels then timed, beside their plain versions, library
-   calls and bounds, at the VGG round's shapes (the bf16 int8 frame, the
-   float32 int8 frame beside it, the (4096, 4096) leaf) and at the
+   the (4096, 4096) and (64,) float32 leaves) and config 3's (the (64,
+   32, 32, 256) bf16 and float32 frames, int8; the (512, 512, 3, 3)
+   leaf); the codec and stage-update kernels then timed, beside their
+   plain versions, library calls and bounds, at the VGG round's shapes
+   (the bf16 int8 frame, the float32 int8 frame beside it, the (4096,
+   4096) leaf), at config 3's (the (64, 32, 32, 64) and (64, 32, 32,
+   256) bf16 int8 frames, the (512, 512, 3, 3) leaf) and at the
    TinyLlama shapes of earlier slices (an (8, 256, 2048) frame, bf16
    int8, bf16 int4 and float32 int8; the (32000, 2048) leaf), by events
    and by profiler device time.  A tiny
@@ -57,32 +62,37 @@ Phases, each fatal on failure:
    in this thread and one ``ProtocolClient`` thread per client over a
    shared ``InProcTransport``, ``clients: [2, 1, 1, 1]``, an int8 codec
    on both cut directions, the sharded (CUDA) fold with
-   ``server-momentum: 0.9`` for 2 rounds, every kernel flag on — then one
-   more round with ``server-momentum: 0``, because with momentum every
-   TinyLlama leaf takes the momentum kernel and only a plain FedAvg
-   round finalizes.  Counts zeroed before and read after (each
-   tensor-core backward kernel 176 launches a round, the vec quantizer
-   and the dequantizer 48, the CUDA-core kernels and the generic
-   quantizer 0);
-7. protocol_tcp — the same 2 rounds in the deployment shape: one
-   ``python -m split_learning_torch.broker`` and one process each for the
-   server and the five clients, all on the card, over TCP with the async
-   sender and receive prefetch.  The samples and each kernel's launches
-   across the processes must equal the in-process 2-round run's; reports
-   the phase walls beside the in-process ones, the broker's bytes by
-   queue family, each process's peak memory and the card's by
-   ``nvidia-smi``;
-8. vgg_step_check — one float32 VGG16/CIFAR10 train step (dropout off)
-   on the CPU and on the card from the same weights, statistics and
-   batch: loss, every new BatchNorm statistic and two gradients within
-   stated tolerances;
+   ``server-momentum: 0.9`` for 2 rounds (the second launches the
+   momentum kernel on the velocity the first carried), every kernel
+   flag on — then one more round with ``server-momentum: 0``, because
+   with momentum every TinyLlama leaf takes the momentum kernel and only
+   a plain FedAvg round finalizes.  Counts zeroed before and read after
+   (each tensor-core backward kernel 176 launches a round, the vec
+   quantizer and the dequantizer 48, the CUDA-core kernels and the
+   generic quantizer 0);
+7. protocol_tcp — the same 2 rounds in the deployment shape (the second
+   START carries the folded weights to client processes already
+   running): one ``python -m split_learning_torch.broker`` and one
+   process each for the server and the five clients, all on the card,
+   over TCP with the async sender and receive prefetch.  The samples
+   and each kernel's launches across the processes must equal the
+   in-process run's; reports the phase walls beside the in-process
+   ones, the broker's bytes by queue family, each process's peak memory
+   and the card's by ``nvidia-smi``;
+8. step_check — one float32 train step of VGG16/CIFAR10 (cut 7), of
+   ResNet-50 (cuts ``[3, 6]``) and of ViT-S/16 (cut ``[10]``), dropout
+   off, on the CPU, on the card and in float64 on the CPU from the same
+   weights, statistics and batch: the card's loss, statistics and
+   gradients no farther from float64 than twice the CPU's float32 step,
+   and VGG16's loss and statistics within stated tolerances of the
+   CPU's;
 9. vgg_slice — the default round in process (``run_local``) on
    ``config.yaml`` (1 round, ``[1, 1]``) and on
-   ``configs/baseline1.yaml`` (5 rounds, ``[2, 2]``: two lockstep
-   columns) as written, bf16, with every launch counter 0 (every
-   ``kernels:`` flag is off); samples, validation, the checkpoint's
-   parameters and statistics checked; then ``config.yaml``'s round once
-   more, warm and traced (vgg_profile);
+   ``configs/baseline1.yaml`` (2 of its 5 rounds, ``[2, 2]``: two
+   lockstep columns) as written otherwise, bf16, with every launch
+   counter 0 (every ``kernels:`` flag is off); samples, validation,
+   the checkpoint's parameters and statistics checked; then
+   ``config.yaml``'s round once more, warm and traced (vgg_profile);
 10. vgg_protocol — baseline 1 as the protocol round in one process with
    the int8 codec on both cut directions, every kernel flag on and the
    sharded fold: one round at ``server-momentum: 0.9``, one at 0.  The
@@ -102,10 +112,10 @@ Phases, each fatal on failure:
    throughput-balance cut from the card's profile (printed beside the
    even split);
 13. baseline2_slice — BASELINE config 2 in process (``run_local``) as
-   written: 5 rounds, 4 stage-1 clients at 2500 samples clustered by
-   KMeans into 2, selection on, the even cut, every launch counter 0;
-   then 1 round with the card's profile registered for every client
-   (the auto cut from the card's times);
+   written but for its rounds (2 of 5): 4 stage-1 clients at 2500
+   samples clustered by KMeans into 2, selection on, the even cut,
+   every launch counter 0; then 1 round with the card's profile
+   registered for every client (the auto cut from the card's times);
 14. baseline2_protocol — baseline 2 as the protocol round in one process,
    every client registering the card's profile and one stage-1 client
    a tenth as fast: GMM selection rejects it (the server's plans equal
@@ -118,11 +128,25 @@ Phases, each fatal on failure:
    process at full VGG16 width on baseline 2's geometry, 2 rounds of
    256 samples a client, each held to its own contract (samples,
    validated rounds, finite losses, FedAsync's per-merge checkpoints);
-16. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+16. baseline3_slice — BASELINE config 3 in process (``run_local``) as
+   written: ResNet-50/CIFAR-100, 5 rounds, ``[2, 2, 2]``, cuts ``[3,
+   6]``, batch 64, bf16, every launch counter 0, the 17 layers of
+   (nested) BatchNorm statistics in the checkpoint; then one round
+   once more, warm and traced (its idle share);
+17. baseline3_protocol — config 3 as the protocol round in one process:
+   three stages, six clients, the int8 codec on both directions of both
+   cuts, every kernel flag on, the sharded fold at ``server-momentum``
+   0.9 then 0; every quantize, dequantize, momentum and finalize launch
+   held bit for bit against its plain version;
+18. baseline4_slice — BASELINE config 4 in process as written: ViT-S/16
+   on CIFAR-10, 5 rounds, ``[2, 1]``, cut ``[10]``, AdamW with weight
+   decay 0.05, dropout 0.1, bf16; then one round warm and traced;
+19. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
-   shapes), then the last line ``{"ok": true,
+   shapes, and the codec and stage-update rows' at config 3's in
+   ``baseline3_shapes``), then the last line ``{"ok": true,
    "device": {...}}``.
 
 ``python3 chip_smoke.py --participant MODULE ARG...`` is phase 7's
@@ -184,6 +208,11 @@ VGG_LEAF_SHAPE = (4096, 4096)
 VGG_STATS_SHAPE = (64,)
 # the VGG frames timed beside the bf16 int8 one of the kernel rows
 VGG_CODEC_FRAMES = (("f32 int8", torch.float32, 8),)
+#: BASELINE config 3's protocol round (ResNet-50, batch 64): the bf16
+#: activation frames at cuts 3 and 6, and its largest leaf (a 3x3 conv
+#: kernel of 512 -> 512 channels)
+B3_FRAME_SHAPES = ((64, 32, 32, 64), (64, 32, 32, 256))
+B3_LEAF_SHAPE = (512, 512, 3, 3)
 SOURCES = ("flash_attention", "quant", "update")
 # where the protocol phases run (a CPU rehearsal of the script sets "cpu")
 DEVICE = "cuda"
@@ -446,14 +475,20 @@ def phase_kernels() -> dict:
 
         if ci != 0:
             continue
-        # times at the slice's shapes
+        # times at the slice's shapes: the tensor-core kernels on its
+        # bf16 inputs, the CUDA-core ones on the same values in float32,
+        # the dtype whose route they are
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        o32, lse32 = fa.flash_fwd_reference(q32, k32, v32, causal)
+        lse32 = lse32.contiguous()
+        delta32 = (do32 * o32).sum(-1)
         runs = {
             "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
                           lambda: fa.flash_fwd_reference(q, k, v, causal)),
             "flash_fwd_simt": (
-                lambda: fa._launch_fwd("flash_fwd_simt", q, k, v, causal),
-                lambda: fa.flash_fwd_reference(q, k, v, causal)),
+                lambda: fa._launch_fwd("flash_fwd_simt", q32, k32, v32,
+                                       causal),
+                lambda: fa.flash_fwd_reference(q32, k32, v32, causal)),
             "flash_bwd_dkv": (
                 lambda: fa.flash_bwd_dkv(q, k, v, do, lse_in, delta, causal),
                 lambda: fa.flash_bwd_dkv_reference(
@@ -463,37 +498,49 @@ def phase_kernels() -> dict:
                 lambda: fa.flash_bwd_dq_reference(
                     q32, k32, v32, do32, lse_in, delta, causal)),
             "flash_bwd_dkv_simt": (
-                lambda: fa._launch_dkv("simt", q, k, v, do, lse_in, delta,
-                                       causal),
+                lambda: fa._launch_dkv("simt", q32, k32, v32, do32, lse32,
+                                       delta32, causal),
                 lambda: fa.flash_bwd_dkv_reference(
-                    q32, k32, v32, do32, lse_in, delta, causal)),
+                    q32, k32, v32, do32, lse32, delta32, causal)),
             "flash_bwd_dq_simt": (
-                lambda: fa._launch_dq("simt", q, k, v, do, lse_in, delta,
-                                      causal),
+                lambda: fa._launch_dq("simt", q32, k32, v32, do32, lse32,
+                                      delta32, causal),
                 lambda: fa.flash_bwd_dq_reference(
-                    q32, k32, v32, do32, lse_in, delta, causal)),
+                    q32, k32, v32, do32, lse32, delta32, causal)),
         }
         b, h = 8, 32
-        q4, k4, v4 = (t.view(b, h, shape[1], shape[2]) for t in (q, k, v))
+        q4, k4, v4, q4_32, k4_32, v4_32 = (
+            t.view(b, h, shape[1], shape[2])
+            for t in (q, k, v, q32, k32, v32))
         sdpa = (lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                        is_causal=True))
-        library = {"flash_fwd": sdpa, "flash_fwd_simt": sdpa}
-        bwd_ms = _backward_yardstick(q, k, v, do, o, lse_in, causal,
-                                     (q4, k4, v4))
+        sdpa32 = (lambda: F.scaled_dot_product_attention(
+            q4_32, k4_32, v4_32, is_causal=True))
+        library = {"flash_fwd": sdpa, "flash_fwd_simt": sdpa32}
+        bwd_ms = {"tc": _backward_yardstick(q, k, v, do, o, lse_in, causal,
+                                            (q4, k4, v4)),
+                  "simt": _backward_yardstick(q32, k32, v32, do32, o32,
+                                              lse32, causal,
+                                              (q4_32, k4_32, v4_32))}
         for name, (kern, plain) in runs.items():
-            nbytes, flops = _bytes_and_flops(name, shape, dtype, causal)
+            simt = name.endswith("_simt")
+            row_dtype = torch.float32 if simt else dtype
+            nbytes, flops = _bytes_and_flops(name, shape, row_dtype, causal)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            t_ops = flops / PEAK_FLOPS[row_dtype] * 1e3
             r = results[name]
+            r["timed_at"] = (f"{str(row_dtype).replace('torch.', '')} "
+                             f"{tuple(shape)} causal")
             r["ms"] = _time_ms(kern)
             r["device_ms"] = _device_ms(kern)[0]
             r["plain_ms"] = _time_ms(plain)
             # the backward's library call computes dq, dk and dv together
             # (timed by device time only)
+            bwd = bwd_ms["simt" if simt else "tc"]
             r["library_ms"] = (_time_ms(library[name]) if name in library
-                               else bwd_ms)
+                               else bwd)
             r["library_device_ms"] = (_device_ms(library[name])[0]
-                                      if name in library else bwd_ms)
+                                      if name in library else bwd)
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             r["bytes"], r["flops"] = nbytes, flops
@@ -552,13 +599,14 @@ def _sdpa_backward(q4, k4, v4, do4):
 def _backward_yardstick(q, k, v, do, o, lse, causal, qkv4) -> float:
     """The library's backward at the slice's shapes against the port's:
     profiler device time of SDPA's backward (pinned backend) beside that
-    of the port's backward as ``_Flash.backward`` runs it on the bf16
-    route — the ``delta`` pre-pass, then dK/dV and dQ.  Returns the
-    library's device time in ms."""
+    of the port's backward as ``_Flash.backward`` runs it on the route of
+    the inputs' dtype — the ``delta`` pre-pass, then dK/dV and dQ.
+    Returns the library's device time in ms."""
     from split_learning_torch.ops import flash_attention as fa
     lib_call, backend = _sdpa_backward(*qkv4, do.view_as(qkv4[0]))
     lib_ms, lib_split = _device_ms(lib_call)
-    print(f"  sdpa backward ({backend}; dq, dk, dv in one call): device "
+    print(f"  sdpa backward ({backend}, {q.dtype}; dq, dk, dv in one "
+          "call): device "
           f"{lib_ms:.4f} ms, events {_time_ms(lib_call):.4f} ms; kernels "
           + ", ".join(f"{n[:60]} {t:.4f}" for n, t in lib_split.items()))
 
@@ -812,7 +860,12 @@ def phase_wire_kernels() -> dict:
     vgg16 = (torch.randn(VGG_FRAME_SHAPE, generator=g, device="cuda")
              * 3).to(torch.bfloat16)
     vgg32 = torch.randn(VGG_FRAME_SHAPE, generator=g, device="cuda") * 1e-3
-    cases = []
+    b3_16 = (torch.randn(B3_FRAME_SHAPES[1], generator=g, device="cuda")
+             * 3).to(torch.bfloat16)
+    b3_32 = torch.randn(B3_FRAME_SHAPES[1], generator=g,
+                        device="cuda") * 1e-3
+    cases = [("ResNet frame bf16 int8 tile 256", b3_16, 256, 8, "vec"),
+             ("ResNet frame f32 int8 tile 256", b3_32, 256, 8, "vec")]
     for bits in (8, 4):
         cases += [
             (f"VGG frame bf16 int{bits} tile 256", vgg16, 256, bits, "vec"),
@@ -909,7 +962,11 @@ def phase_wire_kernels() -> dict:
     vgg_acc = torch.randn(VGG_LEAF_SHAPE, generator=g, device="cuda") * 50
     vgg_stat = torch.rand(VGG_STATS_SHAPE, generator=g, device="cuda") * 9
     vgg_tw = 4 * 2496.0
-    finalize_cases += [("VGG leaf 4096x4096 f32", vgg_acc, torch.float32,
+    b3_acc = torch.randn(B3_LEAF_SHAPE, generator=g, device="cuda") * 50
+    b3_tw = 2 * 2496.0
+    finalize_cases += [("ResNet leaf 512x512x3x3 f32", b3_acc,
+                        torch.float32, False),
+                       ("VGG leaf 4096x4096 f32", vgg_acc, torch.float32,
                         False),
                        ("VGG statistics (64,) f32", vgg_stat, torch.float32,
                         False)]
@@ -920,8 +977,11 @@ def phase_wire_kernels() -> dict:
     vel = torch.randn(LEAF_SHAPE, generator=g, device="cuda") * 0.01
     vgg_base = torch.randn(VGG_LEAF_SHAPE, generator=g, device="cuda")
     vgg_vel = torch.randn(VGG_LEAF_SHAPE, generator=g, device="cuda") * 0.01
+    b3_base = torch.randn(B3_LEAF_SHAPE, generator=g, device="cuda")
+    b3_vel = torch.randn(B3_LEAF_SHAPE, generator=g, device="cuda") * 0.01
     momentum_cases = [
         ("leaf", acc, base, vel, tw),
+        ("ResNet leaf 512x512x3x3", b3_acc, b3_base, b3_vel, b3_tw),
         ("VGG leaf 4096x4096", vgg_acc, vgg_base, vgg_vel, vgg_tw),
         ("VGG statistics (64,)", vgg_stat, vgg_stat * 0.5,
          vgg_stat * 0.01, vgg_tw)]
@@ -954,6 +1014,22 @@ def phase_wire_kernels() -> dict:
                        else "leaf f32 (4096, 4096)")
         r["tinyllama_shapes"] = tiny[name]
     out["quantize"]["frames"] = vgg_frames
+    # config 3's shapes: each frame with the ResNet leaf
+    b3 = {}
+    for shape in B3_FRAME_SHAPES:
+        print(f"  times at config 3's shapes (frame bf16 {shape} tile 256, "
+              f"leaf f32 {B3_LEAF_SHAPE}):")
+        frame_b3 = (torch.randn(shape, generator=g, device="cuda")
+                    * 3).to(torch.bfloat16)
+        b3[shape] = _wire_times(frame_b3, b3_acc, b3_base, b3_vel, b3_tw)
+    for name, r in out.items():
+        if name.startswith(("quantize", "dequantize")):
+            r["baseline3_shapes"] = {
+                f"frame bf16 {shape} tile 256": b3[shape][name]
+                for shape in B3_FRAME_SHAPES}
+        else:
+            r["baseline3_shapes"] = {
+                f"leaf f32 {B3_LEAF_SHAPE}": b3[B3_FRAME_SHAPES[0]][name]}
     return out
 
 
@@ -1707,10 +1783,11 @@ def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
 
 
 # --------------------------------------------------------------------------
-# 8-11. the default round: VGG16/CIFAR10 with BatchNorm statistics
+# 8. step_check; 9-11. the default round: VGG16/CIFAR10 with BatchNorm
+# statistics
 # --------------------------------------------------------------------------
 
-def vgg_config(workdir: pathlib.Path, path: str):
+def yaml_config(workdir: pathlib.Path, path: str):
     """The YAML at ``path`` as written, with its checkpoints and logs in
     ``workdir``."""
     from split_learning_torch.config import from_yaml
@@ -1745,17 +1822,24 @@ def _expected_samples(cfg, protocol: bool,
 
 
 def _check_stats_checkpoint(cfg, result, rounds: int) -> None:
-    """The checkpoint holds the run's last parameters and its 13 layers
-    of BatchNorm statistics."""
+    """The checkpoint holds the run's last parameters and the BatchNorm
+    statistics of every layer of ``cfg``'s model that holds one (VGG16's
+    13; ResNet-50's 17, a bottleneck's nested ones under its layer;
+    none for ViT), counted on the model built on the meta device."""
+    from split_learning_torch.models import build_model
     from split_learning_torch.runtime.checkpoint import load_checkpoint
 
+    stats_layers = len(build_model(
+        cfg.model_key, device="meta", generator=torch.Generator(),
+        **(cfg.model_kwargs or {})).stats_tree())
     ck = load_checkpoint(cfg.checkpoint.directory, cfg.model_key)
     check(ck is not None and ck["round_idx"] == rounds,
           f"checkpoint missing or at the wrong round: "
           f"{ck and ck['round_idx']}")
-    check(len(result.stats) == 13 and len(ck["batch_stats"]) == 13,
+    check(len(result.stats) == stats_layers
+          and len(ck["batch_stats"]) == stats_layers,
           f"statistics of {len(result.stats)} layers, checkpoint "
-          f"{len(ck['batch_stats'])}")
+          f"{len(ck['batch_stats'])}, expected {stats_layers}")
     for tree, ck_tree in ((result.params, ck["params"]),
                           (result.stats, ck["batch_stats"])):
         for layer, leaves in tree.items():
@@ -1766,154 +1850,222 @@ def _check_stats_checkpoint(cfg, result, rounds: int) -> None:
                       f"non-finite {layer}.{key}")
 
 
-def phase_vgg_step_check() -> dict:
-    """One float32 VGG16_CIFAR10 train step (cut 7, 4 microbatches of 32)
-    on the CPU and on the card from the same weights, statistics and
-    batch, with dropout off (rate 0, as in every parity recipe).  TF32 is
-    off, so the card's convs and GEMMs are IEEE float32 (cuDNN, cuBLAS),
-    as oneDNN's are on the CPU; the two sum in different orders.
-    Tolerances: the loss within 1e-5 relative; each new running
-    statistic within 1e-4 of its leaf's largest value; the first conv's
-    and the first dense layer's gradients, in norm, no farther from the
-    same step in float64 on the CPU than twice the CPU's own float32
-    step is, plus 1e-3.  A gradient is compared in norm, and against
-    that yardstick, because a pre-activation within float32 noise of
-    zero flips its ReLU mask, which moves a few entries by their whole
-    value: how far that carries depends on the weights and the batch."""
+#: the step checks: (label, model key, cuts, batch, microbatches,
+#: BatchNorms, layers whose gradients are also held alone, bounds on the
+#: card's distance from the CPU's float32 step: loss relative, each
+#: statistic of its leaf's largest value; None: only the float64 ones)
+STEP_CHECKS = (
+    ("VGG16", "VGG16_CIFAR10", [7], 32, 4, 13, ("layer1", "layer47"),
+     {"loss_rel": 1e-5, "stats_of_largest": 1e-4}),
+    ("ResNet-50", "ResNet50_CIFAR100", [3, 6], 16, 2, 53, ("layer1",),
+     None),
+    ("ViT-S/16", "ViT_S16_CIFAR10", [10], 16, 2, 0, ("layer1",), None))
+
+
+def _tree_norm_err(tree, ref) -> float:
+    num = sum(float((tree[k] - t).double().norm() ** 2)
+              for k, t in ref.items())
+    den = sum(float(t.double().norm() ** 2) for t in ref.values())
+    return (num / den) ** 0.5
+
+
+def phase_step_check() -> dict:
+    """One float32 train step of each :data:`STEP_CHECKS` model (VGG16
+    cut 7, 4 microbatches of 32; ResNet-50 cuts ``[3, 6]`` and ViT-S/16
+    cut ``[10]``, 2 microbatches of 16) on the CPU, on the card and in
+    float64 on the CPU, from the same weights, statistics and batch,
+    with dropout off (rate 0, as in every parity recipe).  TF32 is off,
+    so the card's convs and GEMMs are IEEE float32 (cuDNN, cuBLAS), as
+    oneDNN's are on the CPU; the two sum in different orders.  Batch-16
+    BatchNorm training through ResNet-50's 53 BatchNorms amplifies that
+    noise, and a pre-activation within float32 noise of zero flips its
+    ReLU mask, which moves a few gradient entries by their whole value.
+    So each quantity is held against the float64 step: the card's loss,
+    running statistics and gradients (the whole tree in norm, and each
+    listed layer's) no farther from it than twice the CPU's float32 step
+    is, plus 1e-5 of the loss, 1e-5 of a statistic leaf's largest value
+    and 1e-3 of the gradients' norm.  A row with card-vs-CPU bounds is
+    also held to them."""
     import numpy as np
 
     from split_learning_torch.data import make_data_loader
     from split_learning_torch.models import build_model
     from split_learning_torch.models.split import Dropout
     from split_learning_torch.parallel.pipeline import PipelineModel
+    from split_learning_torch.runtime.validation import dataset_for_model
 
-    loader = make_data_loader("CIFAR10", 32, train=True, seed=3,
-                              synthetic_size=256)
-    batches = list(loader)[:4]
-    x = torch.from_numpy(np.stack([b[0] for b in batches]))
-    y = torch.from_numpy(np.stack([b[1] for b in batches]).astype(np.int32))
-    ref = build_model("VGG16_CIFAR10",
-                      generator=torch.Generator().manual_seed(0))
-    params, stats = ref.state_tree(), ref.stats_tree()
     out = {}
-    for key, dev, dtype in (("cpu", "cpu", torch.float32),
-                            (DEVICE, DEVICE, torch.float32),
-                            ("float64", "cpu", torch.float64)):
-        model = build_model("VGG16_CIFAR10", device=dev, dtype=dtype)
-        model.load_state_tree(params)
-        model.load_stats_tree(stats)
-        for mod in model.layers.values():
-            if isinstance(mod, Dropout):
-                mod.rate = 0.0
-        model.train()
-        pipe = PipelineModel(model, [7], example_input=x[0].to(dev),
-                             num_microbatches=4)
-        loss = pipe.accumulate(x.to(dev), y.to(dev))
-        out[key] = {
-            "loss": float(loss),
-            "stats": {k: {n: t.cpu() for n, t in v.items()}
-                      for k, v in model.stats_tree().items()},
-            "grads": {name: model.layers[name].weight.grad.cpu()
-                      for name in ("layer1", "layer47")}}
-    cpu, card = out["cpu"], out[DEVICE]
-    loss_err = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    stat_err = max(float((card["stats"][k][n] - cpu["stats"][k][n]).abs()
-                         .max() / cpu["stats"][k][n].abs().max())
-                   for k in cpu["stats"] for n in ("mean", "var"))
-    grad_err = {name: {"norm": float((card["grads"][name] - g).norm()
-                                     / g.norm()),
-                       "max_of_largest": float(
-                           (card["grads"][name] - g).abs().max()
-                           / g.abs().max())}
-                for name, g in cpu["grads"].items()}
-    f64 = out["float64"]["grads"]
-    res = {"loss_cpu": cpu["loss"], "loss_card": card["loss"],
-           "loss_float64": out["float64"]["loss"],
-           "loss_rel_err": loss_err, "stats_err_of_largest": stat_err,
-           "grad_err": grad_err,
-           "grad_norm_err_vs_float64": {
-               side: {name: float((out[side]["grads"][name] - g).norm()
-                                  / g.norm()) for name, g in f64.items()}
-               for side in ("cpu", DEVICE)}}
-    print(f"  one float32 VGG16 step, CPU vs card: {res}")
-    check(loss_err <= 1e-5, f"card loss differs from the CPU's by "
-          f"{loss_err:.3g} relative")
-    check(stat_err <= 1e-4, f"card statistics differ from the CPU's by "
-          f"{stat_err:.3g} of a leaf's largest value")
-    errs = res["grad_norm_err_vs_float64"]
-    for name, err in errs[DEVICE].items():
-        bound = 2 * errs["cpu"][name] + 1e-3
-        check(err <= bound, f"card {name} gradient differs from the "
-              f"float64 step's by {err:.3g} in norm (bound {bound:.3g})")
-    return res
+    for label, key, cuts, batch, n_micro, n_bn, alone, vs_cpu in \
+            STEP_CHECKS:
+        loader = make_data_loader(dataset_for_model(key), batch,
+                                  train=True, seed=3, synthetic_size=256)
+        batches = list(loader)[:n_micro]
+        x = torch.from_numpy(np.stack([b[0] for b in batches]))
+        y = torch.from_numpy(np.stack([b[1] for b in batches])
+                             .astype(np.int32))
+        ref = build_model(key, generator=torch.Generator().manual_seed(0))
+        params, stats = ref.state_tree(), ref.stats_tree()
+        runs = {}
+        for side, dev, dtype in (("cpu", "cpu", torch.float32),
+                                 (DEVICE, DEVICE, torch.float32),
+                                 ("float64", "cpu", torch.float64)):
+            model = build_model(key, device=dev, dtype=dtype)
+            model.load_state_tree(params)
+            model.load_stats_tree(stats)
+            model.to(dtype)
+            for mod in model.modules():
+                if isinstance(mod, Dropout):
+                    mod.rate = 0.0
+            model.train()
+            pipe = PipelineModel(model, cuts, example_input=x[0].to(dev),
+                                 num_microbatches=n_micro)
+            loss = pipe.accumulate(x.to(dev, dtype), y.to(dev))
+            runs[side] = {
+                "loss": float(loss),
+                "stats": {f"{k}.{n}": t.double().cpu()
+                          for k, v in model.stats_tree().items()
+                          for n, t in v.items()},
+                "grads": {f"{name}.{n}": p.grad.double().cpu()
+                          for name, mod in model.layers.items()
+                          for n, p in mod.named_parameters()}}
+        f64 = runs["float64"]
+        res = {"loss": {s: r["loss"] for s, r in runs.items()}}
+        for side in ("cpu", DEVICE):
+            r = runs[side]
+            res[side] = {
+                "loss_err": abs(r["loss"] - f64["loss"]),
+                "stats_err_of_largest": max(
+                    (float((r["stats"][k] - t).abs().max()
+                           / t.abs().max()) for k, t in f64["stats"].items()),
+                    default=0.0),
+                "grad_norm_err": _tree_norm_err(r["grads"], f64["grads"]),
+                **{f"{layer}_grad_norm_err": _tree_norm_err(
+                    r["grads"], {k: t for k, t in f64["grads"].items()
+                                 if k.startswith(f"{layer}.")})
+                   for layer in alone}}
+        cpu, card = runs["cpu"], runs[DEVICE]
+        res["card_vs_cpu"] = {
+            "loss_rel_err": abs(card["loss"] - cpu["loss"])
+            / abs(cpu["loss"]),
+            "stats_err_of_largest": max(
+                (float((card["stats"][k] - t).abs().max() / t.abs().max())
+                 for k, t in cpu["stats"].items()), default=0.0)}
+        print(f"  one float32 {label} step (cuts {cuts}, {n_micro} x "
+              f"{batch}), CPU and card vs float64: {res}")
+        cpu, card = res["cpu"], res[DEVICE]
+        check(card["loss_err"] <= 2 * cpu["loss_err"]
+              + 1e-5 * abs(f64["loss"]), f"{label}: card loss off by "
+              f"{card['loss_err']:.3g} (CPU {cpu['loss_err']:.3g})")
+        check(card["stats_err_of_largest"] <= 2 * cpu["stats_err_of_largest"]
+              + 1e-5, f"{label}: card statistics off by "
+              f"{card['stats_err_of_largest']:.3g} of a leaf's largest value")
+        for k in card:
+            if k.endswith("grad_norm_err"):
+                check(card[k] <= 2 * cpu[k] + 1e-3, f"{label}: card {k} "
+                      f"{card[k]:.3g} (CPU {cpu[k]:.3g})")
+        if vs_cpu is not None:
+            got = res["card_vs_cpu"]
+            check(got["loss_rel_err"] <= vs_cpu["loss_rel"],
+                  f"{label}: card loss differs from the CPU's by "
+                  f"{got['loss_rel_err']:.3g} relative")
+            check(got["stats_err_of_largest"] <= vs_cpu["stats_of_largest"],
+                  f"{label}: card statistics differ from the CPU's by "
+                  f"{got['stats_err_of_largest']:.3g} of a leaf's largest "
+                  f"value")
+        check(len(f64["stats"]) == 2 * n_bn,
+              f"{label}: {len(f64['stats'])} statistic leaves, expected "
+              f"{2 * n_bn}")
+        out[label] = res
+    return out
 
 
 #: the kernels on the VGG protocol path (every flag on): the codec on
 #: both cut directions and the stage update of the sharded fold
 VGG_PATH_KERNELS = ("quantize", "quantize_generic", "dequantize",
                     "finalize", "momentum")
-#: the in-process VGG runs: (label, YAML)
-VGG_SLICES = (("config", "config.yaml"),
-              ("baseline1", "configs/baseline1.yaml"))
+#: the in-process VGG runs: (label, YAML, rounds; None: the YAML's).
+#: Baseline 1 runs 2 of its 5 rounds, so that the script keeps to about
+#: ten minutes with configs 3 and 4 beside it
+VGG_SLICES = (("config", "config.yaml", None),
+              ("baseline1", "configs/baseline1.yaml", 2))
+
+
+def _run_slice(label: str, cfg) -> dict:
+    """``run_local`` on ``cfg`` with every launch counter zeroed before
+    and read after (every ``kernels:`` flag is off, so no kernel of the
+    port may launch: the KernelPlan gate); checks each round's samples
+    and validation and the checkpoint's parameters and statistics, and
+    prints each round's wall, training samples/s, peak memory over its
+    training (the round record's, taken before validation) and
+    validation."""
+    from split_learning_torch.run import run_local
+
+    lrn = cfg.learning
+    print(f"  {label}: {cfg.model_key} clients={list(cfg.clients)} "
+          f"cuts={list(cfg.topology.cut_layers)} batch="
+          f"{lrn.batch_size} control-count={lrn.control_count} "
+          f"{lrn.optimizer} lr {lrn.learning_rate} weight decay "
+          f"{lrn.weight_decay} {cfg.compute_dtype} "
+          f"samples/client={cfg.distribution.num_samples} rounds "
+          f"{cfg.global_rounds} remat {lrn.remat} model-kwargs "
+          f"{cfg.model_kwargs}")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    result = run_local(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    check(not any(launches.values()), f"{label}: kernels launched with "
+          f"every kernels flag off: {launches}")
+    check(len(result.history) == cfg.global_rounds,
+          f"{label}: {len(result.history)} rounds")
+    want = _expected_samples(cfg, protocol=False)
+    rounds = []
+    for rec in result.history:
+        check(rec.ok and math.isfinite(rec.val_loss)
+              and math.isfinite(rec.val_accuracy)
+              and rec.train_peak_memory_bytes is not None,
+              f"{label}: round not ok: {rec}")
+        check(rec.num_samples == want, f"{label} round "
+              f"{rec.round_idx}: {rec.num_samples} samples, expected "
+              f"{want}")
+        rounds.append({"round": rec.round_idx, "wall_s": rec.wall_s,
+                       "samples": rec.num_samples,
+                       "train_samples_per_s": rec.num_samples
+                       / rec.wall_s, "val_loss": rec.val_loss,
+                       "val_accuracy": rec.val_accuracy,
+                       "train_peak_memory_bytes":
+                       rec.train_peak_memory_bytes})
+    _check_stats_checkpoint(cfg, result, cfg.global_rounds)
+    peak = torch.cuda.max_memory_allocated()
+    for r in rounds:
+        print(f"  {label} round {r['round']}: wall {r['wall_s']:.3f} s, "
+              f"{r['samples']} samples, {r['train_samples_per_s']:.1f} "
+              f"training samples/s, training peak memory "
+              f"{r['train_peak_memory_bytes'] / 2**30:.2f} GiB, "
+              f"val_loss {r['val_loss']:.4f} val_acc "
+              f"{r['val_accuracy']:.4f}")
+    print(f"  {label}: run_local {wall:.3f} s, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {launches}")
+    return {"run_local_wall_s": wall, "rounds": rounds,
+            "max_memory_allocated_bytes": peak, "launches": launches}
 
 
 def phase_vgg_slice(workdir: pathlib.Path) -> dict:
     """``run_local`` on ``config.yaml`` (1 round, ``clients: [1, 1]``)
-    and on ``configs/baseline1.yaml`` (5 rounds, ``[2, 2]``: two lockstep
-    columns), each as written: VGG16/CIFAR10 in bfloat16 compute, cut at
-    layer 7, SGD with momentum, FedAvg, validation on the 2000 synthetic
-    test images, a checkpoint.  Every ``kernels:`` flag is off, so no
-    kernel of the port may launch (the KernelPlan gate)."""
-    from split_learning_torch.run import run_local
-
+    and on ``configs/baseline1.yaml`` (``[2, 2]``: two lockstep
+    columns; 2 of its 5 rounds), each as written otherwise:
+    VGG16/CIFAR10 in bfloat16 compute, cut at layer 7, SGD with
+    momentum, FedAvg, validation on the 2000 synthetic test images, a
+    checkpoint (:func:`_run_slice`)."""
     out = {}
-    for label, path in VGG_SLICES:
-        cfg = vgg_config(workdir / f"vgg_{label}", path)
-        lrn = cfg.learning
-        print(f"  {label}: {cfg.model_key} clients={list(cfg.clients)} "
-              f"cuts={list(cfg.topology.cut_layers)} batch="
-              f"{lrn.batch_size} control-count={lrn.control_count} "
-              f"{lrn.optimizer} lr {lrn.learning_rate} {cfg.compute_dtype} "
-              f"samples/client={cfg.distribution.num_samples} rounds "
-              f"{cfg.global_rounds} remat {lrn.remat}")
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        _reset_launches()
-        t0 = time.perf_counter()
-        result = run_local(cfg, device=DEVICE)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = _launch_counts()
-        check(not any(launches.values()), f"{label}: kernels launched with "
-              f"every kernels flag off: {launches}")
-        check(len(result.history) == cfg.global_rounds,
-              f"{label}: {len(result.history)} rounds")
-        want = _expected_samples(cfg, protocol=False)
-        rounds = []
-        for rec in result.history:
-            check(rec.ok and math.isfinite(rec.val_loss)
-                  and math.isfinite(rec.val_accuracy),
-                  f"{label}: round not ok: {rec}")
-            check(rec.num_samples == want, f"{label} round "
-                  f"{rec.round_idx}: {rec.num_samples} samples, expected "
-                  f"{want}")
-            rounds.append({"round": rec.round_idx, "wall_s": rec.wall_s,
-                           "samples": rec.num_samples,
-                           "train_samples_per_s": rec.num_samples
-                           / rec.wall_s, "val_loss": rec.val_loss,
-                           "val_accuracy": rec.val_accuracy})
-        _check_stats_checkpoint(cfg, result, cfg.global_rounds)
-        peak = torch.cuda.max_memory_allocated()
-        out[label] = {"run_local_wall_s": wall, "rounds": rounds,
-                      "max_memory_allocated_bytes": peak,
-                      "launches": launches}
-        for r in rounds:
-            print(f"  {label} round {r['round']}: wall {r['wall_s']:.3f} s, "
-                  f"{r['samples']} samples, {r['train_samples_per_s']:.1f} "
-                  f"training samples/s, val_loss {r['val_loss']:.4f} "
-                  f"val_acc {r['val_accuracy']:.4f}")
-        print(f"  {label}: run_local {wall:.3f} s, peak memory "
-              f"{peak / 2**30:.2f} GiB, launches {launches}")
+    for label, path, rounds in VGG_SLICES:
+        cfg = yaml_config(workdir / f"vgg_{label}", path)
+        if rounds is not None:
+            cfg = dataclasses.replace(cfg, global_rounds=rounds)
+        out[label] = _run_slice(label, cfg)
     return out
 
 
@@ -1921,7 +2073,7 @@ def vgg_protocol_config(workdir: pathlib.Path, momentum: float):
     """``configs/baseline1.yaml`` as the protocol slice runs it: one
     round, an int8 codec on both cut directions, every kernel flag on,
     the sharded (CUDA) fold with ``server-momentum`` = ``momentum``."""
-    cfg = vgg_config(workdir, "configs/baseline1.yaml")
+    cfg = yaml_config(workdir, "configs/baseline1.yaml")
     return dataclasses.replace(
         cfg, global_rounds=1,
         transport=dataclasses.replace(
@@ -2016,14 +2168,15 @@ def _check_held(path: str, m: float, held: dict, launches: dict) -> None:
               f"launches held, {counted} counted")
 
 
-def _check_path_kernels(path: str, launches_by_m: dict, seen: dict,
+def _check_path_kernels(path: str, cfg, launches_by_m: dict, seen: dict,
                         samples: int) -> dict:
     """A protocol path's kernel launches over its momentum round
     (``launches_by_m[0.9]``) and its plain FedAvg round (``[0.0]``): no
     off-path kernel, each of the four path kernels launched (momentum in
     the momentum round, finalize in the plain one), the quantizer handed
     both frame dtypes, and one activation and one gradient frame per
-    training batch of 32.  Returns the launches over both rounds."""
+    training batch of ``cfg`` at each of its cuts.  Returns the launches
+    over both rounds."""
     total: dict = {}
     for launches in launches_by_m.values():
         for k, v in launches.items():
@@ -2040,28 +2193,29 @@ def _check_path_kernels(path: str, launches_by_m: dict, seen: dict,
     check(seen.get("torch.float32", 0) > 0
           and seen.get("torch.bfloat16", 0) > 0,
           f"the quantizer was not handed both frame dtypes: {seen}")
-    batches = 2 * samples // 32
+    frames = (2 * len(cfg.topology.cut_layers) * samples
+              // cfg.learning.batch_size)
     for name in ("quantize", "dequantize"):
-        check(total[name] == batches, f"{name} launched {total[name]} "
-              f"times, expected {batches}")
+        check(total[name] == frames, f"{name} launched {total[name]} "
+              f"times, expected {frames}")
     print(f"  quantizer input dtypes {seen}; launches over both rounds "
           f"{total}")
     return total
 
 
-def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
-    """BASELINE config 1 as the protocol round in one process
-    (``run_inproc``): one round with ``server-momentum: 0.9`` (the
-    momentum kernel on the parameters, finalize on the statistics), then
-    one at 0 (finalize on every leaf), counts zeroed before each and
-    read after.  The activations cross the cut in bfloat16, the
-    gradients in float32 (the last stage's input is the dequantized
-    float32 frame), so the vec quantizer runs on both dtypes; the dtypes
-    it was handed are tallied here.  Every launch of the codec and
-    stage-update kernels on this path is held bit for bit against the
-    plain version on its own inputs (:func:`_hold_on_path`): the round
-    walls include that holding, whose seconds are reported beside
-    them."""
+def _run_protocol_path(path: str, make_cfg) -> dict:
+    """A protocol path in one process (``run_inproc``): one round with
+    ``server-momentum: 0.9`` (the momentum kernel on the parameters,
+    finalize on the statistics), then one at 0 (finalize on every leaf),
+    ``make_cfg(momentum)`` giving each round's config, counts zeroed
+    before each and read after.  The activations cross each cut in
+    bfloat16, the gradients in float32 (a stage's input is the
+    dequantized float32 frame), so the vec quantizer runs on both
+    dtypes; the dtypes it was handed are tallied here.  Every launch of
+    the codec and stage-update kernels on the path is held bit for bit
+    against the plain version on its own inputs (:func:`_hold_on_path`):
+    the round walls include that holding, whose seconds are reported
+    beside them."""
     from split_learning_torch.ops.kernels import quant as kq
     from split_learning_torch.ops.kernels import update as ku
     from split_learning_torch.runtime.bus import queue_family
@@ -2073,7 +2227,7 @@ def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
         held = held_by_run.setdefault(m, {})
         originals = _hold_on_path(kq, ku, held, seen)
         try:
-            cfg = vgg_protocol_config(workdir / f"vgg_protocol_{m}", m)
+            cfg = make_cfg(m)
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             _reset_launches()
@@ -2093,8 +2247,8 @@ def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
         want = _expected_samples(cfg, protocol=True)
         check(len(res.history) == 1 and rec.ok
               and math.isfinite(rec.val_loss),
-              f"VGG protocol round (momentum {m}) failed: {res.history}")
-        check(rec.num_samples == want, f"VGG protocol round: "
+              f"{path} round (momentum {m}) failed: {res.history}")
+        check(rec.num_samples == want, f"{path} round: "
               f"{rec.num_samples} samples, expected {want}")
         check(server.ctx.last_fold.folded == sum(cfg.clients),
               f"folded {server.ctx.last_fold.folded}")
@@ -2111,19 +2265,29 @@ def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
             "fold_update_s": server.ctx.last_fold.update_s,
             "max_memory_allocated_bytes": peak, "launches": launches,
             "held": held_by_run[m]}
-        _check_held("VGG protocol", m, held_by_run[m], launches)
+        _check_held(path, m, held_by_run[m], launches)
         print(f"  momentum {m}: round wall {rec.wall_s:.3f} s (run "
               f"{wall:.3f} s), {rec.num_samples} samples, "
               f"{rec.num_samples / rec.wall_s:.1f} training samples/s, "
               f"val_loss {rec.val_loss:.4f} val_acc {rec.val_accuracy:.4f};"
               f" phases " + ", ".join(
                   f"{k} {v:.3f}" for k, v in server.ctx.round_phases[0]
-                  .items()) + f"; bytes by queue family {fam}; peak "
-              f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+                  .items()) + f"; fold update "
+              f"{server.ctx.last_fold.update_s:.3f} s; bytes by queue "
+              f"family {fam}; peak memory {peak / 2**30:.2f} GiB; "
+              f"launches {launches}")
     out["launches_total"] = _check_path_kernels(
-        "VGG protocol", {m: r[6] for m, r in runs.items()}, seen,
+        path, runs[0.9][0], {m: r[6] for m, r in runs.items()}, seen,
         sum(r["samples"] for r in out["runs"].values()))
     return out
+
+
+def phase_vgg_protocol(workdir: pathlib.Path) -> dict:
+    """BASELINE config 1 as the protocol round in one process
+    (:func:`_run_protocol_path`)."""
+    return _run_protocol_path(
+        "VGG protocol",
+        lambda m: vgg_protocol_config(workdir / f"vgg_protocol_{m}", m))
 
 
 def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
@@ -2132,7 +2296,7 @@ def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
     processes), one round, against the same configuration run as the
     protocol round in one process: the samples must be equal, and no
     kernel runs in either (every flag off)."""
-    cfg_in = vgg_config(workdir / "vgg_inproc", "config.yaml")
+    cfg_in = yaml_config(workdir / "vgg_inproc", "config.yaml")
     _reset_launches()
     t0 = time.perf_counter()
     _, _, _, res = run_protocol(cfg_in)
@@ -2148,7 +2312,7 @@ def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
 
     cfg, wall, stats, reports, card_peak_mib = _run_tcp(
         workdir / "vgg_tcp",
-        lambda d: vgg_config(d, "config.yaml"), timeout)
+        lambda d: yaml_config(d, "config.yaml"), timeout)
     launches = {k: sum(r["launches"].get(k, 0) for r in reports.values())
                 for k in reports["server"]["launches"]}
     check(not any(launches.values()), f"kernels launched on the VGG TCP "
@@ -2281,7 +2445,7 @@ def baseline2_config(workdir: pathlib.Path, **changes):
     ``workdir``, with ``changes`` (``dataclasses.replace`` on the
     config's sections: ``{section: {field: value}}`` or a top-level
     field)."""
-    cfg = vgg_config(workdir, BASELINE2)
+    cfg = yaml_config(workdir, BASELINE2)
     top = {}
     for key, val in changes.items():
         if isinstance(val, dict):
@@ -2310,8 +2474,9 @@ def _rounds_summary(label: str, result) -> list:
 
 
 def phase_baseline2_slice(workdir: pathlib.Path, profile: dict) -> dict:
-    """BASELINE config 2 in process (``run_local``) as written: 5 rounds,
-    4 stage-1 clients at 2500 samples each clustered by KMeans into 2,
+    """BASELINE config 2 in process (``run_local``) as written but for
+    its rounds (2 of 5, for the script's time): 4 stage-1 clients at
+    2500 samples each clustered by KMeans into 2,
     selection on (equal speeds: nobody rejected), the even cut without
     profiles; every ``kernels:`` flag off, so no kernel may launch.
     Then 1 round (reduced from 5) with the profiler phase's profile
@@ -2322,7 +2487,7 @@ def phase_baseline2_slice(workdir: pathlib.Path, profile: dict) -> dict:
     out = {}
     profiles = {f"client_{s}_{i}": profile
                 for s, n in ((1, 4), (2, 2)) for i in range(n)}
-    for label, profs, rounds in (("even_cut", None, None),
+    for label, profs, rounds in (("even_cut", None, 2),
                                  ("profiled_cut", profiles, 1)):
         changes = {} if rounds is None else {"global_rounds": rounds}
         cfg = baseline2_config(workdir / f"b2_{label}", **changes)
@@ -2503,7 +2668,8 @@ def phase_baseline2_protocol(workdir: pathlib.Path, profile: dict) -> dict:
           f"cluster folds {folds}")
     print(f"  folds {folds}")
     out["launches_total"] = _check_path_kernels(
-        "baseline 2 protocol", {m: r[6] for m, r in runs.items()}, seen,
+        "baseline 2 protocol", runs[0.9][0],
+        {m: r[6] for m, r in runs.items()}, seen,
         sum(r["samples"] for r in out["runs"].values()))
     return out
 
@@ -2597,46 +2763,126 @@ def phase_strategies(workdir: pathlib.Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 16-18. BASELINE configs 3 (ResNet-50/CIFAR-100) and 4 (ViT-S/16)
+# --------------------------------------------------------------------------
+
+BASELINE3 = "configs/baseline3.yaml"
+BASELINE4 = "configs/baseline4.yaml"
+def baseline3_protocol_config(workdir: pathlib.Path, momentum: float):
+    """Config 3 as the protocol round runs it: one round, an int8 codec
+    on both cut directions at both cuts, every kernel flag on, the
+    sharded (CUDA) fold with ``server-momentum`` = ``momentum``."""
+    cfg = yaml_config(workdir, BASELINE3)
+    return dataclasses.replace(
+        cfg, global_rounds=1,
+        transport=dataclasses.replace(
+            cfg.transport, codec={"intermediate": "int8",
+                                  "gradient": "int8"}),
+        kernels=dataclasses.replace(cfg.kernels, quantize=True,
+                                    dequantize=True, stage_update=True),
+        aggregation=dataclasses.replace(
+            cfg.aggregation, sharded=True,
+            server_momentum=momentum)).validate()
+
+
+def phase_baseline3_slice(workdir: pathlib.Path) -> dict:
+    """BASELINE config 3 in process (``run_local``) as written:
+    ResNet-50/CIFAR-100, 5 rounds, ``[2, 2, 2]`` (two lockstep columns
+    through three stages, cuts ``[3, 6]``), batch 64, control-count 4,
+    2500 samples a client, SGD with momentum, bf16; the nested
+    statistics of all 17 layers in the checkpoint
+    (:func:`_run_slice`).  Then one round once more, warm and traced
+    (:func:`phase_profile`)."""
+    cfg = yaml_config(workdir / "b3_slice", BASELINE3)
+    out = _run_slice("baseline 3", cfg)
+    out["profile"] = phase_profile(dataclasses.replace(cfg,
+                                                       global_rounds=1))
+    return out
+
+
+def phase_baseline3_protocol(workdir: pathlib.Path) -> dict:
+    """BASELINE config 3 as the protocol round in one process: three
+    stages, six clients (two feeders at each cut), the int8 codec on both
+    directions of both cuts, the sharded fold over ResNet-50's leaves at
+    ``server-momentum`` 0.9 then 0; every quantize, dequantize, momentum
+    and finalize launch held bit for bit against its plain version
+    (:func:`_run_protocol_path`)."""
+    return _run_protocol_path(
+        "baseline 3 protocol",
+        lambda m: baseline3_protocol_config(workdir / f"b3_protocol_{m}",
+                                            m))
+
+
+def phase_baseline4_slice(workdir: pathlib.Path) -> dict:
+    """BASELINE config 4 in process (``run_local``) as written: ViT-S/16
+    on CIFAR-10 (12 blocks, dropout 0.1), 5 rounds, ``[2, 1]`` (one
+    shared stage-2 client: the columns' stage-2 gradients averaged every
+    step), cut ``[10]``, batch 64, AdamW with weight decay 0.05, bf16
+    (:func:`_run_slice`; no statistics).  Then one round once more, warm
+    and traced."""
+    cfg = yaml_config(workdir / "b4_slice", BASELINE4)
+    out = _run_slice("baseline 4", cfg)
+    out["profile"] = phase_profile(dataclasses.replace(cfg,
+                                                       global_rounds=1))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
+
+    def mark(name: str) -> None:
+        print(f"[{name}] at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     phase_device()
-    print("[build]")
+    mark("build")
     phase_build()
-    print("[kernels]")
+    mark("kernels")
     kernels = phase_kernels()
+    mark("wire_kernels")
     kernels.update(phase_wire_kernels())
+    mark("model_check")
     phase_model_check()
     with tempfile.TemporaryDirectory(prefix="slt_smoke_") as tmp:
         workdir = pathlib.Path(tmp)
+        mark("protocol_check")
         tiny = phase_protocol_check(workdir)
-        print("[slice]")
+        mark("slice")
         cfg = slice_config(workdir)
         sl = phase_slice(cfg)
-        print("[profile]")
+        mark("profile")
         prof = phase_profile(cfg)
-        print("[protocol]")
+        mark("protocol")
         proto = phase_protocol(workdir)
-        print("[protocol_tcp]")
+        mark("protocol_tcp")
         tcp = phase_protocol_tcp(workdir, proto)
-        print("[vgg_step_check]")
-        vgg_step = phase_vgg_step_check()
-        print("[vgg_slice]")
+        mark("step_check")
+        step = phase_step_check()
+        mark("vgg_slice")
         vgg_sl = phase_vgg_slice(workdir)
-        print("[vgg_profile]")
-        vgg_prof = phase_profile(vgg_config(workdir / "vgg_profile",
-                                            "config.yaml"))
-        print("[vgg_protocol]")
+        mark("vgg_profile")
+        vgg_prof = phase_profile(yaml_config(workdir / "vgg_profile",
+                                             "config.yaml"))
+        mark("vgg_protocol")
         vgg_proto = phase_vgg_protocol(workdir)
-        print("[vgg_tcp]")
+        mark("vgg_tcp")
         vgg_tcp = phase_vgg_tcp(workdir)
-        print("[profiler]")
+        mark("profiler")
         prof_b2 = phase_profiler(workdir)
-        print("[baseline2_slice]")
+        mark("baseline2_slice")
         b2_slice = phase_baseline2_slice(workdir, prof_b2["profile"])
-        print("[baseline2_protocol]")
+        mark("baseline2_protocol")
         b2_proto = phase_baseline2_protocol(workdir, prof_b2["profile"])
-        print("[strategies]")
+        mark("strategies")
         strategies = phase_strategies(workdir)
+        mark("baseline3_slice")
+        b3_slice = phase_baseline3_slice(workdir)
+        mark("baseline3_protocol")
+        b3_proto = phase_baseline3_protocol(workdir)
+        mark("baseline4_slice")
+        b4_slice = phase_baseline4_slice(workdir)
+    mark("summary")
     entries = []
     for name, r in kernels.items():
         source, replaces = KERNELS[name]
@@ -2651,6 +2897,9 @@ def main() -> int:
         by_path["vgg_protocol"] = vgg_proto["launches_total"][name]
         by_path["vgg_tcp"] = vgg_tcp["launches"][name]
         by_path["baseline2_protocol"] = b2_proto["launches_total"][name]
+        by_path["baseline3_slice"] = b3_slice["launches"][name]
+        by_path["baseline3_protocol"] = b3_proto["launches_total"][name]
+        by_path["baseline4_slice"] = b4_slice["launches"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -2664,12 +2913,20 @@ def main() -> int:
                          for m, run in vgg_proto["runs"].items()}
             held = sum(run["held"].get(name, {}).get("launches", 0)
                        for run in vgg_proto["runs"].values())
+            extra_b3 = {
+                "baseline3_launches_per_round": {
+                    f"server-momentum {m}": run["launches"][name]
+                    for m, run in b3_proto["runs"].items()},
+                "baseline3_launches_held_bitwise": sum(
+                    run["held"].get(name, {}).get("launches", 0)
+                    for run in b3_proto["runs"].values())}
         else:
             main_path = "protocol"
             per_round = proto["launches_per_round"][name]
             held = None
-        extra = {k: r[k] for k in ("shapes", "tinyllama_shapes", "frames")
-                 if k in r}
+            extra_b3 = {}
+        extra = {k: r[k] for k in ("shapes", "tinyllama_shapes", "frames",
+                                   "baseline3_shapes", "timed_at") if k in r}
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -2677,6 +2934,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "launches_per_round": per_round,
             **({} if held is None else {"launches_held_bitwise": held}),
+            **extra_b3,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2684,13 +2942,16 @@ def main() -> int:
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"], **extra})
     print(json.dumps({"slice": sl, "profile": prof, "protocol": proto,
-                      "protocol_tcp": tcp, "vgg_step_check": vgg_step,
+                      "protocol_tcp": tcp, "step_check": step,
                       "vgg_slice": vgg_sl, "vgg_profile": vgg_prof,
                       "vgg_protocol": vgg_proto,
                       "vgg_tcp": vgg_tcp, "profiler": prof_b2,
                       "baseline2_slice": b2_slice,
                       "baseline2_protocol": b2_proto,
-                      "strategies": strategies}))
+                      "strategies": strategies,
+                      "baseline3_slice": b3_slice,
+                      "baseline3_protocol": b3_proto,
+                      "baseline4_slice": b4_slice}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -7,17 +7,23 @@ t}}``:
 
 * ``Dense.kernel`` (in, out) <-> ``weight`` (out, in) (a transpose);
 * ``Conv.kernel`` HWIO <-> ``weight`` OIHW;
+* a ``DenseGeneral.kernel`` of attention (query, key and value (embed,
+  heads, head_dim), out (heads, head_dim, embed)) <-> ``weight`` in the
+  same layout;
 * ``Embed.embedding`` <-> ``weight``;
-* ``RMSNorm.scale`` and ``BatchNorm.scale`` <-> ``weight``;
-* a Conv, Dense or BatchNorm ``bias`` <-> ``bias``.
+* ``RMSNorm``, ``LayerNorm`` and ``BatchNorm`` ``scale`` <-> ``weight``;
+* a ``bias`` <-> ``bias``, and the ViT's ``cls`` and ``pos`` <-> the
+  parameters of the same names.
 
 The inverse needs the model to tell which flax name each ``weight``
 had: every parametric leaf module of the port names it in its
 ``jax_param`` attribute.  BatchNorm running statistics travel in their
-own tree, keyed alike on both sides (``{"layer2": {"mean", "var"}}``,
-flax's ``batch_stats`` collection): :func:`from_jax_stats` and
-:func:`to_jax_stats`.  A round trip is exact (a permutation and a copy
-of float32 values).
+own tree (flax's ``batch_stats`` collection): :func:`from_jax_stats`
+and :func:`to_jax_stats`.  A layer that is a BatchNorm holds ``{"mean",
+"var"}`` on both sides; the BatchNorms nested in a layer are nested
+dicts in flax (``{"layer4": {"bn1": {"mean", "var"}}}``) and dotted
+paths in the port (``{"layer4": {"bn1.mean", "bn1.var"}}``).  A round
+trip is exact (a permutation and a copy of float32 values).
 """
 
 from __future__ import annotations
@@ -30,15 +36,22 @@ import torch
 from split_learning_torch.models.split import SplitModel
 
 _LEAVES = ("kernel", "embedding", "scale", "bias")
+#: parameters that keep their flax name in the port
+_NAMED = ("cls", "pos")
 _STATS = ("mean", "var")
 
 
 def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
-    """Dense (in, out) -> (out, in); Conv HWIO -> OIHW."""
+    """Dense (in, out) -> (out, in); Conv HWIO -> OIHW; a 3-D
+    DenseGeneral kernel as it is."""
+    if arr.ndim == 3:
+        return arr
     return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
 
 
 def _kernel_to_jax(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 3:
+        return arr
     return arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
 
 
@@ -56,13 +69,14 @@ def from_jax_params(tree: dict) -> dict:
     out: dict = {}
     for path, leaf in _walk(tree):
         layer, *inner, leaf_name = path
-        if leaf_name not in _LEAVES:
+        if leaf_name not in _LEAVES + _NAMED:
             raise KeyError(f"no torch counterpart for flax leaf "
                            f"{'/'.join(path)}")
         arr = np.asarray(leaf)
         if leaf_name == "kernel":
             arr = _kernel_to_torch(arr)
-        pname = "bias" if leaf_name == "bias" else "weight"
+        pname = (leaf_name if leaf_name in ("bias",) + _NAMED
+                 else "weight")
         key = ".".join([*inner, pname])
         out.setdefault(layer, {})[key] = torch.from_numpy(
             np.array(arr, order="C"))
@@ -77,10 +91,10 @@ def to_jax_params(state: dict, model: SplitModel) -> dict:
         owners = dict(model.layers[layer].named_modules())
         for key, t in sd.items():
             *inner, pname = key.split(".")
-            if pname not in ("weight", "bias"):
+            if pname not in ("weight", "bias") + _NAMED:
                 raise KeyError(f"unexpected parameter {layer}.{key}")
             leaf_name = (owners[".".join(inner)].jax_param
-                         if pname == "weight" else "bias")
+                         if pname == "weight" else pname)
             arr = t.detach().cpu().numpy()
             if leaf_name == "kernel":
                 arr = _kernel_to_jax(arr)
@@ -93,23 +107,31 @@ def to_jax_params(state: dict, model: SplitModel) -> dict:
 
 def from_jax_stats(tree: dict) -> dict:
     """flax ``batch_stats`` tree of numpy arrays -> the port's statistics
-    tree of CPU tensors (the same keys)."""
+    tree of CPU tensors (a nested BatchNorm's leaves keyed by their
+    dotted path inside the layer)."""
     out: dict = {}
-    for layer, leaves in tree.items():
-        if set(leaves) - set(_STATS):
-            raise KeyError(f"no torch counterpart for batch_stats of "
-                           f"{layer}: {sorted(leaves)}")
-        out[layer] = {k: torch.from_numpy(np.array(v))
-                      for k, v in leaves.items()}
+    for path, leaf in _walk(tree):
+        layer, *inner, stat = path
+        if stat not in _STATS:
+            raise KeyError(f"no torch counterpart for batch_stats leaf "
+                           f"{'/'.join(path)}")
+        out.setdefault(layer, {})[".".join([*inner, stat])] = (
+            torch.from_numpy(np.array(leaf)))
     return out
 
 
 def to_jax_stats(stats: dict) -> dict:
     """The port's statistics tree -> flax ``batch_stats`` tree of numpy
-    arrays."""
-    return {layer: {k: t.detach().cpu().numpy().copy()
-                    for k, t in leaves.items()}
-            for layer, leaves in stats.items()}
+    arrays (dotted paths become nested dicts)."""
+    out: dict = {}
+    for layer, leaves in stats.items():
+        for key, t in leaves.items():
+            *inner, stat = key.split(".")
+            node = out.setdefault(layer, {})
+            for part in inner:
+                node = node.setdefault(part, {})
+            node[stat] = t.detach().cpu().numpy().copy()
+    return out
 
 
 def tree_to(tree: Any, device) -> Any:

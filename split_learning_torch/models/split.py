@@ -13,7 +13,10 @@ dict slicing, as in the reference.
 
 BatchNorm running statistics are a second tree of the same shape, keyed
 as flax keys its ``batch_stats`` collection: ``{"layer2": {"mean": t,
-"var": t}, ...}`` (:meth:`SplitModel.stats_tree`).  A train-mode
+"var": t}, ...}`` for a layer that is a BatchNorm, and by the nested
+path for the BatchNorms inside a layer (flax's ``batch_stats/layer4/
+bn1/mean`` is ``{"layer4": {"bn1.mean": t, ...}}``), as the parameter
+tree keys its inner modules (:meth:`SplitModel.stats_tree`).  A train-mode
 forward does not change them: each :class:`BatchNorm` leaves its new
 statistics pending, and the caller keeps them with
 :meth:`SplitModel.commit_stats` once per consumed batch — so a forward
@@ -124,49 +127,69 @@ class SplitModel(nn.Module):
                 mod.load_state_dict(tree[name])
 
     def _batchnorms(self):
-        return [(name, mod) for name, mod in self.layers.items()
+        """``(layer name, path inside the layer, module)`` of every owned
+        BatchNorm, those nested inside a layer included (path "" for a
+        layer that is a BatchNorm)."""
+        return [(name, path, mod) for name, layer in self.layers.items()
+                for path, mod in layer.named_modules()
                 if isinstance(mod, BatchNorm)]
 
     def stats_tree(self) -> dict:
         """``{layer name: {"mean", "var"}}`` running statistics of the
-        owned BatchNorm layers (the live tensors, detached)."""
-        return {name: mod.stats() for name, mod in self._batchnorms()}
+        owned BatchNorms (the live tensors, detached); a nested one's
+        keys carry its path, ``"bn1.mean"``."""
+        tree: dict = {}
+        for name, path, mod in self._batchnorms():
+            tree.setdefault(name, {}).update(
+                {_join(path, k): t for k, t in mod.stats().items()})
+        return tree
 
     @torch.no_grad()
     def load_stats_tree(self, tree: dict) -> None:
-        """Copy a statistics tree into the owned BatchNorm layers; a
-        layer the tree does not name starts from flax's initial
-        statistics (mean 0, var 1), as a flax apply without that
-        layer's ``batch_stats`` does."""
-        for name, mod in self._batchnorms():
-            mod.load_stats(tree.get(name) or mod.initial_stats())
+        """Copy a statistics tree into the owned BatchNorms; one the tree
+        does not name starts from flax's initial statistics (mean 0,
+        var 1), as a flax apply without its ``batch_stats`` does."""
+        for name, path, mod in self._batchnorms():
+            leaves = tree.get(name) or {}
+            if _join(path, "mean") in leaves:
+                mod.load_stats({k: leaves[_join(path, k)]
+                                for k in ("mean", "var")})
+            else:
+                mod.load_stats(mod.initial_stats())
 
     def commit_stats(self) -> None:
         """Keep every owned BatchNorm's pending statistics (from its
         latest train-mode forward) as its running statistics."""
-        for _, mod in self._batchnorms():
+        for _, _, mod in self._batchnorms():
             mod.commit()
 
     def _dropouts(self) -> list:
-        return [mod for mod in self.layers.values()
+        """``(key, module)`` of every owned dropout, nested ones
+        included; the key is the layer name, dotted with the path inside
+        the layer for a nested one."""
+        return [(_join(name, path), mod)
+                for name, layer in self.layers.items()
+                for path, mod in layer.named_modules()
                 if isinstance(mod, Dropout)]
 
     def seed_dropout(self, seed: int) -> None:
-        """Reseed every owned dropout layer's generator from ``seed`` and
-        the layer's name."""
-        for name, mod in self.layers.items():
-            if isinstance(mod, Dropout):
-                mod.generator.manual_seed(
-                    zlib.crc32(f"{seed}:{name}".encode()))
+        """Reseed every owned dropout generator from ``seed`` and the
+        dropout's key."""
+        for key, mod in self._dropouts():
+            mod.generator.manual_seed(zlib.crc32(f"{seed}:{key}".encode()))
 
     def rng_state(self) -> list:
         """The owned dropout generators' states (for a recompute that
         must draw the same masks)."""
-        return [mod.generator.get_state() for mod in self._dropouts()]
+        return [mod.generator.get_state() for _, mod in self._dropouts()]
 
     def set_rng_state(self, state: list) -> None:
-        for mod, st in zip(self._dropouts(), state):
+        for (_, mod), st in zip(self._dropouts(), state):
             mod.generator.set_state(st)
+
+
+def _join(path: str, key: str) -> str:
+    return f"{path}.{key}" if path else key
 
 
 # --------------------------------------------------------------------------
@@ -280,6 +303,41 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
+class Conv(nn.Module):
+    """``nn.Conv`` on NHWC inputs: weight (out, in, kh, kw) (flax's HWIO
+    kernel transposed), lecun-normal (truncated) init, zero bias unless
+    ``use_bias`` is false.  ``padding`` is the explicit padding of each
+    spatial side (flax's ``padding=1``; ``0`` is ``VALID``, and flax's
+    default ``SAME`` for a 1x1 kernel).  The conv is computed (and
+    rounded) in ``dtype`` on the NCHW view of the NHWC tensor — which is
+    ``channels_last`` memory, so no copy — and the bias is added in
+    ``dtype`` to the NHWC-contiguous result."""
+    jax_param = "kernel"
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 use_bias: bool = True, dtype=torch.float32, device=None,
+                 generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.stride = stride
+        self.padding = padding
+        self.weight = nn.Parameter(torch.empty(
+            out_channels, in_channels, kernel_size, kernel_size,
+            device=device))
+        lecun_normal_(self.weight, in_channels * kernel_size ** 2,
+                      generator)
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
+                     if use_bias else None)
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype),
+                     self.weight.to(self.dtype), stride=self.stride,
+                     padding=self.padding)
+        y = y.permute(0, 2, 3, 1).contiguous()
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
 class BatchNorm(nn.Module):
     """``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the last (channel)
     axis, in flax's numerics.
@@ -349,6 +407,36 @@ class BatchNorm(nn.Module):
             self.pending = None
 
 
+class LayerNorm(nn.Module):
+    """``nn.LayerNorm`` over the last axis, in flax's numerics: the
+    statistics in float32 as flax's fast variance (``var = max(E[x^2] -
+    E[x]^2, 0)``), ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    float32, cast to ``dtype``.  flax's epsilon is 1e-6 (torch's
+    ``nn.LayerNorm`` has 1e-5).  ``dtype=None`` is flax's default: the
+    result type of the input and the float32 parameters, so a bf16
+    input gives float32."""
+    jax_param = "scale"
+
+    def __init__(self, features: int, eps: float = 1e-6, dtype=None,
+                 device=None, generator=None):
+        super().__init__()
+        del generator   # ones and zeros
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((x32 * x32).mean(dim=-1, keepdim=True)
+                              - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean) * mul + self.bias
+        return y.to(self.dtype if self.dtype is not None
+                    else torch.promote_types(x.dtype, self.weight.dtype))
+
+
 class Dropout(nn.Module):
     """``nn.Dropout(rate)``: in train mode keeps each element with
     probability ``1 - rate`` and scales it by ``1 / (1 - rate)``; the
@@ -386,6 +474,11 @@ def relu_fn(_, x, train):
     return F.relu(x)
 
 
+def gelu_fn(_, x, train):
+    """flax's ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def maxpool2_fn(_, x, train):
     """2x2 max pool, stride 2, VALID (an odd edge row/column is dropped)."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=2, stride=2)
@@ -417,6 +510,12 @@ def conv_fn(mod, x, train):
 
 def identity_fn(_, x, train):
     return x
+
+
+def module_train_fn(mod, x, train):
+    """Module whose forward takes ``train`` (BatchNorm or dropout
+    inside)."""
+    return mod(x, train)
 
 
 def module_plain_fn(mod, x, train):

@@ -20,13 +20,10 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
-from torch import nn
 
 from split_learning_torch.models.split import (
-    BatchNorm, Dense, LayerSpec, batchnorm_fn, conv_fn, dropout_layer,
-    flatten_fn, lecun_normal_, maxpool2_fn, module_plain_fn, register_model,
-    relu_fn,
+    BatchNorm, Conv, Dense, LayerSpec, batchnorm_fn, conv_fn, dropout_layer,
+    flatten_fn, maxpool2_fn, module_plain_fn, register_model, relu_fn,
 )
 
 # (out_channels, convs per block, pool after block?) — CIFAR: 5 pools
@@ -35,28 +32,6 @@ _VGG16_CIFAR_CFG = [(64, 2, True), (128, 2, True), (256, 3, True),
                     (512, 3, True), (512, 3, True)]
 _VGG16_MNIST_CFG = [(64, 2, True), (128, 2, True), (256, 3, True),
                     (512, 3, True), (512, 3, False)]
-
-
-class Conv(nn.Module):
-    """``nn.Conv(kernel_size=(3, 3), padding=1)`` on NHWC inputs: weight
-    (out, in, 3, 3) (flax's HWIO kernel transposed), lecun-normal
-    (truncated) init, zero bias."""
-    jax_param = "kernel"
-
-    def __init__(self, in_channels: int, out_channels: int,
-                 dtype=torch.float32, device=None, generator=None):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, 3, 3, device=device))
-        lecun_normal_(self.weight, in_channels * 9, generator)
-        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
-
-    def forward(self, x):
-        # the NCHW view of an NHWC tensor is channels_last: no copy
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype),
-                     self.weight.to(self.dtype), padding=1)
-        return y.permute(0, 2, 3, 1).contiguous() + self.bias.to(self.dtype)
 
 
 def _vgg_specs(num_classes: int, cfg=None, in_channels: int = 3,

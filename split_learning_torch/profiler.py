@@ -20,7 +20,11 @@ split_learning_torch.client --profile`` embeds in its REGISTER.
   are counted by :class:`torch.utils.flop_counter.FlopCounterMode` with
   formulas in the convention of XLA's cost analysis, which the JAX
   package reads (:data:`XLA_STYLE_FLOPS`), so that both packages' flops
-  profiles lead the planner to the same cuts.
+  profiles lead the planner to the same cuts.  Every layer of VGG16 and
+  ResNet-50 counts as XLA does; a model holding a layer kind whose
+  count differs (:func:`check_flops_countable`: the ViT's pre-LN block
+  and CLS LayerNorm) is refused in this mode, naming the kind, rather
+  than profiled with a count that is wrong.
 * ``speed`` is always the wall-clock samples/s of the full forward on
   the device (the GMM straggler selection compares it across devices).
 * ``network`` is measured through one of the port's transports
@@ -142,6 +146,30 @@ XLA_STYLE_FLOPS = {
 }
 
 
+def _uncounted_kinds():
+    """Layer kinds whose forward FLOPs :data:`XLA_STYLE_FLOPS` does not
+    count as XLA's cost analysis does: the LayerNorm, softmax and
+    tanh-gelu chains (a ViT-S block counts 474543680 against XLA's
+    476188160, the CLS LayerNorm 5384 against 5386)."""
+    from split_learning_torch.models.transformer import PreLNBlock
+    from split_learning_torch.models.vit import ClsNorm
+    return (PreLNBlock, ClsNorm)
+
+
+def check_flops_countable(model: torch.nn.Module) -> None:
+    """Raise ``NotImplementedError`` naming every layer kind of ``model``
+    (a :class:`SplitModel`) whose FLOPs flops mode cannot count in XLA's
+    convention."""
+    kinds = _uncounted_kinds()
+    bad = sorted({type(m).__name__ for m in model.layers.values()
+                  if isinstance(m, kinds)})
+    if bad:
+        raise NotImplementedError(
+            f"flops mode cannot count layer kind(s) {', '.join(bad)} in "
+            "XLA's convention yet; profile this model in time mode "
+            "(ROADMAP.md A.7)")
+
+
 def shape_pass(model_key: str, example: torch.Tensor,
                model_kwargs: dict | None = None) -> tuple[list, list]:
     """The model on the ``meta`` device, layer by layer: (the boundary
@@ -210,6 +238,8 @@ def profile_model(model_key: str, batch_size: int = 32,
 
     gen = torch.Generator(device=device).manual_seed(seed)
     full = build_model(model_key, device=device, generator=gen, **kw)
+    if method == "flops":
+        check_flops_countable(full)
     full.eval()
     exe_time: list[float] = []
     with torch.no_grad():

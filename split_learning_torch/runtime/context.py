@@ -87,6 +87,14 @@ class TrainContext:
         context keeps its parameters."""
         return tree
 
+    def reset_peak_memory(self) -> None:
+        """Start a new peak of :meth:`peak_memory`."""
+
+    def peak_memory(self) -> int | None:
+        """Peak bytes allocated on the device since
+        :meth:`reset_peak_memory`; None where it is not measured."""
+        return None
+
     def shutdown(self) -> None:
         pass
 
@@ -175,6 +183,15 @@ class TorchContext(TrainContext):
 
     def place(self, tree):
         return tree_to(tree, self.device)
+
+    def reset_peak_memory(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def peak_memory(self) -> int | None:
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.max_memory_allocated(self.device)
 
     def _loader(self, client_key: str, label_counts: np.ndarray,
                 round_idx: int = 0):

@@ -7,10 +7,11 @@ to the last good weights; otherwise the checkpoint is (over)written by a
 one-slot background writer and the next round begins; resume loads the
 checkpoint and continues.
 
-Left out so far (listed in ROADMAP.md): the span tracer, the per-round
-MemoryWatch and kind=perf records, the on-demand profiler capture, the
-blackbox recorder, the elastic membership refresh and the scheduler
-hook.
+Each round's record carries the device's peak allocated bytes over its
+training (``train_peak_memory_bytes``).  Left out so far (listed in
+ROADMAP.md): the span tracer, the per-round MemoryWatch and kind=perf
+records, the on-demand profiler capture, the blackbox recorder, the
+elastic membership refresh and the scheduler hook.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ class RoundRecord:
     wall_s: float
     val_loss: float | None = None
     val_accuracy: float | None = None
+    #: the device's peak allocated bytes over the round's training,
+    #: before validation (None where the context does not measure it)
+    train_peak_memory_bytes: int | None = None
 
 
 @dataclasses.dataclass
@@ -87,11 +91,13 @@ def run_training(cfg: Config, ctx: TrainContext,
     ck_future: concurrent.futures.Future | None = None
     try:
         for r in range(start_round, cfg.global_rounds):
+            ctx.reset_peak_memory()
             t0 = time.perf_counter()
             outcome = strategy.run_round(ctx, plans, r, params, stats)
             wall = time.perf_counter() - t0
             rec = RoundRecord(round_idx=r, ok=outcome.ok,
-                              num_samples=outcome.num_samples, wall_s=wall)
+                              num_samples=outcome.num_samples, wall_s=wall,
+                              train_peak_memory_bytes=ctx.peak_memory())
             if not outcome.ok:
                 logger.error(f"Round {r}: Training failed! "
                              f"(NaN detected; aggregation skipped)")

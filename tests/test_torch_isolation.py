@@ -102,6 +102,56 @@ def test_control_plane_runs_with_jax_blocked():
     assert "control plane ok" in proc.stdout
 
 
+#: the modules of BASELINE configs 3 and 4
+NEW_MODELS = ("split_learning_torch.models.resnet",
+              "split_learning_torch.models.vit",
+              "split_learning_torch.models.transformer")
+
+
+def test_resnet_and_vit_run_with_jax_blocked():
+    """ResNet-50 and ViT-S/16 (the modules above, and the converter of
+    their nested statistics) import and train a step in a process where
+    JAX and the JAX package cannot be imported; flops-mode profiling of
+    the ViT is refused, naming its layer kinds."""
+    assert set(NEW_MODELS) <= set(_port_modules())
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "import torch",
+        f"for m in {NEW_MODELS!r}:",
+        "    __import__(m)",
+        "from split_learning_torch.models import build_model",
+        "from split_learning_torch.convert import from_jax_stats,"
+        " to_jax_stats",
+        "from split_learning_torch import profiler",
+        "m = build_model('ResNet50_CIFAR100')",
+        "m(torch.randn(2, 8, 8, 3), train=True).sum().backward()",
+        "m.commit_stats()",
+        "st = m.stats_tree()",
+        "assert len(st) == 17 and 'bn1.mean' in st['layer4'], list(st)",
+        "back = from_jax_stats(to_jax_stats(st))",
+        "assert all(torch.equal(back[k][n], t) for k, v in st.items()"
+        " for n, t in v.items())",
+        "v = build_model('ViT_S16_CIFAR10', n_block=1)",
+        "assert v(torch.randn(2, 32, 32, 3), train=True).shape == (2, 10)",
+        "try:",
+        "    profiler.profile_model('ViT_S16_CIFAR10', 2, method='flops',"
+        " model_kwargs={'n_block': 1}, device='cpu')",
+        "    raise AssertionError('flops mode counted a ViT')",
+        "except NotImplementedError as e:",
+        "    assert 'PreLNBlock' in str(e) and 'ClsNorm' in str(e), e",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
+        " and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('new models ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "new models ok" in proc.stdout
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_names_a_blocked_package(path):
