@@ -80,12 +80,13 @@ Phases, each fatal on failure:
    ones, the broker's bytes by queue family, each process's peak memory
    and the card's by ``nvidia-smi``;
 8. step_check — one float32 train step of VGG16/CIFAR10 (cut 7), of
-   ResNet-50 (cuts ``[3, 6]``) and of ViT-S/16 (cut ``[10]``), dropout
-   off, on the CPU, on the card and in float64 on the CPU from the same
-   weights, statistics and batch: the card's loss, statistics and
-   gradients no farther from float64 than twice the CPU's float32 step,
-   and VGG16's loss and statistics within stated tolerances of the
-   CPU's;
+   ResNet-50 (cuts ``[3, 6]``), of ViT-S/16 (cut ``[10]``), of KWT-1
+   (cut 2) and of BERT-base with LoRA rank 8 (cut 4, padded rows; the
+   adapters and the classifier trained), dropout off, on the CPU, on the
+   card and in float64 on the CPU from the same weights, statistics and
+   batch: the card's loss, statistics and gradients no farther from
+   float64 than twice the CPU's float32 step, and VGG16's loss and
+   statistics within stated tolerances of the CPU's;
 9. vgg_slice — the default round in process (``run_local``) on
    ``config.yaml`` (1 round, ``[1, 1]``) and on
    ``configs/baseline1.yaml`` (2 of its 5 rounds, ``[2, 2]``: two
@@ -129,25 +130,47 @@ Phases, each fatal on failure:
    256 samples a client, each held to its own contract (samples,
    validated rounds, finite losses, FedAsync's per-merge checkpoints);
 16. baseline3_slice — BASELINE config 3 in process (``run_local``) as
-   written: ResNet-50/CIFAR-100, 5 rounds, ``[2, 2, 2]``, cuts ``[3,
-   6]``, batch 64, bf16, every launch counter 0, the 17 layers of
-   (nested) BatchNorm statistics in the checkpoint; then one round
-   once more, warm and traced (its idle share);
+   written but for its depth (3 of its 5 rounds):
+   ResNet-50/CIFAR-100, ``[2, 2, 2]``, cuts ``[3, 6]``, batch 64, bf16,
+   every launch counter 0, the 17 layers of (nested) BatchNorm
+   statistics in the checkpoint; then one round once more, warm and
+   traced (its idle share);
 17. baseline3_protocol — config 3 as the protocol round in one process:
    three stages, six clients, the int8 codec on both directions of both
    cuts, every kernel flag on, the sharded fold at ``server-momentum``
    0.9 then 0; every quantize, dequantize, momentum and finalize launch
    held bit for bit against its plain version;
-18. baseline4_slice — BASELINE config 4 in process as written: ViT-S/16
-   on CIFAR-10, 5 rounds, ``[2, 1]``, cut ``[10]``, AdamW with weight
-   decay 0.05, dropout 0.1, bf16; then one round warm and traced;
-19. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+18. baseline4_slice — BASELINE config 4 in process as written but for
+   its depth (3 of its 5 rounds): ViT-S/16 on CIFAR-10, ``[2,
+   1]``, cut ``[10]``, AdamW with weight decay 0.05, dropout 0.1, bf16;
+   then one round warm and traced;
+19. kwt_slice — KWT-1 on SpeechCommands in process
+   (``configs/kwt1_speechcommands.yaml``: its published width, ``[2,
+   2]``, cut 2, AdamW 1e-3, batch 32, bf16), 3 rounds, every launch
+   counter 0; then one round warm and traced;
+20. variants — the eight ``examples/variants/*.yaml`` in process as
+   written (KWT in relay, cluster relay, SDA, strict SDA in two and
+   three stages, periodic and FedAsync; the fine-grained BERT_EMOTION in
+   FedAvg), each to its end, its final validation loss and accuracy
+   reported;
+21. bert_slice — BERT-base on AG-News with LoRA (rank 8, alpha 16, the
+   default targets) in process (``configs/bert_lora_agnews.yaml``: full
+   width, ``[2, 2]``, cut 4, batch 32, 512 samples a client, AdamW,
+   bf16), 2 rounds, the frozen leaves unchanged and the adapted ones
+   moved; then one round warm and traced;
+22. bert_protocol — the same model as the protocol round in one process:
+   the int8 codec on the ``(hidden, mask)`` boundary both ways, every
+   kernel flag on, the sharded fold at ``server-momentum`` 0.9 then 0;
+   every quantize, dequantize, momentum and finalize launch held bit for
+   bit against its plain version, and each count equal to the one the
+   batches, directions and parameter leaves predict;
+23. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
    shapes, and the codec and stage-update rows' at config 3's in
-   ``baseline3_shapes``), then the last line ``{"ok": true,
-   "device": {...}}``.
+   ``baseline3_shapes`` and at the BERT round's in ``bert_shapes``),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --participant MODULE ARG...`` is phase 7's
 participant runner: it runs ``MODULE.main(ARG...)`` and prints that
@@ -213,6 +236,11 @@ VGG_CODEC_FRAMES = (("f32 int8", torch.float32, 8),)
 #: kernel of 512 -> 512 channels)
 B3_FRAME_SHAPES = ((64, 32, 32, 64), (64, 32, 32, 256))
 B3_LEAF_SHAPE = (512, 512, 3, 3)
+#: the BERT-base protocol round (batch 32, 128 tokens): the activation
+#: frame's hidden leaf (bf16; its gradient float32), and its largest leaf
+#: (the word-embedding table, folded in float32)
+BERT_FRAME_SHAPE = (32, 128, 768)
+BERT_LEAF_SHAPE = (28996, 768)
 SOURCES = ("flash_attention", "quant", "update")
 # where the protocol phases run (a CPU rehearsal of the script sets "cpu")
 DEVICE = "cuda"
@@ -864,8 +892,14 @@ def phase_wire_kernels() -> dict:
              * 3).to(torch.bfloat16)
     b3_32 = torch.randn(B3_FRAME_SHAPES[1], generator=g,
                         device="cuda") * 1e-3
+    bert16 = (torch.randn(BERT_FRAME_SHAPE, generator=g, device="cuda")
+              * 3).to(torch.bfloat16)
+    bert32 = torch.randn(BERT_FRAME_SHAPE, generator=g,
+                         device="cuda") * 1e-3
     cases = [("ResNet frame bf16 int8 tile 256", b3_16, 256, 8, "vec"),
-             ("ResNet frame f32 int8 tile 256", b3_32, 256, 8, "vec")]
+             ("ResNet frame f32 int8 tile 256", b3_32, 256, 8, "vec"),
+             ("BERT frame bf16 int8 tile 256", bert16, 256, 8, "vec"),
+             ("BERT frame f32 int8 tile 256", bert32, 256, 8, "vec")]
     for bits in (8, 4):
         cases += [
             (f"VGG frame bf16 int{bits} tile 256", vgg16, 256, bits, "vec"),
@@ -964,7 +998,11 @@ def phase_wire_kernels() -> dict:
     vgg_tw = 4 * 2496.0
     b3_acc = torch.randn(B3_LEAF_SHAPE, generator=g, device="cuda") * 50
     b3_tw = 2 * 2496.0
-    finalize_cases += [("ResNet leaf 512x512x3x3 f32", b3_acc,
+    bert_acc = torch.randn(BERT_LEAF_SHAPE, generator=g, device="cuda") * 50
+    bert_tw = 2 * 512.0
+    finalize_cases += [("BERT leaf 28996x768 f32", bert_acc, torch.float32,
+                        False),
+                       ("ResNet leaf 512x512x3x3 f32", b3_acc,
                         torch.float32, False),
                        ("VGG leaf 4096x4096 f32", vgg_acc, torch.float32,
                         False),
@@ -979,8 +1017,11 @@ def phase_wire_kernels() -> dict:
     vgg_vel = torch.randn(VGG_LEAF_SHAPE, generator=g, device="cuda") * 0.01
     b3_base = torch.randn(B3_LEAF_SHAPE, generator=g, device="cuda")
     b3_vel = torch.randn(B3_LEAF_SHAPE, generator=g, device="cuda") * 0.01
+    bert_base = torch.randn(BERT_LEAF_SHAPE, generator=g, device="cuda")
+    bert_vel = torch.randn(BERT_LEAF_SHAPE, generator=g, device="cuda") * 0.01
     momentum_cases = [
         ("leaf", acc, base, vel, tw),
+        ("BERT leaf 28996x768", bert_acc, bert_base, bert_vel, bert_tw),
         ("ResNet leaf 512x512x3x3", b3_acc, b3_base, b3_vel, b3_tw),
         ("VGG leaf 4096x4096", vgg_acc, vgg_base, vgg_vel, vgg_tw),
         ("VGG statistics (64,)", vgg_stat, vgg_stat * 0.5,
@@ -1030,6 +1071,15 @@ def phase_wire_kernels() -> dict:
         else:
             r["baseline3_shapes"] = {
                 f"leaf f32 {B3_LEAF_SHAPE}": b3[B3_FRAME_SHAPES[0]][name]}
+    # the BERT protocol round's shapes: its bf16 activation frame (the
+    # float32 gradient frame beside it) and the word-embedding leaf
+    print(f"  times at the BERT round's shapes (frame bf16 "
+          f"{BERT_FRAME_SHAPE} tile 256, leaf f32 {BERT_LEAF_SHAPE}):")
+    bert = _wire_times(bert16, bert_acc, bert_base, bert_vel, bert_tw)
+    bert["quantize"]["frames"] = _codec_frames(
+        g, BERT_FRAME_SHAPE, (("f32 int8", torch.float32, 8),))
+    for name, r in out.items():
+        r["bert_shapes"] = bert[name]
     return out
 
 
@@ -1853,13 +1903,18 @@ def _check_stats_checkpoint(cfg, result, rounds: int) -> None:
 #: the step checks: (label, model key, cuts, batch, microbatches,
 #: BatchNorms, layers whose gradients are also held alone, bounds on the
 #: card's distance from the CPU's float32 step: loss relative, each
-#: statistic of its leaf's largest value; None: only the float64 ones)
+#: statistic of its leaf's largest value; None: only the float64 ones;
+#: LoRA rank, 0 for a step of every parameter)
 STEP_CHECKS = (
     ("VGG16", "VGG16_CIFAR10", [7], 32, 4, 13, ("layer1", "layer47"),
-     {"loss_rel": 1e-5, "stats_of_largest": 1e-4}),
+     {"loss_rel": 1e-5, "stats_of_largest": 1e-4}, 0),
     ("ResNet-50", "ResNet50_CIFAR100", [3, 6], 16, 2, 53, ("layer1",),
-     None),
-    ("ViT-S/16", "ViT_S16_CIFAR10", [10], 16, 2, 0, ("layer1",), None))
+     None, 0),
+    ("ViT-S/16", "ViT_S16_CIFAR10", [10], 16, 2, 0, ("layer1",), None, 0),
+    ("KWT-1", "KWT_SPEECHCOMMANDS", [2], 32, 2, 0, ("layer1", "layer4"),
+     None, 0),
+    ("BERT-base LoRA", "BERT_AGNEWS", [4], 4, 2, 0, ("layer2", "layer15"),
+     None, 8))
 
 
 def _tree_norm_err(tree, ref) -> float:
@@ -1869,12 +1924,37 @@ def _tree_norm_err(tree, ref) -> float:
     return (num / den) ** 0.5
 
 
+def _step_adapters(ref, rank: int) -> dict:
+    """LoRA adapters over ``ref``'s target kernels (the model's last
+    layer excluded), on the CPU, with ``b`` drawn too: at peft's init
+    (``b`` zeros) every ``a`` would have a zero gradient."""
+    from split_learning_torch.ops.lora import lora_init, split_frozen
+    gen = torch.Generator().manual_seed(1)
+    frozen, _ = split_frozen(ref.state_tree(), [ref.specs[-1].name])
+    lora = lora_init(gen, frozen, ref, rank=rank)
+    for entries in lora.values():
+        for entry in entries.values():
+            entry["b"] = torch.randn(entry["b"].shape, generator=gen) * 0.02
+    return lora
+
+
+def _pad_token_rows(x: torch.Tensor) -> None:
+    """Padding in a (M, mb, S) batch of token ids: a row padded after 20
+    tokens and a row of padding but its CLS token (the synthetic AG-News
+    set has none)."""
+    x[0, 1, 20:] = 0
+    x[-1, 0, 1:] = 0
+
+
 def phase_step_check() -> dict:
     """One float32 train step of each :data:`STEP_CHECKS` model (VGG16
     cut 7, 4 microbatches of 32; ResNet-50 cuts ``[3, 6]`` and ViT-S/16
-    cut ``[10]``, 2 microbatches of 16) on the CPU, on the card and in
-    float64 on the CPU, from the same weights, statistics and batch,
-    with dropout off (rate 0, as in every parity recipe).  TF32 is off,
+    cut ``[10]``, 2 microbatches of 16; KWT-1 cut 2, 2 of 32; BERT-base
+    with LoRA rank 8 cut 4, 2 of 4 with padded rows) on the CPU, on the
+    card and in float64 on the CPU, from the same weights, statistics and
+    batch, with dropout off (rate 0, as in every parity recipe).  The
+    LoRA row trains its adapters (``b`` drawn non-zero, so every factor
+    has a gradient) and the classifier, the base frozen.  TF32 is off,
     so the card's convs and GEMMs are IEEE float32 (cuDNN, cuBLAS), as
     oneDNN's are on the CPU; the two sum in different orders.  Batch-16
     BatchNorm training through ResNet-50's 53 BatchNorms amplifies that
@@ -1895,7 +1975,7 @@ def phase_step_check() -> dict:
     from split_learning_torch.runtime.validation import dataset_for_model
 
     out = {}
-    for label, key, cuts, batch, n_micro, n_bn, alone, vs_cpu in \
+    for label, key, cuts, batch, n_micro, n_bn, alone, vs_cpu, rank in \
             STEP_CHECKS:
         loader = make_data_loader(dataset_for_model(key), batch,
                                   train=True, seed=3, synthetic_size=256)
@@ -1903,8 +1983,13 @@ def phase_step_check() -> dict:
         x = torch.from_numpy(np.stack([b[0] for b in batches]))
         y = torch.from_numpy(np.stack([b[1] for b in batches])
                              .astype(np.int32))
+        if not x.is_floating_point():
+            _pad_token_rows(x)
         ref = build_model(key, generator=torch.Generator().manual_seed(0))
         params, stats = ref.state_tree(), ref.stats_tree()
+        lora0 = _step_adapters(ref, rank) if rank else None
+        head = ref.specs[-1].name
+        del ref
         runs = {}
         for side, dev, dtype in (("cpu", "cpu", torch.float32),
                                  (DEVICE, DEVICE, torch.float32),
@@ -1917,21 +2002,45 @@ def phase_step_check() -> dict:
                 if isinstance(mod, Dropout):
                     mod.rate = 0.0
             model.train()
-            pipe = PipelineModel(model, cuts, example_input=x[0].to(dev),
+            xin = x.to(dev, dtype) if x.is_floating_point() else x.to(dev)
+            pipe = PipelineModel(model, cuts, example_input=xin[0],
                                  num_microbatches=n_micro)
-            loss = pipe.accumulate(x.to(dev, dtype), y.to(dev))
+            lora = None
+            if lora0 is not None:
+                lora = {k: {n: {f: t.detach().to(dev, dtype).requires_grad_()
+                                for f, t in e.items()}
+                            for n, e in v.items()}
+                        for k, v in lora0.items()}
+                for name, mod in model.layers.items():
+                    mod.requires_grad_(name == head)
+                pipe.lora = (lora, 16.0, rank)
+            loss = pipe.accumulate(xin, y.to(dev))
+            grads = {f"{name}.{n}": p.grad.double().cpu()
+                     for name, mod in model.layers.items()
+                     for n, p in mod.named_parameters()
+                     if p.grad is not None}
+            for layer, entries in (lora or {}).items():
+                for k, e in entries.items():
+                    grads.update({f"{layer}.{k}.lora_{f}":
+                                  t.grad.double().cpu()
+                                  for f, t in e.items()})
             runs[side] = {
                 "loss": float(loss),
                 "stats": {f"{k}.{n}": t.double().cpu()
                           for k, v in model.stats_tree().items()
                           for n, t in v.items()},
-                "grads": {f"{name}.{n}": p.grad.double().cpu()
-                          for name, mod in model.layers.items()
-                          for n, p in mod.named_parameters()}}
+                "grads": grads}
+            del model, pipe, lora
         f64 = runs["float64"]
-        res = {"loss": {s: r["loss"] for s, r in runs.items()}}
+        check(len(f64["grads"]) > 0 and all(
+            float(g.abs().max()) > 0 for k, g in f64["grads"].items()
+            if ".lora_" in k), f"{label}: a LoRA factor has no gradient")
+        res = {"loss": {s: r["loss"] for s, r in runs.items()},
+               "trained_leaves": len(f64["grads"])}
         for side in ("cpu", DEVICE):
             r = runs[side]
+            check(set(r["grads"]) == set(f64["grads"]),
+                  f"{label}: {side} trained other leaves than float64")
             res[side] = {
                 "loss_err": abs(r["loss"] - f64["loss"]),
                 "stats_err_of_largest": max(
@@ -2787,14 +2896,15 @@ def baseline3_protocol_config(workdir: pathlib.Path, momentum: float):
 
 
 def phase_baseline3_slice(workdir: pathlib.Path) -> dict:
-    """BASELINE config 3 in process (``run_local``) as written:
-    ResNet-50/CIFAR-100, 5 rounds, ``[2, 2, 2]`` (two lockstep columns
-    through three stages, cuts ``[3, 6]``), batch 64, control-count 4,
-    2500 samples a client, SGD with momentum, bf16; the nested
-    statistics of all 17 layers in the checkpoint
-    (:func:`_run_slice`).  Then one round once more, warm and traced
-    (:func:`phase_profile`)."""
-    cfg = yaml_config(workdir / "b3_slice", BASELINE3)
+    """BASELINE config 3 in process (``run_local``) as written but for
+    its depth (3 of its 5 rounds, for the script's time):
+    ResNet-50/CIFAR-100, ``[2, 2, 2]`` (two lockstep columns through
+    three stages, cuts ``[3, 6]``), batch 64, control-count 4, 2500
+    samples a client, SGD with momentum, bf16; the nested statistics of
+    all 17 layers in the checkpoint (:func:`_run_slice`).  Then one
+    round once more, warm and traced (:func:`phase_profile`)."""
+    cfg = dataclasses.replace(yaml_config(workdir / "b3_slice", BASELINE3),
+                              global_rounds=3)
     out = _run_slice("baseline 3", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
@@ -2815,16 +2925,184 @@ def phase_baseline3_protocol(workdir: pathlib.Path) -> dict:
 
 
 def phase_baseline4_slice(workdir: pathlib.Path) -> dict:
-    """BASELINE config 4 in process (``run_local``) as written: ViT-S/16
-    on CIFAR-10 (12 blocks, dropout 0.1), 5 rounds, ``[2, 1]`` (one
-    shared stage-2 client: the columns' stage-2 gradients averaged every
-    step), cut ``[10]``, batch 64, AdamW with weight decay 0.05, bf16
+    """BASELINE config 4 in process (``run_local``) as written but for
+    its depth (3 of its 5 rounds, for the script's time): ViT-S/16 on
+    CIFAR-10 (12 blocks, dropout 0.1), ``[2, 1]`` (one shared stage-2
+    client: the columns' stage-2 gradients averaged every step), cut
+    ``[10]``, batch 64, AdamW with weight decay 0.05, bf16
     (:func:`_run_slice`; no statistics).  Then one round once more, warm
     and traced."""
-    cfg = yaml_config(workdir / "b4_slice", BASELINE4)
+    cfg = dataclasses.replace(yaml_config(workdir / "b4_slice", BASELINE4),
+                              global_rounds=3)
     out = _run_slice("baseline 4", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
+    return out
+
+
+# --------------------------------------------------------------------------
+# 19-22. the reference's own BERT (LoRA) and KWT
+# --------------------------------------------------------------------------
+
+KWT1 = "configs/kwt1_speechcommands.yaml"
+BERT_LORA = "configs/bert_lora_agnews.yaml"
+#: the reference's research variants: KWT in 7 strategies, BERT_EMOTION
+#: at the fine-grained indexing
+VARIANTS = sorted(p.relative_to(HERE).as_posix()
+                  for p in (HERE / "examples" / "variants").glob("*.yaml"))
+
+
+def phase_kwt_slice(workdir: pathlib.Path) -> dict:
+    """KWT-1 on SpeechCommands in process (``run_local``) at its
+    published width (``configs/kwt1_speechcommands.yaml``: embed 64, 1
+    head, MLP 256, 12 blocks, 40 x 98 MFCCs, 10 classes), ``[2, 2]``, cut
+    2, AdamW at 1e-3, batch 32, bf16, the synthetic set, 3 rounds
+    (:func:`_run_slice`); then one round once more, warm and traced."""
+    cfg = yaml_config(workdir / "kwt_slice", KWT1)
+    out = _run_slice("KWT-1", cfg)
+    out["profile"] = phase_profile(dataclasses.replace(cfg,
+                                                       global_rounds=1))
+    return out
+
+
+def phase_variants(workdir: pathlib.Path) -> dict:
+    """The eight ``examples/variants/*.yaml`` in process on the card, as
+    written (their own tiny widths): relay, cluster relay, SDA, strict
+    SDA (two and three stages), periodic and FedAsync on KWT, FedAvg on
+    the fine-grained BERT_EMOTION.  Each runs all its rounds, every
+    round ok with samples, its last round validated with a finite loss
+    and accuracy, no kernel launched (every flag off)."""
+    from split_learning_torch.run import run_local
+
+    out = {}
+    for path in VARIANTS:
+        name = pathlib.Path(path).stem
+        cfg = yaml_config(workdir / f"variant_{name}", path)
+        _reset_launches()
+        t0 = time.perf_counter()
+        result = run_local(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(_launch_counts().values()), f"variant {name}: "
+              "kernels launched with every kernels flag off")
+        hist = result.history
+        check(len(hist) == cfg.global_rounds
+              and all(r.ok and r.num_samples > 0 for r in hist),
+              f"variant {name}: {hist}")
+        last = hist[-1]
+        check(last.val_loss is not None and math.isfinite(last.val_loss)
+              and math.isfinite(last.val_accuracy),
+              f"variant {name}: last round not validated: {last}")
+        out[name] = {"model": cfg.model_key,
+                     "strategy": cfg.aggregation.strategy,
+                     "clients": list(cfg.clients), "run_local_wall_s": wall,
+                     "rounds": len(hist),
+                     "samples": [r.num_samples for r in hist],
+                     "final_val_loss": last.val_loss,
+                     "final_val_accuracy": last.val_accuracy}
+        print(f"  {name}: {cfg.model_key} {cfg.aggregation.strategy} "
+              f"clients={list(cfg.clients)} {len(hist)} rounds in "
+              f"{wall:.3f} s, samples {out[name]['samples']}, final "
+              f"val_loss {last.val_loss:.4f} val_acc "
+              f"{last.val_accuracy:.4f}")
+    return out
+
+
+def _check_lora_result(cfg, params: dict) -> None:
+    """A LoRA run's parameters: the frozen leaves (an embedding table, a
+    LayerNorm, a bias of an adapted kernel) as the context drew them from
+    ``cfg.seed``, an adapted kernel and the classifier moved."""
+    from split_learning_torch.models import build_model
+    init = build_model(cfg.model_key, device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(
+                           cfg.seed), **(cfg.model_kwargs or {}))
+    p0 = init.state_tree()
+    for layer, key in (("layer1", "word_embeddings.weight"),
+                       ("layer1", "LayerNorm.weight"),
+                       ("layer2", "attention.query.bias")):
+        check(torch.equal(params[layer][key].cpu(), p0[layer][key].cpu()),
+              f"LoRA: frozen {layer}.{key} moved")
+    for layer, key in (("layer2", "attention.query.weight"),
+                       (init.specs[-1].name, "classifier.weight")):
+        check(not torch.equal(params[layer][key].cpu(),
+                              p0[layer][key].cpu()),
+              f"LoRA: trained {layer}.{key} did not move")
+
+
+def phase_bert_slice(workdir: pathlib.Path) -> dict:
+    """BERT-base on AG-News with LoRA in process (``run_local``) at full
+    width (``configs/bert_lora_agnews.yaml``: vocab 28996, hidden 768,
+    12 heads, 12 blocks, FFN 3072, 128 tokens, 4 labels; rank 8, alpha
+    16, the default targets, AdamW, bf16), ``[2, 2]``, cut 4, batch 32,
+    512 samples a client, 2 rounds (:func:`_run_slice`), the frozen
+    leaves checked unchanged; then one round once more, warm and
+    traced."""
+    from split_learning_torch.runtime.checkpoint import load_checkpoint
+
+    cfg = yaml_config(workdir / "bert_slice", BERT_LORA)
+    out = _run_slice("BERT-base LoRA", cfg)
+    _check_lora_result(cfg, load_checkpoint(cfg.checkpoint.directory,
+                                            cfg.model_key)["params"])
+    out["profile"] = phase_profile(dataclasses.replace(cfg,
+                                                       global_rounds=1))
+    return out
+
+
+def bert_protocol_config(workdir: pathlib.Path, momentum: float):
+    """``configs/bert_lora_agnews.yaml`` as the protocol round runs it:
+    one round, an int8 codec on both cut directions, every kernel flag
+    on, the sharded (CUDA) fold with ``server-momentum`` =
+    ``momentum``."""
+    cfg = yaml_config(workdir, BERT_LORA)
+    return dataclasses.replace(
+        cfg, global_rounds=1,
+        transport=dataclasses.replace(
+            cfg.transport, codec={"intermediate": "int8",
+                                  "gradient": "int8"}),
+        kernels=dataclasses.replace(cfg.kernels, quantize=True,
+                                    dequantize=True, stage_update=True),
+        aggregation=dataclasses.replace(
+            cfg.aggregation, sharded=True,
+            server_momentum=momentum)).validate()
+
+
+def phase_bert_protocol(workdir: pathlib.Path) -> dict:
+    """BERT-base with LoRA as the protocol round in one process: two
+    feeders and two stage-2 clients, each client drawing its own adapters
+    at START and sending its merged weights; the int8 codec on the
+    ``(hidden, mask)`` activations (the bf16 hidden leaf quantized, the
+    bool mask as it is) and on the gradients (float32 hidden gradient
+    quantized, float32 zeros for the mask), every kernel flag on, the
+    sharded fold over the merged full trees at ``server-momentum`` 0.9
+    then 0 (:func:`_run_protocol_path`: every quantize, dequantize,
+    momentum and finalize launch held bit for bit against its plain
+    version).  The launches are held to the count the round predicts:
+    one quantize and one dequantize a batch a direction (the mask is
+    never quantized); one momentum launch per parameter leaf of the model
+    in the momentum round, one finalize per leaf in the plain one."""
+    from split_learning_torch.models import build_model
+
+    out = _run_protocol_path(
+        "BERT protocol",
+        lambda m: bert_protocol_config(workdir / f"bert_protocol_{m}", m))
+    cfg = bert_protocol_config(workdir / "bert_protocol_count", 0.0)
+    leaves = len(build_model(cfg.model_key, device="meta",
+                             generator=torch.Generator()).state_dict())
+    batches = (cfg.clients[0] * cfg.distribution.num_samples
+               // cfg.learning.batch_size)
+    want = {0.9: {"quantize": 2 * batches, "dequantize": 2 * batches,
+                  "momentum": leaves, "finalize": 0},
+            0.0: {"quantize": 2 * batches, "dequantize": 2 * batches,
+                  "momentum": 0, "finalize": leaves}}
+    for m, counts in want.items():
+        got = out["runs"][str(m)]["launches"]
+        for name, n in counts.items():
+            check(got[name] == n, f"BERT protocol momentum {m}: {name} "
+                  f"launched {got[name]} times, predicted {n}")
+    out["predicted_launches"] = {str(m): c for m, c in want.items()}
+    out["param_leaves"] = leaves
+    print(f"  launches as predicted: {batches} batches x 2 directions, "
+          f"{leaves} parameter leaves")
     return out
 
 
@@ -2882,6 +3160,14 @@ def main() -> int:
         b3_proto = phase_baseline3_protocol(workdir)
         mark("baseline4_slice")
         b4_slice = phase_baseline4_slice(workdir)
+        mark("kwt_slice")
+        kwt_slice = phase_kwt_slice(workdir)
+        mark("variants")
+        variants = phase_variants(workdir)
+        mark("bert_slice")
+        bert_slice = phase_bert_slice(workdir)
+        mark("bert_protocol")
+        bert_proto = phase_bert_protocol(workdir)
     mark("summary")
     entries = []
     for name, r in kernels.items():
@@ -2900,6 +3186,9 @@ def main() -> int:
         by_path["baseline3_slice"] = b3_slice["launches"][name]
         by_path["baseline3_protocol"] = b3_proto["launches_total"][name]
         by_path["baseline4_slice"] = b4_slice["launches"][name]
+        by_path["kwt_slice"] = kwt_slice["launches"][name]
+        by_path["bert_slice"] = bert_slice["launches"][name]
+        by_path["bert_protocol"] = bert_proto["launches_total"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -2919,14 +3208,21 @@ def main() -> int:
                     for m, run in b3_proto["runs"].items()},
                 "baseline3_launches_held_bitwise": sum(
                     run["held"].get(name, {}).get("launches", 0)
-                    for run in b3_proto["runs"].values())}
+                    for run in b3_proto["runs"].values()),
+                "bert_launches_per_round": {
+                    f"server-momentum {m}": run["launches"][name]
+                    for m, run in bert_proto["runs"].items()},
+                "bert_launches_held_bitwise": sum(
+                    run["held"].get(name, {}).get("launches", 0)
+                    for run in bert_proto["runs"].values())}
         else:
             main_path = "protocol"
             per_round = proto["launches_per_round"][name]
             held = None
             extra_b3 = {}
         extra = {k: r[k] for k in ("shapes", "tinyllama_shapes", "frames",
-                                   "baseline3_shapes", "timed_at") if k in r}
+                                   "baseline3_shapes", "bert_shapes",
+                                   "timed_at") if k in r}
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -2951,7 +3247,10 @@ def main() -> int:
                       "strategies": strategies,
                       "baseline3_slice": b3_slice,
                       "baseline3_protocol": b3_proto,
-                      "baseline4_slice": b4_slice}))
+                      "baseline4_slice": b4_slice,
+                      "kwt_slice": kwt_slice, "variants": variants,
+                      "bert_slice": bert_slice,
+                      "bert_protocol": bert_proto}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

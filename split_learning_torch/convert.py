@@ -12,8 +12,19 @@ t}}``:
   same layout;
 * ``Embed.embedding`` <-> ``weight``;
 * ``RMSNorm``, ``LayerNorm`` and ``BatchNorm`` ``scale`` <-> ``weight``;
-* a ``bias`` <-> ``bias``, and the ViT's ``cls`` and ``pos`` <-> the
-  parameters of the same names.
+* a ``bias`` <-> ``bias``, and the ViT's ``cls`` and ``pos`` and KWT's
+  ``cls_token`` and ``pos_embed`` <-> the parameters of the same names.
+
+BERT's layers are nested modules of these (its embeddings' three
+``Embed`` tables and ``LayerNorm``, each block's ``attention``,
+``attention_norm``, ``intermediate``, ``output`` and ``output_norm``,
+the pooler's ``dense``, the head's ``classifier``), named as in flax.
+
+LoRA adapter trees (:mod:`split_learning_torch.ops.lora`) cross with
+:func:`from_jax_lora` / :func:`to_jax_lora`: the JAX package keeps
+``{"a": (in, r), "b": (r, out)}`` under a kernel's path, the port keeps
+``{"a": (r, in), "b": (out, r)}`` under the weight's dotted key — each
+factor transposed.
 
 The inverse needs the model to tell which flax name each ``weight``
 had: every parametric leaf module of the port names it in its
@@ -37,7 +48,7 @@ from split_learning_torch.models.split import SplitModel
 
 _LEAVES = ("kernel", "embedding", "scale", "bias")
 #: parameters that keep their flax name in the port
-_NAMED = ("cls", "pos")
+_NAMED = ("cls", "pos", "cls_token", "pos_embed")
 _STATS = ("mean", "var")
 
 
@@ -131,6 +142,44 @@ def to_jax_stats(stats: dict) -> dict:
             for part in inner:
                 node = node.setdefault(part, {})
             node[stat] = t.detach().cpu().numpy().copy()
+    return out
+
+
+def from_jax_lora(tree: dict) -> dict:
+    """JAX adapter tree (``{layer: {...: {"kernel": {"a", "b"}}}}`` of
+    numpy arrays) -> the port's (``{layer: {"dotted.weight": {"a",
+    "b"}}}`` of CPU tensors, each factor transposed)."""
+    out: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, dict) and set(node) == {"a", "b"}:
+            layer, *inner, leaf = path
+            if leaf != "kernel":
+                raise KeyError(f"adapter on a non-kernel leaf "
+                               f"{'/'.join(path)}")
+            out.setdefault(layer, {})[".".join([*inner, "weight"])] = {
+                n: torch.from_numpy(np.array(np.asarray(node[n]).T,
+                                             order="C"))
+                for n in ("a", "b")}
+            return
+        for k, v in node.items():
+            walk(v, path + (k,))
+
+    walk(tree, ())
+    return out
+
+
+def to_jax_lora(lora: dict) -> dict:
+    """The port's adapter tree -> the JAX package's layout (numpy)."""
+    out: dict = {}
+    for layer, entries in lora.items():
+        for key, entry in entries.items():
+            *inner, _ = key.split(".")
+            node = out.setdefault(layer, {})
+            for part in inner:
+                node = node.setdefault(part, {})
+            node["kernel"] = {n: np.ascontiguousarray(
+                entry[n].detach().cpu().numpy().T) for n in ("a", "b")}
     return out
 
 

@@ -46,7 +46,8 @@ class LayerSpec:
 
     ``make(device=..., generator=...)`` builds the layer's module
     (parametric layers); param-free ops set only ``fn``.  ``fn``
-    signature: ``fn(module_or_none, x, train)``.
+    signature: ``fn(module_or_none, x, train)``; ``x`` and the result may
+    be a tuple of tensors (BERT's ``(hidden, mask)`` boundary).
     """
     name: str
     make: Callable[..., nn.Module] | None = None

@@ -29,10 +29,21 @@ device holds every stage:
   new running statistics pending and the schedule keeps them once per
   microbatch, after that microbatch's backward, in microbatch order —
   the JAX scan carries them tick by tick — so a recomputed stage does
-  not update them twice.
+  not update them twice;
+* **pytree boundaries**: a cut may carry a tuple of tensors (BERT's
+  ``(hidden, mask)``).  Its float leaves cross as fresh leaves that
+  require grad and hand their gradients back; bool and int leaves carry
+  no gradient.  The ``wide`` width of a boundary sums its leaves, as
+  the JAX package's ``_tree_flat_size`` does;
+* **LoRA** (:attr:`PipelineModel.lora`): with an adapter tree set, each
+  stage runs on its merged weights (``ops/lora.py``
+  :func:`~split_learning_torch.ops.lora.lora_forward`), so the
+  gradients reach the adapters and whatever parameters still require
+  grad (the unfrozen classifier), and the frozen base stays constant —
+  the JAX package's ``make_lora_train_step``.
 
-The replicated/sliced multi-device layouts, TP/SP/EP and LoRA wait for
-later slices.
+The replicated/sliced multi-device layouts and TP/SP/EP wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -45,7 +56,44 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from split_learning_torch.models.split import SplitModel
+from split_learning_torch.ops.lora import lora_forward
 from split_learning_torch.parallel.mesh import stage_ranges
+
+
+def tree_leaves(x) -> list:
+    """The tensors of a boundary: a tensor, or a tuple/list of them."""
+    if isinstance(x, (tuple, list)):
+        return [t for item in x for t in tree_leaves(item)]
+    return [x]
+
+
+def float_leaves(x) -> list:
+    return [t for t in tree_leaves(x) if t.is_floating_point()]
+
+
+def cut_boundary(x):
+    """A boundary as the next stage receives it: every leaf detached,
+    the float ones requiring grad (a fresh leaf whose gradient is handed
+    back); bool and int leaves carry none."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(cut_boundary(t) for t in x)
+    return x.detach().requires_grad_(x.is_floating_point())
+
+
+def backward_boundary(out, grads) -> None:
+    """Backpropagate ``grads`` (one per float leaf of ``out``, None where
+    the next stage did not use the leaf) into the stage that produced
+    ``out``."""
+    pairs = [(o, g) for o, g in zip(float_leaves(out), grads)
+             if g is not None and o.requires_grad]
+    if pairs:
+        torch.autograd.backward([o for o, _ in pairs],
+                                [g.to(o.dtype) for o, g in pairs])
+
+
+def sample_width(x) -> int:
+    """Per-sample elements of a boundary, summed over its leaves."""
+    return sum(t[0].numel() for t in tree_leaves(x))
 
 
 class PipelineModel:
@@ -60,6 +108,10 @@ class PipelineModel:
     #: per-sample boundary width (elements) above which the ``wide``
     #: remat policy recomputes a stage
     REMAT_WIDE_THRESHOLD = 65536
+
+    #: ``(adapters, alpha, rank)`` to train LoRA adapters on the merged
+    #: weights, or None to train the stages' own parameters
+    lora: tuple | None = None
 
     def __init__(self, full_model: SplitModel, cuts: Sequence[int],
                  example_input: torch.Tensor, num_microbatches: int = 4,
@@ -80,10 +132,10 @@ class PipelineModel:
         # per-sample boundary widths: one sample through the stages
         with torch.no_grad():
             x = example_input[:1]
-            widths = [x[0].numel()]
+            widths = [sample_width(x)]
             for m in self.stage_models:
                 x = m(x, train=False)
-                widths.append(x[0].numel())
+                widths.append(sample_width(x))
         if remat == "all":
             self.stage_remat = [True] * self.n_stages
         elif remat == "none":
@@ -107,7 +159,11 @@ class PipelineModel:
                                reduction="none").mean()
 
     def _stage_apply(self, s: int, x, labels):
-        out = self.stage_models[s](x, train=True)
+        model = self.stage_models[s]
+        if self.lora is None:
+            out = model(x, train=True)
+        else:
+            out = lora_forward(model, *self.lora, x, train=True)
         if s == self.n_stages - 1:
             # streamed loss: reduce the logits inside the stage block
             return self.loss_from_logits(out, labels).float()
@@ -146,7 +202,7 @@ class PipelineModel:
             if s > 0:
                 # the cut: the next stage receives the activation as a
                 # fresh leaf; its gradient is handed back below
-                h = h.detach().requires_grad_(h.is_floating_point())
+                h = cut_boundary(h)
             if self.stage_remat[s]:
                 out = checkpoint(self._replaying(s), h, labels,
                                  use_reentrant=False)
@@ -161,9 +217,9 @@ class PipelineModel:
             if s == self.n_stages - 1:
                 (loss * loss_scale).backward()
             else:
-                outputs[s].backward(grad)
+                backward_boundary(outputs[s], grad)
             if s > 0:
-                grad = inputs[s].grad
+                grad = [t.grad for t in float_leaves(inputs[s])]
             outputs[s] = None   # free the stage's graph as soon as done
         self.full_model.commit_stats()
         return loss.detach()

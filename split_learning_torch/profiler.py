@@ -22,9 +22,11 @@ split_learning_torch.client --profile`` embeds in its REGISTER.
   package reads (:data:`XLA_STYLE_FLOPS`), so that both packages' flops
   profiles lead the planner to the same cuts.  Every layer of VGG16 and
   ResNet-50 counts as XLA does; a model holding a layer kind whose
-  count differs (:func:`check_flops_countable`: the ViT's pre-LN block
-  and CLS LayerNorm) is refused in this mode, naming the kind, rather
-  than profiled with a count that is wrong.
+  count differs (:func:`check_flops_countable`: the ViT's and KWT's
+  pre-LN block and CLS LayerNorm, BERT's embeddings, blocks, half-blocks
+  and tanh pooler) is refused in this mode, naming the kind, rather than
+  profiled with a count that is wrong.  A boundary that is a tuple
+  (BERT's ``(hidden, mask)``) sums its leaves' bytes.
 * ``speed`` is always the wall-clock samples/s of the full forward on
   the device (the GMM straggler selection compares it across devices).
 * ``network`` is measured through one of the port's transports
@@ -148,12 +150,19 @@ XLA_STYLE_FLOPS = {
 
 def _uncounted_kinds():
     """Layer kinds whose forward FLOPs :data:`XLA_STYLE_FLOPS` does not
-    count as XLA's cost analysis does: the LayerNorm, softmax and
+    count as XLA's cost analysis does: the LayerNorm, softmax, tanh and
     tanh-gelu chains (a ViT-S block counts 474543680 against XLA's
-    476188160, the CLS LayerNorm 5384 against 5386)."""
-    from split_learning_torch.models.transformer import PreLNBlock
+    476188160, the CLS LayerNorm 5384 against 5386) — in the ViT's and
+    KWT's blocks and CLS LayerNorms, and in BERT's embeddings (their
+    LayerNorm), blocks, half-blocks and pooler."""
+    from split_learning_torch.models.split import LayerNorm
+    from split_learning_torch.models.transformer import (
+        BertAttentionSublayer, BertBlock, BertEmbeddings, BertFfnSublayer,
+        Pooler, PreLNBlock,
+    )
     from split_learning_torch.models.vit import ClsNorm
-    return (PreLNBlock, ClsNorm)
+    return (PreLNBlock, ClsNorm, LayerNorm, BertEmbeddings, BertBlock,
+            BertAttentionSublayer, BertFfnSublayer, Pooler)
 
 
 def check_flops_countable(model: torch.nn.Module) -> None:

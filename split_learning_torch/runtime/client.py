@@ -16,6 +16,15 @@ One generic :class:`ShardRunner` plays the reference's three roles:
 * last stage: loss + backward, the input gradient returned along the
   popped trace; a NaN loss flags the round.
 
+A stage boundary may be a tuple of tensors (BERT's ``(hidden, mask)``):
+only its float leaves backpropagate, and the gradient of a bool or int
+leaf crosses the wire as zeros (:class:`~split_learning_torch.runtime.
+protocol.Float0`), as the JAX package sends its ``float0`` cotangent.
+With ``learning.lora-rank > 0`` a shard trains LoRA adapters drawn from
+its own generator at every START over its target kernels (and the
+classifier, on the last shard), the rest frozen, and its UPDATE carries
+the merged weights.
+
 Each client runs on the caller's device (CUDA unless the CPU is asked
 for).  Many client threads may share one card: every op launches on the
 thread's current stream, and tensors cross participants only as host
@@ -29,8 +38,8 @@ the tensor.
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): async decoupled mode and auxiliary heads, server-side data
 aggregation windows wider than one batch (DCSL SDA), sync-overlap ticks,
-LoRA adapters, FLEX hold STARTs without weights, the legacy int8 wire
-dtype.  Heartbeats, tracing spans and scheduler knobs are not emitted.
+FLEX hold STARTs without weights, the legacy int8 wire dtype.
+Heartbeats, tracing spans and scheduler knobs are not emitted.
 """
 
 from __future__ import annotations
@@ -48,15 +57,20 @@ from split_learning_torch.config import Config, LearningConfig
 from split_learning_torch.data import make_data_loader, subset_seed
 from split_learning_torch.device import resolve_device
 from split_learning_torch.models import build_model
-from split_learning_torch.parallel.pipeline import clip_by_global_norm
+from split_learning_torch.ops.lora import (
+    lora_forward, lora_init, lora_merge, lora_trainable, split_frozen,
+)
+from split_learning_torch.parallel.pipeline import (
+    backward_boundary, clip_by_global_norm, cut_boundary, tree_leaves,
+)
 from split_learning_torch.runtime.bus import QueueClosed, Transport
 from split_learning_torch.runtime.codec import make_codecs, wire_raw_nbytes
 from split_learning_torch.runtime.context import make_optimizer
 from split_learning_torch.runtime.log import Logger
 from split_learning_torch.runtime.protocol import (
-    RPC_QUEUE, Activation, EpochEnd, FrameAssembler, Gradient, Notify,
-    Pause, QuantLeaf, Ready, Register, Start, Stop, Syn, Update, encode,
-    encode_parts, gradient_queue, host_tensor, intermediate_queue,
+    RPC_QUEUE, Activation, EpochEnd, FrameAssembler, Float0, Gradient,
+    Notify, Pause, QuantLeaf, Ready, Register, Start, Stop, Syn, Update,
+    encode, encode_parts, gradient_queue, host_tensor, intermediate_queue,
     reply_queue,
 )
 from split_learning_torch.runtime.validation import (
@@ -88,8 +102,11 @@ def _map(fn, tree):
 def _to_wire_tree(tree, dtype: torch.dtype):
     """Device tree -> host payload: float leaves cast to the wire dtype
     on the device, then fetched (bfloat16 stays a CPU tensor, numpy
-    cannot hold it); others at their own dtype."""
+    cannot hold it); a :class:`Float0` gradient as zeros of the wire
+    dtype; others at their own dtype."""
     def conv(leaf):
+        if isinstance(leaf, Float0):
+            leaf = torch.zeros(leaf.shape, dtype=dtype)
         if not isinstance(leaf, torch.Tensor):
             return leaf
         t = leaf.detach()
@@ -134,17 +151,23 @@ class ShardRunner:
     package: the graph-free forward leaves them as they are, and
     :meth:`apply_update` keeps those of the backward's recompute (or of
     the last stage's one forward) with the optimizer step.  The
-    recompute replays the forward's dropout masks."""
+    recompute replays the forward's dropout masks.
+
+    With ``lora_rank > 0`` each :meth:`load` draws fresh adapters from
+    the runner's own generator (seeded from ``seed``, so each client has
+    its own) over the shard's target kernels; the model's last layer
+    trains too when this shard holds it, and every other parameter is
+    frozen.  A shard with neither (``lora_noop``) trains all its
+    parameters.  :meth:`state_tree` is then the merged weights."""
+
+    #: this round's LoRA adapters (None: the shard trains its parameters)
+    lora: dict | None = None
 
     def __init__(self, model_key: str, start_layer: int, end_layer: int,
                  learning: dict | None, model_kwargs: dict, device,
                  seed: int = 0):
         self.learning_dict = dict(learning or {})
         self.learning = learning_from_dict(learning)
-        if self.learning.lora_rank > 0:
-            raise NotImplementedError(
-                "learning.lora-rank > 0 (LoRA adapters, ops/lora.py) is not "
-                "ported yet; it comes with the fine-tuning slice")
         self.start_layer = start_layer
         self.end_layer = end_layer
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -153,59 +176,120 @@ class ShardRunner:
                                  **model_kwargs)
         self.model.train()
         self.optimizer = None
+        self.lora_noop = False
+        self._trainable: list = []
+        self._lora_gen = torch.Generator(device=device).manual_seed(seed)
+
+    @property
+    def is_final_shard(self) -> bool:
+        return (self.end_layer == -1
+                or self.end_layer >= len(self.model.specs))
+
+    def partition_params(self) -> list:
+        """The tensors this round trains (the JAX package's
+        ``partition_params``): every parameter without LoRA; with it,
+        fresh adapters over the target kernels plus the model's last
+        layer when this shard holds it."""
+        self.lora, self.lora_noop = None, False
+        lrn = self.learning
+        if lrn.lora_rank <= 0:
+            return list(self.model.parameters())
+        head = ([self.model.specs[-1].name] if self.is_final_shard
+                else [])
+        frozen, trained = split_frozen(self.model.state_tree(), head)
+        adapters = lora_init(self._lora_gen, frozen, self.model,
+                             targets=lrn.lora_targets, rank=lrn.lora_rank)
+        if not adapters and not trained:
+            # no target kernel and no classifier in this shard: freezing
+            # everything would train nothing
+            self.lora_noop = True
+            return list(self.model.parameters())
+        self.lora = adapters
+        return lora_trainable(self.model, adapters, list(trained))
 
     def load(self, params: dict, stats: dict | None = None) -> None:
         """Adopt a START shard (parameters and BatchNorm statistics) and
         a fresh optimizer (the reference rebuilds its optimizer every
-        round)."""
+        round) over this round's trainable tensors."""
         self.model.load_state_tree(params)
         self.model.load_stats_tree(stats or {})
-        self.optimizer = make_optimizer(self.learning,
-                                        self.model.parameters())
+        self._trainable = self.partition_params()
+        self.optimizer = make_optimizer(self.learning, self._trainable)
 
-    def fwd(self, x: torch.Tensor):
+    def _apply(self, x):
+        if self.lora is None:
+            return self.model(x, train=True)
+        lrn = self.learning
+        return lora_forward(self.model, self.lora, lrn.lora_alpha,
+                            lrn.lora_rank, x, train=True)
+
+    def fwd(self, x):
         """Forward without a graph: the backward recomputes it.  Returns
         (output, the dropout generators' states for that recompute)."""
         rng = self.model.rng_state()
         with torch.no_grad():
-            return self.model(x, train=True), rng
+            return self._apply(x), rng
 
-    def bwd(self, x: torch.Tensor, ct: torch.Tensor, rng: list):
+    @staticmethod
+    def _input_grads(xr):
+        """The gradient tree of a boundary input: each float leaf's
+        gradient (zeros where unused), :class:`Float0` for a bool or int
+        leaf of a tuple; None for a plain integer input (stage 1's
+        token ids: nothing upstream)."""
+        def grad(t):
+            if not t.is_floating_point():
+                return Float0(t.shape)
+            return t.grad if t.grad is not None else torch.zeros_like(t)
+        if isinstance(xr, tuple):
+            return tuple(grad(t) for t in xr)
+        return grad(xr) if xr.is_floating_point() else None
+
+    def bwd(self, x, ct, rng: list):
         """Recompute the forward with the masks of :meth:`fwd` (``rng``)
-        and backpropagate the received cotangent into the parameters'
-        ``.grad``; returns the input gradient (None for integer
-        inputs)."""
+        and backpropagate the received cotangent (of the output's float
+        leaves) into the trained tensors' ``.grad``; returns the input
+        gradient tree."""
         now = self.model.rng_state()
         self.model.set_rng_state(rng)
-        xr = x.detach().requires_grad_(x.is_floating_point())
-        out = self.model(xr, train=True)
+        xr = cut_boundary(x)
+        out = self._apply(xr)
         self.model.set_rng_state(now)
-        out.backward(ct.to(out.dtype))
-        return xr.grad
+        cts = [c for o, c in zip(tree_leaves(out), tree_leaves(ct))
+               if o.is_floating_point()]
+        backward_boundary(out, cts)
+        return self._input_grads(xr)
 
-    def last_step(self, x: torch.Tensor, labels: torch.Tensor):
+    def last_step(self, x, labels: torch.Tensor):
         """Last stage: float32 cross entropy, gradients into ``.grad``;
-        returns (loss, input gradient)."""
-        xr = x.detach().requires_grad_(x.is_floating_point())
-        logits = self.model(xr, train=True)
+        returns (loss, input gradient tree)."""
+        xr = cut_boundary(x)
+        logits = self._apply(xr)
         loss = F.cross_entropy(
             logits.float().reshape(-1, logits.shape[-1]),
             labels.reshape(-1).long())
         loss.backward()
-        return loss.detach(), xr.grad
+        return loss.detach(), self._input_grads(xr)
 
     def apply_update(self) -> None:
         """The optimizer step on the batch's gradients, and the batch's
         BatchNorm statistics kept."""
         self.model.commit_stats()
-        params = list(self.model.parameters())
         if self.learning.clip_grad_norm:
-            clip_by_global_norm(params, self.learning.clip_grad_norm)
+            clip_by_global_norm(self._trainable,
+                                self.learning.clip_grad_norm)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
     def state_tree(self) -> dict:
-        return self.model.state_tree()
+        """The shard's parameters; with LoRA the merged weights (peft's
+        ``merge_and_unload``)."""
+        tree = self.model.state_tree()
+        if self.lora is None:
+            return tree
+        lrn = self.learning
+        with torch.no_grad():
+            return lora_merge(tree, self.lora, lrn.lora_alpha,
+                              lrn.lora_rank)
 
     def stats_tree(self) -> dict:
         return self.model.stats_tree()
@@ -420,6 +504,10 @@ class ProtocolClient:
         self.runner.load(_from_wire_tree(msg.params, self.device),
                          _from_wire_tree(msg.batch_stats or {},
                                          self.device))
+        if self.runner.lora_noop:
+            self.log.warning(
+                "lora_rank set but no target kernels in this shard; "
+                "training full shard parameters instead")
         self._build_loader(msg)
 
     def _build_loader(self, msg: Start):

@@ -11,8 +11,11 @@ families.  Its shape is the JAX package's two-phase encoder:
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from split_learning_torch.runtime.protocol import Float0
 from split_learning_torch.runtime.codec.specs import (  # noqa: F401
     CODEC_COUNTERS, CODEC_FAMILIES, CodecSpec, CodecSpecError,
     parse_codec_map, parse_spec,
@@ -57,9 +60,12 @@ def make_codecs(cfg, faults=None) -> dict:
 
 def wire_raw_nbytes(tree, wire_dtype: torch.dtype) -> int:
     """Bytes this payload tree WOULD occupy on the plain (codec-less)
-    wire: float leaves at ``wire_dtype``, everything else at its own
-    width.  Shape-only — no device sync.  The denominator of the
-    compression ratio."""
+    wire: float leaves at ``wire_dtype``, a :class:`Float0` gradient at
+    4 bytes an element (as the JAX package counts a float0 leaf),
+    everything else at its own width.  Shape-only — no device sync.  The
+    denominator of the compression ratio."""
+    if isinstance(tree, Float0):
+        return 4 * math.prod(tree.shape)
     itemsize = torch.tensor([], dtype=wire_dtype).element_size()
     if isinstance(tree, dict):
         return sum(wire_raw_nbytes(v, wire_dtype) for v in tree.values())

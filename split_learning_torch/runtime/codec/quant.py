@@ -26,7 +26,9 @@ import torch
 from split_learning_torch.ops.kernels import as_plan
 from split_learning_torch.ops.kernels import quant as kquant
 from split_learning_torch.runtime.codec.specs import CodecSpec
-from split_learning_torch.runtime.protocol import QuantLeaf, host_tensor
+from split_learning_torch.runtime.protocol import (
+    Float0, QuantLeaf, host_tensor,
+)
 
 
 class DevQuant:
@@ -97,7 +99,8 @@ class QuantCodec:
 
     def prepare(self, tree, key: str = ""):
         """Device-side stage (training thread): float tensor leaves
-        become :class:`DevQuant` holders; other leaves pass through."""
+        become :class:`DevQuant` holders; bool and int leaves (and a
+        :class:`Float0` gradient) pass through."""
         kernel = as_plan(self._kernels).quantize
 
         def conv(leaf):
@@ -122,6 +125,10 @@ class QuantCodec:
                 return QuantLeaf(q=leaf.q.cpu().numpy(), scale=scale,
                                  bits=leaf.bits, tile=leaf.tile,
                                  shape=leaf.shape)
+            if isinstance(leaf, Float0):
+                # the JAX package's codec sends a float0 cotangent as
+                # float32 zeros, not quantized
+                return np.zeros(leaf.shape, np.float32)
             if isinstance(leaf, torch.Tensor):
                 t = leaf.detach().cpu()
                 return t if t.dtype == torch.bfloat16 else t.numpy()

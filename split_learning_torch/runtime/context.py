@@ -23,6 +23,7 @@ the microbatched split schedule.  The device-resident round fast path
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import numpy as np
@@ -34,6 +35,9 @@ from split_learning_torch.data import make_data_loader, subset_seed
 from split_learning_torch.device import resolve_device
 from split_learning_torch.models import SplitModel, build_model, shard_params
 from split_learning_torch.ops.fedavg import fedavg_trees
+from split_learning_torch.ops.lora import (
+    lora_init, lora_merge, lora_trainable, split_frozen,
+)
 from split_learning_torch.parallel.mesh import stage_ranges
 from split_learning_torch.parallel.pipeline import PipelineModel
 from split_learning_torch.runtime.plan import ClusterPlan
@@ -115,6 +119,8 @@ class _Column:
     pipe: PipelineModel
     optimizer: torch.optim.Optimizer
     loader: Any
+    #: the column's LoRA adapters, or None when it trains its parameters
+    lora: dict | None = None
 
 
 class TorchContext(TrainContext):
@@ -136,6 +142,15 @@ class TorchContext(TrainContext):
     shared later-stage client, which trains on every feeder's
     activations), so the group's columns hold equal shard parameters.
     The columns run one after another on the device.
+
+    With ``learning.lora-rank > 0`` every column trains LoRA adapters
+    over the target kernels of its model (:meth:`_lora_partition`) and
+    the classifier (the model's last layer); the rest of the model is
+    frozen.  The adapters' initial values are drawn once per context,
+    from ``cfg.seed``, and every column starts from them in every round,
+    so that a sync group's columns stay equal.  A column's trained
+    parameters are its merged weights (peft's ``merge_and_unload``): the
+    fold sees full trees, never adapters.
     """
 
     def __init__(self, cfg: Config, device=None):
@@ -154,6 +169,7 @@ class TorchContext(TrainContext):
         # column i > 0 trains on its own copy of the model
         self._columns: list[SplitModel] = [self.full_model]
         self._example = self._example_batch()
+        self._lora_init: dict | None = None
 
     def _build(self):
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
@@ -250,18 +266,54 @@ class TorchContext(TrainContext):
                     sync[spec.name] = groups
         return sync
 
+    def _lora_partition(self, model: SplitModel):
+        """(adapters, trainable tensors) of one column for a LoRA round:
+        fresh copies of the context's adapter init over the target
+        kernels of every layer but the last, that last layer (the
+        classifier) unfrozen, every other parameter frozen.  With no
+        target kernel in the model, the whole model trains, with a
+        warning (adapters None)."""
+        lrn = self.cfg.learning
+        head = self.specs[-1].name
+        if self._lora_init is None:
+            frozen, _ = split_frozen(model.state_tree(), [head])
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.cfg.seed)
+            self._lora_init = lora_init(gen, frozen, model,
+                                        targets=lrn.lora_targets,
+                                        rank=lrn.lora_rank)
+            if not self._lora_init:
+                warnings.warn(
+                    "lora_rank set but no target kernels in this model; "
+                    "training full parameters instead", stacklevel=3)
+        if not self._lora_init:
+            return None, model.parameters()
+        adapters = {layer: {key: {n: t.clone() for n, t in entry.items()}
+                            for key, entry in entries.items()}
+                    for layer, entries in self._lora_init.items()}
+        return adapters, lora_trainable(model, adapters, [head])
+
     # -- the round ----------------------------------------------------------
+
+    @staticmethod
+    def _trainables(c: _Column, name: str) -> dict:
+        """Layer ``name``'s parameters and its LoRA factors in column
+        ``c``."""
+        out = dict(c.model.layers[name].named_parameters())
+        for key, entry in (c.lora or {}).get(name, {}).items():
+            out.update({f"{key}.lora_{n}": t for n, t in entry.items()})
+        return out
 
     @torch.no_grad()
     def _sync_grads(self, cols: list[_Column], sync: dict) -> None:
-        """Average each synced layer's gradients within its groups: the
-        sum in column order, divided by the group size."""
+        """Average each synced layer's gradients (its LoRA factors' too)
+        within its groups: the sum in column order, divided by the group
+        size."""
         for name, groups in sync.items():
-            mods = [c.model.layers[name] for c in cols]
             for grp in groups:
                 if len(grp) < 2:
                     continue
-                per_col = [dict(mods[i].named_parameters()) for i in grp]
+                per_col = [self._trainables(cols[i], name) for i in grp]
                 for pname in per_col[0]:
                     grads = [p[pname].grad for p in per_col]
                     if any(g is None for g in grads):
@@ -337,6 +389,7 @@ class TorchContext(TrainContext):
         if not stage1:
             return []
         trees = per_client_params or {}
+        lrn = self.cfg.learning
         cols = []
         for i, cid in enumerate(stage1):
             model = self._column_model(i)
@@ -347,17 +400,28 @@ class TorchContext(TrainContext):
             # JAX package keys its dropout
             model.seed_dropout(i + round_idx * 1000)
             counts = plan.label_counts[plan.stage1_clients.index(cid)]
+            if lrn.lora_rank > 0:
+                adapters, trainable = self._lora_partition(model)
+            else:
+                adapters, trainable = None, model.parameters()
+            pipe = self._pipeline(plan.cuts, i)
+            pipe.lora = (None if adapters is None else
+                         (adapters, lrn.lora_alpha, lrn.lora_rank))
             cols.append(_Column(
-                model, self._pipeline(plan.cuts, i),
-                make_optimizer(self.cfg.learning, model.parameters(), lr),
-                self._loader(cid, counts, round_idx)))
+                model, pipe, make_optimizer(lrn, trainable, lr),
+                self._loader(cid, counts, round_idx), adapters))
         sync = self._sync_groups(plan, len(cols), sync_all_later_stages)
         losses, consumed = self._drive(cols, sync, epochs)
         trained = []
         for c in cols:
             c.optimizer = None   # its moments are re-initialised every round
-            trained.append((_clone(c.model.state_tree()),
-                            _clone(c.model.stats_tree())))
+            tree = c.model.state_tree()
+            if c.lora is not None:
+                # merge_and_unload: the fold sees merged full trees
+                with torch.no_grad():
+                    tree = lora_merge(tree, c.lora, lrn.lora_alpha,
+                                      lrn.lora_rank)
+            trained.append((_clone(tree), _clone(c.model.stats_tree())))
         return self._extract_updates(plan, stage1, trained, losses,
                                      consumed, sync)
 

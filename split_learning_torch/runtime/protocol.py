@@ -231,6 +231,17 @@ def host_tensor(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a)
 
 
+class Float0:
+    """The gradient of a boundary leaf that is not differentiable (a
+    bool or int leaf: BERT's padding mask), as JAX's ``float0``
+    cotangent: it crosses the wire as zeros of the leaf's shape —
+    float32 through a codec, the wire dtype on the plain wire — and the
+    sender of that activation ignores it."""
+
+    def __init__(self, shape):
+        self.shape = tuple(int(s) for s in shape)
+
+
 # --------------------------------------------------------------------------
 # serialization
 # --------------------------------------------------------------------------

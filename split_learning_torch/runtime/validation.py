@@ -5,7 +5,9 @@ the full model runs the test set in eval mode (BatchNorm normalises with
 the running statistics the caller loaded, dropout is the identity); a
 NaN or exploded loss marks the round failed, which the round loop uses
 to skip checkpointing.  Loss and accuracy are counted per token for
-token datasets.
+token datasets.  The full model takes the dataset's own inputs (token
+ids for BERT, whose layers pass the padding mask beside the hidden
+states to the pooler), so the pass is the same for every model.
 """
 
 from __future__ import annotations

@@ -152,6 +152,83 @@ def test_resnet_and_vit_run_with_jax_blocked():
     assert "new models ok" in proc.stdout
 
 
+#: the modules of the BERT and KWT slice
+TEXT_AUDIO = ("split_learning_torch.models.bert",
+              "split_learning_torch.models.kwt",
+              "split_learning_torch.ops.lora",
+              "split_learning_torch.data.mfcc",
+              "split_learning_torch.data.wordpiece")
+
+
+def test_bert_lora_and_kwt_train_with_jax_blocked(tmp_path):
+    """BERT with LoRA (in process and as the protocol round with the int8
+    codec) and KWT train, their data providers and the numpy MFCC run,
+    and flops-mode profiling refuses both models by layer kind, in a
+    process where JAX and the JAX package cannot be imported."""
+    assert set(TEXT_AUDIO) <= set(_port_modules())
+    bert = {"model": "BERT", "dataset": "AGNEWS", "clients": [1, 1],
+            "synthetic-size": 64, "val-max-batches": 1,
+            "val-batch-size": 4, "compute-dtype": "float32",
+            "model-kwargs": {"vocab_size": 64, "hidden_size": 16,
+                             "num_heads": 2, "intermediate_size": 32,
+                             "n_block": 1, "max_position_embeddings": 128},
+            "topology": {"cut-layers": [2]},
+            "distribution": {"num-samples": 8},
+            "learning": {"batch-size": 4, "control-count": 1,
+                         "optimizer": "adamw", "lora-rank": 4},
+            "checkpoint": {"save": False}, "log-path": str(tmp_path)}
+    kwt = dict(bert, model="KWT", dataset="SPEECHCOMMANDS",
+               **{"model-kwargs": {"embed_dim": 8, "num_heads": 2,
+                                   "mlp_dim": 16}},
+               learning={"batch-size": 4, "control-count": 2,
+                         "optimizer": "adamw"})
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "import numpy as np, torch",
+        f"for m in {TEXT_AUDIO!r}:",
+        "    __import__(m)",
+        "from split_learning_torch.config import from_dict",
+        "from split_learning_torch.run import run_local",
+        "from split_learning_torch.runtime.server import run_inproc",
+        "from split_learning_torch.data import get_dataset",
+        "from split_learning_torch.data.mfcc import compute_mfcc",
+        "from split_learning_torch import profiler",
+        f"bert, kwt = {bert!r}, {kwt!r}",
+        "for d in (bert, kwt):",
+        "    res = run_local(from_dict(d), device='cpu')",
+        "    assert [r.ok for r in res.history] == [True], res.history",
+        "    assert res.history[0].num_samples == 8",
+        "bert['transport'] = {'codec': {'intermediate': 'int8',"
+        " 'gradient': 'int8'}}",
+        "run = run_inproc(from_dict(bert), device='cpu', client_timeout=60)",
+        "assert [r.ok for r in run.result.history] == [True]",
+        "assert all(c.runner.lora is not None for c in run.clients)",
+        "for name in ('AGNEWS', 'EMOTION', 'SPEECHCOMMANDS'):",
+        "    assert len(get_dataset(name, synthetic_size=4)) == 4",
+        "assert compute_mfcc(np.zeros(16000) + 0.1).shape == (40, 98)",
+        "for key, kw, kinds in (('BERT_AGNEWS', bert['model-kwargs'],"
+        " ('BertBlock', 'BertEmbeddings', 'Pooler')),"
+        " ('KWT_SPEECHCOMMANDS', kwt['model-kwargs'],"
+        " ('PreLNBlock', 'LayerNorm'))):",
+        "    try:",
+        "        profiler.profile_model(key, 2, method='flops',"
+        " model_kwargs=kw, device='cpu')",
+        "        raise AssertionError('flops mode counted ' + key)",
+        "    except NotImplementedError as e:",
+        "        assert all(k in str(e) for k in kinds), e",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
+        " and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('bert and kwt ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "bert and kwt ok" in proc.stdout
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [
     ROOT / "chip_smoke.py"], ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_names_a_blocked_package(path):
