@@ -153,18 +153,34 @@ Phases, each fatal on failure:
    three stages, periodic and FedAsync; the fine-grained BERT_EMOTION in
    FedAvg), each to its end, its final validation loss and accuracy
    reported;
-21. bert_slice — BERT-base on AG-News with LoRA (rank 8, alpha 16, the
+21. variants_protocol — the seven KWT variants as the protocol round in
+   one process at KWT-1's published width (their ``model-kwargs``
+   dropped; batch 32, 128 samples a client, bf16, the int8 codec both
+   ways, the quantize, dequantize and stage-update kernels with the
+   sharded fold; strategy, clients, topology, rounds and SDA and FLEX
+   settings as written): relay's START cycles, FLEX's hold rounds (no
+   weight bytes), SDA's windows (distinct origins, at most sda-size,
+   every sample consumed; strict fences through a middle stage), 2LS's
+   pairs (each head hears its pair's feeders); every quantize,
+   dequantize and finalize launch held bit for bit and counted as
+   ``VARIANT_LAUNCHES`` predicts; then ``dcsl_strict_deep`` with a
+   stage-1 feeder that registers and never answers, dropped at READY,
+   each round completing with the live feeder's samples;
+22. variants_tcp — ``dcsl_strict`` at the same width as broker, server
+   and three client processes over TCP: the in-process samples, every
+   UPDATE folded, the predicted launches;
+23. bert_slice — BERT-base on AG-News with LoRA (rank 8, alpha 16, the
    default targets) in process (``configs/bert_lora_agnews.yaml``: full
    width, ``[2, 2]``, cut 4, batch 32, 512 samples a client, AdamW,
    bf16), 2 rounds, the frozen leaves unchanged and the adapted ones
    moved; then one round warm and traced;
-22. bert_protocol — the same model as the protocol round in one process:
+24. bert_protocol — the same model as the protocol round in one process:
    the int8 codec on the ``(hidden, mask)`` boundary both ways, every
    kernel flag on, the sharded fold at ``server-momentum`` 0.9 then 0;
    every quantize, dequantize, momentum and finalize launch held bit for
    bit against its plain version, and each count equal to the one the
    batches, directions and parameter leaves predict;
-23. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+25. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
@@ -1213,13 +1229,17 @@ def phase_profile(cfg) -> dict:
         res = run_local(cfg, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_end = time.perf_counter()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    # the trace's collection and key_averages(), outside the run
+    trace_s = time.perf_counter() - t_end
     busy_s = sum(_device_us(e) for e in kernels) / 1e6
     walls = [r.wall_s for r in res.history]
     print(f"  profiled run: round walls {[round(w, 3) for w in walls]} s, "
           f"run {wall:.3f} s, device busy {busy_s:.3f} s = "
-          f"{busy_s / wall:.1%} of the run (idle {1 - busy_s / wall:.1%})")
+          f"{busy_s / wall:.1%} of the run (idle {1 - busy_s / wall:.1%}); "
+          f"trace collection and key_averages {trace_s:.3f} s")
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     for e in top:
         print(f"    {_device_us(e) / 1e3:10.1f} ms {e.count:8d}x  "
@@ -1229,6 +1249,7 @@ def phase_profile(cfg) -> dict:
         print(f"    flash: {_device_us(e) / 1e3:.1f} ms {e.count}x  "
               f"{_kernel_name(e.key)}")
     return {"round_walls_s": walls, "run_wall_s": wall,
+            "trace_s": trace_s,
             "device_busy_s": busy_s, "idle_share": 1 - busy_s / wall,
             "top_kernels": [{"name": e.key[:120], "count": e.count,
                              "device_ms": _device_us(e) / 1e3}
@@ -2941,7 +2962,7 @@ def phase_baseline4_slice(workdir: pathlib.Path) -> dict:
 
 
 # --------------------------------------------------------------------------
-# 19-22. the reference's own BERT (LoRA) and KWT
+# 19-24. the reference's own BERT (LoRA) and KWT, and the variants
 # --------------------------------------------------------------------------
 
 KWT1 = "configs/kwt1_speechcommands.yaml"
@@ -3005,6 +3026,406 @@ def phase_variants(workdir: pathlib.Path) -> dict:
               f"{wall:.3f} s, samples {out[name]['samples']}, final "
               f"val_loss {last.val_loss:.4f} val_acc "
               f"{last.val_accuracy:.4f}")
+    return out
+
+
+#: the seven KWT variants of ``examples/variants`` (the eighth,
+#: ``bert_fine_grained.yaml``, is BERT_EMOTION in FedAvg)
+KWT_VARIANTS = ("2ls", "cluster_fsl", "dcsl", "dcsl_strict",
+                "dcsl_strict_deep", "flex", "vanilla_sl")
+#: the variants as the protocol round at KWT-1's width: samples a client
+#: and batch (the published config's batch; 4 batches a client an epoch)
+VARIANT_SAMPLES, VARIANT_BATCH = 128, 32
+#: each run's client timeout: every barrier but cluster_fsl's headless
+#: second cluster's (which no later-stage client serves, in both
+#: packages' plans) answers within a few seconds once the process has
+#: used the card (a cold first READY of eight clients took 8.2 s)
+VARIANT_TIMEOUT = 20.0
+#: launches over each variant's whole run, as PERF.md §6 predicted them
+#: before the first run: (quantize, dequantize, finalize).  One quantize
+#: and one dequantize a batch a direction a cut; one finalize a
+#: parameter leaf a stage a fold (KWT-1: 200 leaves, 3 in stage 1), the
+#: fold running for sda and cluster_relay only; cluster_fsl's headless
+#: cluster quantizes its feeders' control-count activations a round and
+#: nothing else of its data plane
+VARIANT_LAUNCHES = {"vanilla_sl": (48, 48, 0), "flex": (64, 64, 0),
+                    "dcsl": (64, 64, 400), "dcsl_strict": (64, 64, 400),
+                    "dcsl_strict_deep": (128, 128, 400),
+                    "2ls": (64, 64, 0), "cluster_fsl": (40, 32, 406)}
+#: the dropped-feeder run: the stage-1 client that registers and never
+#: answers, and the READY deadline that drops it
+GHOST, GHOST_READY_S = "client_1_1", 3.0
+
+
+def variant_protocol_config(workdir: pathlib.Path, name: str):
+    """``examples/variants/{name}.yaml`` as the protocol round at KWT-1's
+    published width: its ``model-kwargs`` dropped (embed 64, 1 head, MLP
+    256, 12 blocks, 40 x 98 MFCCs, as ``configs/kwt1_speechcommands.yaml``),
+    batch 32, 128 samples a client from a 512-clip synthetic set, bf16
+    compute, the int8 codec on both cut directions, the quantize,
+    dequantize and stage-update kernels with the sharded fold; strategy,
+    clients, topology, rounds, SDA and FLEX settings, learning rate and
+    ``limited-time`` as written."""
+    cfg = yaml_config(workdir, f"examples/variants/{name}.yaml")
+    return dataclasses.replace(
+        cfg, model_kwargs=None, compute_dtype="bfloat16",
+        synthetic_size=4 * VARIANT_SAMPLES,
+        learning=dataclasses.replace(cfg.learning,
+                                     batch_size=VARIANT_BATCH),
+        distribution=dataclasses.replace(cfg.distribution,
+                                         num_samples=VARIANT_SAMPLES),
+        transport=dataclasses.replace(
+            cfg.transport, codec={"intermediate": "int8",
+                                  "gradient": "int8"}),
+        kernels=dataclasses.replace(cfg.kernels, quantize=True,
+                                    dequantize=True, stage_update=True),
+        aggregation=dataclasses.replace(cfg.aggregation,
+                                        sharded=True)).validate()
+
+
+class _Choreography:
+    """Records, while installed, what the clients of a protocol run see:
+    each START (round, weights or none, extras), each SDA window (the
+    head, its origins and batch sizes, its width) and each UPDATE
+    (weights or none, samples, generation), by wrapping
+    ``ProtocolClient``'s methods (the real ones still run)."""
+
+    def __init__(self):
+        from split_learning_torch.runtime.client import ProtocolClient
+        self.cls = ProtocolClient
+        self.starts, self.windows, self.updates = [], [], []
+        self._orig = {k: getattr(ProtocolClient, k)
+                      for k in ("_on_start", "_sda_step", "_send_update")}
+        rec = self
+
+        def on_start(self, msg):
+            rec.starts.append({"client": self.client_id,
+                               "round": msg.round_idx,
+                               "weights": msg.params is not None,
+                               "cluster": msg.cluster,
+                               "extra": dict(msg.extra or {})})
+            return rec._orig["_on_start"](self, msg)
+
+        def sda_step(self, window):
+            rec.windows.append({"client": self.client_id,
+                                "origins": [a.trace[0] for a in window],
+                                "sizes": [len(a.labels) for a in window],
+                                "width": self.sda_size})
+            return rec._orig["_sda_step"](self, window)
+
+        def send_update(self, with_weights):
+            rec.updates.append({"client": self.client_id,
+                                "stage": self.stage, "gen": self.fence,
+                                "weights": with_weights,
+                                "samples": self.num_samples})
+            return rec._orig["_send_update"](self, with_weights)
+
+        for k, fn in (("_on_start", on_start), ("_sda_step", sda_step),
+                      ("_send_update", send_update)):
+            setattr(ProtocolClient, k, fn)
+
+    def restore(self) -> None:
+        for k, fn in self._orig.items():
+            setattr(self.cls, k, fn)
+
+
+def _variant_samples(cfg, plans, gone: tuple = ()) -> int:
+    """Training samples a round: every stage-1 client (but those in
+    ``gone``) of a plan whose last stage has a client, for each local
+    epoch (a plan without one feeds a queue nobody reads, and counts
+    nothing)."""
+    epochs = (cfg.aggregation.local_rounds
+              if cfg.aggregation.strategy == "sda" else 1)
+    return sum(len(set(p.stage1_clients) - set(gone))
+               * cfg.distribution.num_samples * epochs
+               for p in plans if p.clients[-1])
+
+
+def _check_choreography(name: str, cfg, plans, rec: _Choreography,
+                        history, log_path: pathlib.Path) -> dict:
+    """A variant's protocol run against its strategy's choreography:
+    every SDA window of distinct origins and at most its width, every
+    sample consumed; relay's START cycles; FLEX's hold rounds moving no
+    weights; 2LS's heads hearing only their pair's feeders."""
+    out = {}
+    for w in rec.windows:
+        check(len(set(w["origins"])) == len(w["origins"]) <= w["width"],
+              f"{name}: window {w}")
+    consumed = sum(sum(w["sizes"]) for w in rec.windows)
+    check(consumed == sum(r.num_samples for r in history),
+          f"{name}: heads consumed {consumed} samples of "
+          f"{sum(r.num_samples for r in history)}")
+    widths = sorted({len(w["origins"]) for w in rec.windows})
+    out["window_widths"] = widths
+    strategy = cfg.aggregation.strategy
+    if strategy == "relay":
+        want = cfg.global_rounds * sum(
+            len(p.stage1_clients) * (1 + sum(map(len, p.clients[1:])))
+            for p in plans)
+        check(len(rec.starts) == want, f"{name}: {len(rec.starts)} "
+              f"STARTs, relay's cycles send {want}")
+        out["starts"] = len(rec.starts)
+    if strategy == "periodic":
+        round_of = {s["extra"]["gen"]: s["round"] for s in rec.starts}
+        weighted = {"reply": set(), "rpc": set()}
+        for s in rec.starts:
+            if s["weights"]:
+                weighted["reply"].add(s["round"])
+        for u in rec.updates:
+            if u["weights"]:
+                weighted["rpc"].add(round_of[u["gen"]])
+        wire = [r for r in _metrics(log_path) if r.get("kind") == "wire"]
+        check(len(wire) == cfg.global_rounds, f"{name}: wire records "
+              f"{len(wire)}")
+        per = {"reply": [], "rpc": []}
+        for fam in per:
+            prev = 0
+            for r in wire:
+                per[fam].append(r[f"cumulative_{fam}_bytes"] - prev)
+                prev = r[f"cumulative_{fam}_bytes"]
+            top = max(per[fam])
+            for i, nb in enumerate(per[fam]):
+                if i not in weighted[fam]:
+                    check(nb < 0.01 * top, f"{name}: {fam} bytes "
+                          f"{per[fam]} (round {i} moves no weights)")
+        check(weighted["reply"] and weighted["rpc"]
+              and len(weighted["reply"]) < cfg.global_rounds
+              and len(weighted["rpc"]) < cfg.global_rounds,
+              f"{name}: rounds with weights {weighted}")
+        out["bytes_by_round"] = per
+        out["rounds_with_weights"] = {k: sorted(v)
+                                      for k, v in weighted.items()}
+        out["weighted_starts"] = sum(s["weights"] for s in rec.starts)
+        out["weighted_updates"] = sum(u["weights"] for u in rec.updates)
+    if cfg.topology.in_clusters > 1:
+        start_of = {s["client"]: s for s in rec.starts}
+        heard: dict = {}
+        for w in rec.windows:
+            heard.setdefault(w["client"], set()).update(w["origins"])
+        check(len(heard) == sum(len(p.clients[-1]) for p in plans),
+              f"{name}: heads {sorted(heard)}")
+        for head, origins in heard.items():
+            pair = set(start_of[head]["extra"]["sda_feeders"])
+            check(start_of[head]["extra"]["pair"] is not None
+                  and origins == pair,
+                  f"{name}: head {head} heard {origins}, its pair {pair}")
+        out["heard"] = {h: sorted(o) for h, o in heard.items()}
+    return out
+
+
+def _run_variant(name: str, cfg, run, gone: tuple = ()) -> dict:
+    """One variant run, ``run(cfg)`` returning (server, bus, result),
+    with every codec and stage-update launch held bit for bit
+    (:func:`_hold_on_path`) and the clients' choreography recorded
+    (:func:`_check_choreography`); every round ok with the samples of
+    its live feeders (all but ``gone``), the last validated with a
+    finite loss, and the quantizer handed bf16 activations and float32
+    gradients."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime.bus import queue_family
+    from split_learning_torch.runtime.plan import plan_clusters
+
+    held: dict = {}
+    seen: dict = {}
+    rec = _Choreography()
+    originals = _hold_on_path(kq, ku, held, seen)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        server, bus, result = run(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        rec.restore()
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
+    plans = plan_clusters(cfg, server.ctx.registrations)
+    hist = result.history
+    want = _variant_samples(cfg, plans, gone)
+    check(len(hist) == cfg.global_rounds
+          and all(r.ok and r.num_samples == want for r in hist),
+          f"{name}: rounds {[(r.ok, r.num_samples) for r in hist]}, "
+          f"expected {want} samples each")
+    last = hist[-1]
+    check(last.val_loss is not None and math.isfinite(last.val_loss),
+          f"{name}: last round not validated: {last}")
+    _check_held(name, cfg.aggregation.server_momentum, held, launches)
+    check(seen.get("torch.float32", 0) and seen.get("torch.bfloat16", 0),
+          f"{name}: the quantizer was not handed both frame dtypes: {seen}")
+    fam: dict = {}
+    for q, nb in bus.bytes_out_snapshot().items():
+        fam[queue_family(q)] = fam.get(queue_family(q), 0) + nb
+    out = {"strategy": cfg.aggregation.strategy,
+           "clients": list(cfg.clients), "run_wall_s": wall,
+           "rounds": [{"round": r.round_idx, "wall_s": r.wall_s,
+                       "samples": r.num_samples, "val_loss": r.val_loss,
+                       "val_accuracy": r.val_accuracy} for r in hist],
+           "phases": server.ctx.round_phases, "bytes_by_family": fam,
+           "launches": launches,
+           "held": {k: {"launches": h["launches"], "s": h["s"]}
+                    for k, h in held.items()},
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           **_check_choreography(name, cfg, plans, rec, hist,
+                                 pathlib.Path(cfg.log_path))}
+    out["origins"] = sorted({o for w in rec.windows for o in w["origins"]})
+    print(f"  {name}: {cfg.aggregation.strategy} clients="
+          f"{list(cfg.clients)} run {wall:.3f} s; round walls "
+          + ", ".join(f"{r.wall_s:.3f}" for r in hist)
+          + f" s; samples {[r.num_samples for r in hist]}; final val_loss "
+          f"{last.val_loss:.4f} val_acc {last.val_accuracy:.4f}; windows "
+          f"of {out['window_widths']}; bytes by family {fam}; launches "
+          f"{launches}; holding {sum(h['s'] for h in held.values()):.3f} s;"
+          f" peak memory {out['max_memory_allocated_bytes'] / 2**30:.2f} "
+          "GiB")
+    for i, p in enumerate(server.ctx.round_phases):
+        print(f"    train_cluster {i}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in p.items()))
+    return out
+
+
+def _check_variant_launches(name: str, launches: dict) -> None:
+    """A variant run's launches against :data:`VARIANT_LAUNCHES`; every
+    other kernel (momentum: the variants fold without server momentum;
+    the flash kernels: KWT's attention is plain) launched 0 times."""
+    want = dict(zip(("quantize", "dequantize", "finalize"),
+                    VARIANT_LAUNCHES[name]))
+    for k, n in launches.items():
+        check(n == want.get(k, 0), f"{name}: {k} launched {n} times, "
+              f"predicted {want.get(k, 0)}")
+
+
+def _inproc_variant(cfg) -> tuple:
+    server, _, bus, result = run_protocol(cfg, timeout=VARIANT_TIMEOUT)
+    return server, bus, result
+
+
+def _run_ghost(cfg, timeout: float = 120.0) -> tuple:
+    """The protocol round in one process with :data:`GHOST` registering
+    (so that the plan counts it) and never answering START: the server
+    on the card in this thread with a READY deadline of
+    :data:`GHOST_READY_S`, a client thread for every other client."""
+    from split_learning_torch.runtime.bus import InProcTransport
+    from split_learning_torch.runtime.client import ProtocolClient
+    from split_learning_torch.runtime.log import Logger
+    from split_learning_torch.runtime.protocol import (
+        RPC_QUEUE, Register, encode,
+    )
+    from split_learning_torch.runtime.server import ProtocolServer
+
+    bus = InProcTransport()
+    server = ProtocolServer(cfg, bus, logger=Logger.for_run(
+        cfg, "server", console=False), client_timeout=timeout,
+        ready_timeout=GHOST_READY_S, device=DEVICE)
+    clients = [ProtocolClient(cfg, f"client_{s}_{i}", s, bus, device=DEVICE)
+               for s, n in enumerate(cfg.clients, start=1)
+               for i in range(n) if f"client_{s}_{i}" != GHOST]
+    errors: list = []
+
+    def run(client):
+        try:
+            client.run()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors.append((client.client_id, e))
+            bus.close()
+
+    threads = [threading.Thread(target=run, args=(c,), daemon=True)
+               for c in clients]
+    for t in threads:
+        t.start()
+    bus.publish(RPC_QUEUE, encode(Register(client_id=GHOST, stage=1)))
+    try:
+        result = server.serve()
+    except Exception as e:
+        raise SmokeFailure(f"dropped-feeder run failed: {e!r} (clients: "
+                           f"{errors})") from e
+    for t in threads:
+        t.join(timeout=120)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"dropped-feeder run: clients {errors}")
+    return server, bus, result
+
+
+def phase_variants_protocol(workdir: pathlib.Path) -> dict:
+    """The seven KWT variants as the protocol round in one process
+    (``run_inproc``) at KWT-1's width (:func:`variant_protocol_config`),
+    each checked by :func:`_run_variant` and its launches held to
+    :data:`VARIANT_LAUNCHES`; then ``dcsl_strict_deep`` once more with
+    :data:`GHOST` registering and never answering START: dropped at the
+    READY barrier, the strict head told the live feeder set with SYN,
+    each round completes with the live feeder's samples well before the
+    round timeout."""
+    out = {}
+    for name in KWT_VARIANTS:
+        cfg = variant_protocol_config(workdir / f"vp_{name}", name)
+        out[name] = _run_variant(name, cfg, _inproc_variant)
+        _check_variant_launches(name, out[name]["launches"])
+    cfg = variant_protocol_config(workdir / "vp_ghost", "dcsl_strict_deep")
+    timeout = 120.0
+    ghost = _run_variant("dcsl_strict_deep with a dropped feeder", cfg,
+                         lambda c: _run_ghost(c, timeout), gone=(GHOST,))
+    check(all(r["wall_s"] < timeout / 4 for r in ghost["rounds"]),
+          f"dropped feeder: round walls {ghost['rounds']}")
+    check(ghost["origins"] == ["client_1_0"],
+          f"dropped feeder: the head heard {ghost['origins']}")
+    out["dropped_feeder"] = ghost
+    return out
+
+
+def phase_variants_tcp(workdir: pathlib.Path, inproc: dict,
+                       timeout: float = 300.0) -> dict:
+    """``dcsl_strict`` at KWT-1's width (:func:`variant_protocol_config`)
+    in its deployment shape (:func:`_run_tcp`: a broker, the server and
+    three client processes over TCP, with the async sender), so that the
+    strict fences cross a real broker's per-queue FIFO: each round ok
+    with the in-process run's samples, every UPDATE folded, the last
+    round validated with a finite loss, and the launches across the
+    processes equal to :data:`VARIANT_LAUNCHES`."""
+    name = "dcsl_strict"
+    cfg, wall, stats, reports, card_peak_mib = _run_tcp(
+        workdir / "vp_tcp", lambda d: variant_protocol_config(d, name),
+        timeout)
+    launches = {k: sum(r["launches"].get(k, 0) for r in reports.values())
+                for k in reports["server"]["launches"]}
+    records = _metrics(pathlib.Path(cfg.log_path))
+    rounds = sorted((r for r in records if r.get("kind") == "round"),
+                    key=lambda r: r["round_idx"])
+    phases = [r for r in records if r.get("kind") == "phases"]
+    aggs = [r for r in records if r.get("kind") == "agg"]
+    check(len(rounds) == len(aggs) == cfg.global_rounds,
+          f"{name} over TCP: {len(rounds)} rounds, {len(aggs)} folds")
+    for rec, agg, want in zip(rounds, aggs, inproc[name]["rounds"]):
+        check(rec["ok"] and rec["num_samples"] == want["samples"],
+              f"{name} over TCP: round {rec}, in process {want}")
+        check(agg["folded"] == sum(cfg.clients),
+              f"{name} over TCP: folded {agg['folded']}")
+    check(math.isfinite(rounds[-1]["val_loss"]),
+          f"{name} over TCP: last round {rounds[-1]}")
+    _check_variant_launches(name, launches)
+    out = {"run_wall_s": wall,
+           "rounds": [{"round": r["round_idx"], "wall_s": r["wall_s"],
+                       "samples": r["num_samples"],
+                       "val_loss": r["val_loss"]} for r in rounds],
+           "phases": [{k: v for k, v in p.items() if k.endswith("_s")}
+                      for p in phases],
+           "launches": launches,
+           "broker_published_bytes_by_family":
+               stats["published_bytes_by_family"],
+           "processes": {n: {k: r[k] for k in (
+               "wall_s", "max_memory_allocated_bytes", "sender")}
+               for n, r in reports.items()},
+           "card_memory_used_peak_mib": card_peak_mib}
+    print(f"  {name} over TCP: run {wall:.3f} s; round walls "
+          + ", ".join(f"{r['wall_s']:.3f}" for r in out["rounds"])
+          + f" s (in process "
+          + ", ".join(f"{r['wall_s']:.3f}" for r in inproc[name]["rounds"])
+          + f"); samples {[r['samples'] for r in out['rounds']]}; phases "
+          f"{out['phases']}; broker bytes by family "
+          f"{out['broker_published_bytes_by_family']}; launches {launches};"
+          f" card memory peak {card_peak_mib} MiB")
     return out
 
 
@@ -3164,6 +3585,10 @@ def main() -> int:
         kwt_slice = phase_kwt_slice(workdir)
         mark("variants")
         variants = phase_variants(workdir)
+        mark("variants_protocol")
+        variants_proto = phase_variants_protocol(workdir)
+        mark("variants_tcp")
+        variants_tcp = phase_variants_tcp(workdir, variants_proto)
         mark("bert_slice")
         bert_slice = phase_bert_slice(workdir)
         mark("bert_protocol")
@@ -3189,6 +3614,11 @@ def main() -> int:
         by_path["kwt_slice"] = kwt_slice["launches"][name]
         by_path["bert_slice"] = bert_slice["launches"][name]
         by_path["bert_protocol"] = bert_proto["launches_total"][name]
+        by_path["variants_protocol"] = sum(
+            variants_proto[v]["launches"][name] for v in KWT_VARIANTS)
+        by_path["variants_protocol_dropped_feeder"] = variants_proto[
+            "dropped_feeder"]["launches"][name]
+        by_path["variants_tcp"] = variants_tcp["launches"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -3214,7 +3644,13 @@ def main() -> int:
                     for m, run in bert_proto["runs"].items()},
                 "bert_launches_held_bitwise": sum(
                     run["held"].get(name, {}).get("launches", 0)
-                    for run in bert_proto["runs"].values())}
+                    for run in bert_proto["runs"].values()),
+                "variants_protocol_launches": {
+                    v: variants_proto[v]["launches"][name]
+                    for v in (*KWT_VARIANTS, "dropped_feeder")},
+                "variants_protocol_launches_held_bitwise": sum(
+                    r["held"].get(name, {}).get("launches", 0)
+                    for r in variants_proto.values())}
         else:
             main_path = "protocol"
             per_round = proto["launches_per_round"][name]
@@ -3249,6 +3685,8 @@ def main() -> int:
                       "baseline3_protocol": b3_proto,
                       "baseline4_slice": b4_slice,
                       "kwt_slice": kwt_slice, "variants": variants,
+                      "variants_protocol": variants_proto,
+                      "variants_tcp": variants_tcp,
                       "bert_slice": bert_slice,
                       "bert_protocol": bert_proto}))
     print(json.dumps({"kernels": entries}))

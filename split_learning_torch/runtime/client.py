@@ -14,7 +14,18 @@ One generic :class:`ShardRunner` plays the reference's three roles:
   backpropagates the received cotangent;
 * middle stages: trace-routed forward/backward relay;
 * last stage: loss + backward, the input gradient returned along the
-  popped trace; a NaN loss flags the round.
+  popped trace; a NaN loss flags the round.  Under SDA (DCSL) the head
+  gathers a window of batches from distinct feeders and steps them as
+  one concatenated batch, splitting the input gradient back per origin:
+  the elastic window flushes a partial window when idle, the strict one
+  waits for every feeder and drains leftovers only behind the feeders'
+  epoch fences (relayed by middle stages at their quorum of copies).
+
+The data plane follows the START: a 2LS pair's own forward queue, or
+DCSL's round-robin scatter over the next stage's per-device queues.  A
+START without weights (FLEX's hold round) keeps the shard, its optimizer
+state and the loader's position, and a PAUSE that asks for no weights
+gets an UPDATE with sample counts only.
 
 A stage boundary may be a tuple of tensors (BERT's ``(hidden, mask)``):
 only its float leaves backpropagate, and the gradient of a bool or int
@@ -36,15 +47,15 @@ run in a thunk on the sender thread, on the CUDA stream that produced
 the tensor.
 
 Left out (each raises ``NotImplementedError`` when its config asks for
-it): async decoupled mode and auxiliary heads, server-side data
-aggregation windows wider than one batch (DCSL SDA), sync-overlap ticks,
-FLEX hold STARTs without weights, the legacy int8 wire dtype.
-Heartbeats, tracing spans and scheduler knobs are not emitted.
+it): async decoupled mode and auxiliary heads, sync-overlap ticks (and
+their speculative forwards across a hold START), the legacy int8 wire
+dtype.  Heartbeats, tracing spans and scheduler knobs are not emitted.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 import uuid
 import zlib
 from typing import Any
@@ -132,6 +143,28 @@ def _from_wire_tree(tree, device: torch.device):
     return _map(conv, tree)
 
 
+def _concat(trees: list):
+    """One boundary tree of a window's batches, leaf by leaf along the
+    batch axis (a window of one is its batch as it is)."""
+    if len(trees) == 1:
+        return trees[0]
+    if isinstance(trees[0], tuple):
+        return tuple(torch.cat(leaves) for leaves in zip(*trees))
+    return torch.cat(trees)
+
+
+def _rows(tree, off: int, n: int):
+    """Rows ``off:off + n`` of a gradient tree (a :class:`Float0` leaf
+    by its shape)."""
+    def rows(leaf):
+        if isinstance(leaf, Float0):
+            return Float0((n, *leaf.shape[1:]))
+        return leaf[off:off + n]
+    if isinstance(tree, tuple):
+        return tuple(rows(leaf) for leaf in tree)
+    return rows(tree)
+
+
 @dataclasses.dataclass
 class _AbortPause(Pause):
     """Local sentinel: the round was abandoned (STOP/fresh START arrived
@@ -214,6 +247,14 @@ class ShardRunner:
         self.model.load_state_tree(params)
         self.model.load_stats_tree(stats or {})
         self._trainable = self.partition_params()
+        self.optimizer = make_optimizer(self.learning, self._trainable)
+
+    def relearn(self, learning: dict | None) -> None:
+        """New learning settings (an lr decay) over the kept weights and
+        trained tensors: a fresh optimizer, as the reference builds one
+        at every START."""
+        self.learning_dict = dict(learning or {})
+        self.learning = learning_from_dict(learning)
         self.optimizer = make_optimizer(self.learning, self._trainable)
 
     def _apply(self, x):
@@ -351,8 +392,18 @@ class ProtocolClient:
         self.raw_bytes_out: dict[str, int] = {}
         self.runner: ShardRunner | None = None
         self.loader = None
+        self._loader_counts: list | None = None
         self.epochs = 1
         self.fence = 0
+        # the data plane, from START (SDA overrides from SYN): the SDA
+        # window, strict SDA's fence quorum and feeder set, the 2LS pair
+        # queue, the DCSL scatter peers
+        self.sda_size = 1
+        self.sda_strict = False
+        self.sda_fence_quorum = 1
+        self.sda_feeders: list | None = None
+        self.pair = None
+        self.sda_peers: list | None = None
         self.n_stages = cfg.num_stages
         self.round_ok = True
         self.num_samples = 0
@@ -477,18 +528,19 @@ class ProtocolClient:
         self.cluster = msg.cluster
         extra = msg.extra or {}
         self.epochs = int(extra.get("epochs", 1))
-        if int(extra.get("sda_size", 1)) > 1:
-            raise NotImplementedError(
-                "server-side data aggregation windows (sda-size > 1, DCSL) "
-                "are not ported to the protocol yet (ROADMAP.md A.4)")
         # server-assigned per-invocation generation: stamps every message
         # this client sends so strays from an abandoned invocation drop
         self.fence = int(extra.get("gen", msg.round_idx))
         self.n_stages = int(extra.get("n_stages", self.cfg.num_stages))
+        self.sda_size = int(extra.get("sda_size", 1))
+        self.sda_strict = bool(extra.get("sda_strict", False))
+        self.sda_fence_quorum = int(extra.get("sda_fence_quorum", 1))
+        self.sda_feeders = extra.get("sda_feeders")
+        self.pair = extra.get("pair")
+        self.sda_peers = extra.get("sda_peers")
         if msg.params is None:
-            raise NotImplementedError(
-                "START without weights (FLEX client-side persistence) is "
-                "not ported to the protocol yet (ROADMAP.md A.4)")
+            self._hold(msg)
+            return
         r = self.runner
         if (r is None or (r.start_layer, r.end_layer)
                 != (msg.start_layer, msg.end_layer)
@@ -510,6 +562,33 @@ class ProtocolClient:
                 "training full shard parameters instead")
         self._build_loader(msg)
 
+    def _hold(self, msg: Start) -> None:
+        """A START without weights (FLEX's hold round,
+        ``other/FLEX/src/Server.py:220-226``): the shard, its optimizer
+        state and the loader's position stay.  New learning settings
+        give a fresh optimizer over the kept weights
+        (:meth:`ShardRunner.relearn`), as does a hold after an UPDATE
+        that carried the weights (which freed the moments); the loader
+        is rebuilt when ``distribution.refresh`` re-samples every round
+        or the START's label counts moved."""
+        r = self.runner
+        if r is None or (r.start_layer, r.end_layer) != (
+                msg.start_layer, msg.end_layer):
+            raise RuntimeError(
+                "START without params but no matching local shard "
+                f"(layers [{msg.start_layer}, {msg.end_layer}])")
+        if r.learning_dict != dict(msg.learning or {}) \
+                or r.optimizer is None:
+            r.relearn(msg.learning)
+            self.log.info("fresh optimizer over the kept weights")
+        else:
+            self.log.info("keeping local shard weights (no re-seed)")
+        if (self.stage == 1 and msg.label_counts is not None
+                and ((msg.extra or {}).get("refresh")
+                     or [int(c) for c in msg.label_counts]
+                     != self._loader_counts)):
+            self._build_loader(msg)
+
     def _build_loader(self, msg: Start):
         """(Re)build the stage-1 data loader from a START's label counts:
         per-client subset seed, re-salted per round under
@@ -525,9 +604,18 @@ class ProtocolClient:
                 synthetic_size=self.cfg.synthetic_size,
                 dataset_kwargs=dataset_kwargs_for_model(
                     self.cfg.model_key, self.cfg.model_kwargs))
+            # a hold START rebuilds the loader when its counts move
+            self._loader_counts = [int(c) for c in msg.label_counts]
 
     def _on_syn(self, msg: Syn):
         self.log.info(f"[<<<] SYN round={msg.round_idx}")
+        # the server's responsive-set overrides: a previous-stage client
+        # dropped at the READY barrier must not leave this one waiting
+        # for fence copies or fences that never come
+        if msg.sda_fence_quorum is not None:
+            self.sda_fence_quorum = int(msg.sda_fence_quorum)
+        if msg.sda_feeders is not None:
+            self.sda_feeders = list(msg.sda_feeders)
         self.round_ok = True
         self._ok_dev = torch.ones((), dtype=torch.bool, device=self.device)
         self.num_samples = 0
@@ -563,9 +651,12 @@ class ProtocolClient:
             round_idx=self.fence, version=self.fence)
         self._publish_parts(
             RPC_QUEUE, lambda: encode_parts(msg, self._chunk_bytes))
-        # the next START re-initialises the moments anyway: free them now,
-        # while the server folds, rather than holding them on the card
-        self.runner.optimizer = None
+        if with_weights:
+            # the server folds the weights and the next START re-seeds
+            # the shard with a fresh optimizer: free the moments now,
+            # while the server folds, rather than holding them on the
+            # card.  Without weights the shard is held, moments and all
+            self.runner.optimizer = None
         self.log.info(f"[>>>] UPDATE samples={self.num_samples} "
                       f"ok={self.round_ok}"
                       + ("" if with_weights else " (no weights)"))
@@ -642,19 +733,37 @@ class ProtocolClient:
             self._chunk_bytes))
 
     def _train_first(self) -> Pause:
-        """Bounded-in-flight 1F1B streaming (``src/train/VGG16.py:61-136``)."""
+        """Bounded-in-flight 1F1B streaming (``src/train/VGG16.py:61-136``)
+        over :meth:`_out_queues`; under strict SDA each epoch's last
+        batch is followed by an :class:`EpochEnd` fence down every
+        out-queue."""
         r = self.runner
         inflight: dict[str, _Inflight] = {}
         grad_q = gradient_queue(self.stage, self.client_id)
-        out_q = intermediate_queue(self.stage, self.cluster)
+        out_qs = self._out_queues()
         cap = max(1, r.learning.control_count)
         n_fwd = n_bwd = 0
-        for _ in range(self.epochs):
+
+        def fence_epoch(ep: int) -> None:
+            # right after the epoch's last activation (per-queue FIFO
+            # orders it last) and before this client's gradient wait:
+            # the strict head drains the leftovers whose gradients that
+            # wait needs only behind the fence
+            if self.sda_strict and self.sda_size > 1:
+                for q in out_qs:
+                    self.bus.publish(q, encode(EpochEnd(
+                        client_id=self.client_id, round_idx=self.fence,
+                        epoch=ep)))
+
+        for ep in range(self.epochs):
             data_iter = iter(self.loader)
             # prefetch one batch: exhaustion must be known at the LAST
-            # dispatch, not when the in-flight cap next frees
+            # dispatch, not when the in-flight cap next frees (a strict
+            # head holds this feeder's batches until the fence)
             next_item = next(data_iter, None)
             exhausted = next_item is None
+            if exhausted:
+                fence_epoch(ep)
             while not (exhausted and n_fwd == n_bwd):
                 raw = self.bus.get(grad_q, timeout=0.0005)
                 if raw is not None:
@@ -683,24 +792,47 @@ class ProtocolClient:
                 out, rng = r.fwd(x)
                 inflight[data_id] = _Inflight(x=x, trace=[self.client_id],
                                               n=len(labels), rng=rng)
-                self._send_activation(out, out_q, data_id,
+                self._send_activation(out, out_qs[n_fwd % len(out_qs)],
+                                      data_id,
                                       np.asarray(labels, np.int32),
                                       [self.client_id])
                 n_fwd += 1
                 if next_item is None:
                     exhausted = True
+                    fence_epoch(ep)
         self.bus.publish(RPC_QUEUE, encode(Notify(
             client_id=self.client_id, cluster=self.cluster,
             round_idx=self.fence)))
         self.log.info(f"[>>>] NOTIFY fwd={n_fwd} bwd={n_bwd}")
         return self._wait_pause()
 
+    def _out_queues(self) -> list[str]:
+        """Forward queues: the next stage's per-device queues when
+        ``sda_peers`` is set (DCSL's round-robin scatter,
+        ``other/DCSL/src/Scheduler.py:21-26, :110-133``), the rotation's
+        start staggered by a stable hash of this client's id so that
+        feeders do not convoy onto one head; else the one shared (or
+        2LS pair) queue."""
+        if self.sda_peers:
+            qs = [intermediate_queue(self.stage, self.cluster, p)
+                  for p in self.sda_peers]
+            off = zlib.crc32(self.client_id.encode()) % len(qs)
+            return qs[off:] + qs[:off]
+        return [intermediate_queue(self.stage, self.cluster, self.pair)]
+
     def _train_middle(self) -> Pause:
+        """Trace-routed relay.  A strict-SDA fence goes on down every
+        out-queue once, when its quorum of copies (one from each
+        previous-stage client) has arrived: this loop forwards on
+        receipt, so every activation it fences has gone ahead of it."""
         r = self.runner
-        in_q = intermediate_queue(self.stage - 1, self.cluster)
-        out_q = intermediate_queue(self.stage, self.cluster)
+        in_q = intermediate_queue(self.stage - 1, self.cluster, self.pair)
+        out_qs = self._out_queues()
         grad_q = gradient_queue(self.stage, self.client_id)
         inflight: dict[str, _Inflight] = {}
+        fence_copies: dict[tuple[str, int], int] = {}
+        quorum = max(1, self.sda_fence_quorum)
+        n_fwd = 0
         while True:
             pause = self._check_pause()
             if pause is not None:
@@ -721,45 +853,148 @@ class ProtocolClient:
             if raw is None:
                 continue
             act = self._decode(raw, in_q)
-            if act is None or act.round_idx != self.fence \
-                    or isinstance(act, EpochEnd):
-                continue   # corrupt, from a dropped round, or a fence
+            if act is None or act.round_idx != self.fence:
+                continue   # corrupt, or from a dropped round
+            if isinstance(act, EpochEnd):
+                key = (act.client_id, act.epoch)
+                fence_copies[key] = fence_copies.get(key, 0) + 1
+                if fence_copies[key] == quorum:
+                    for q in out_qs:
+                        self.bus.publish(q, raw)
+                continue
             x = _from_wire_tree(act.data, self.device)
             out, rng = r.fwd(x)
             inflight[act.data_id] = _Inflight(x=x, trace=list(act.trace),
                                               n=len(act.labels), rng=rng)
-            self._send_activation(out, out_q, act.data_id,
-                                  act.labels,
+            self._send_activation(out, out_qs[n_fwd % len(out_qs)],
+                                  act.data_id, act.labels,
                                   list(act.trace) + [self.client_id])
+            n_fwd += 1
 
     def _train_last(self) -> Pause:
         """Loss + backward + routed input-gradient return
-        (``src/train/VGG16.py:138-191``), one received batch a step (the
-        SDA window of one)."""
-        in_q = intermediate_queue(self.stage - 1, self.cluster)
+        (``src/train/VGG16.py:138-191``), a window of batches a step
+        (:meth:`_sda_step`; DCSL's SDA, ``other/DCSL/src/Scheduler.py:
+        152-191``): one batch from each of ``sda_size`` distinct origins
+        (the stage-1 feeders, ``trace[0]``), a second batch of an origin
+        waiting for the next window.  Each arriving frame is decoded to
+        the device at once.
+
+        * Elastic (the default): an idle spell of 0.25 s flushes a
+          partial window and lowers the width to what is alive; it rises
+          again as more origins send.
+        * Strict (``aggregation.sda-strict``): a hard ``sda_size``
+          barrier, popped in sorted origin order; leftovers drain only
+          when a full window can never form again, i.e. fewer than
+          ``sda_size`` origins have batches buffered or epochs unfenced
+          (a fence counts once its ``sda_fence_quorum`` of copies is in)
+          — or at PAUSE."""
+        in_q = intermediate_queue(self.stage - 1, self.cluster, self.pair)
+        pending: dict[str, list[Activation]] = {}
+        idle_flush_s = 0.25
+        idle_since: float | None = None
+        strict = self.sda_strict
+        width = max(1, self.sda_size)
+        target = width
+        n_epochs = max(1, self.epochs)
+        # per-origin fenced epochs: an origin is out of the game once it
+        # has fenced every epoch of the round
+        fences: dict[str, int] = {}
+        self._sda_fences = fences
+        fence_copies: dict[tuple[str, int], int] = {}
+        quorum = max(1, self.sda_fence_quorum)
+
+        def live() -> list[str]:
+            return [o for o, q in pending.items() if q]
+
+        def pop_window(require_full: bool) -> list[Activation] | None:
+            # sorted, not arrival order: the concatenation order must not
+            # depend on thread timing
+            origins = sorted(live())
+            if not origins or (require_full and len(origins) < target):
+                return None
+            return [pending[o].pop(0) for o in origins[:width]]
+
+        def drain(require_full: bool) -> None:
+            while (w := pop_window(require_full)):
+                self._sda_step(w)
+
+        def drain_dead_barrier() -> None:
+            feeders = set(self.sda_feeders or ()) or set(pending)
+            while True:
+                possible = ({o for o in feeders
+                             if fences.get(o, 0) < n_epochs}
+                            | set(live()))
+                if len(possible) >= target:
+                    return
+                w = pop_window(require_full=False)
+                if not w:
+                    return
+                self._sda_step(w)
+
         while True:
             pause = self._check_pause()
             if pause is not None:
+                drain(require_full=False)   # everything buffered first
                 self.log.info("[<<<] PAUSE")
                 return pause
             raw = self.bus.get(in_q, timeout=0.001)
             if raw is None:
+                if strict:
+                    continue   # hard barrier: wait for traffic or a fence
+                now = time.monotonic()
+                idle_since = idle_since if idle_since is not None else now
+                if now - idle_since >= idle_flush_s:
+                    w = pop_window(require_full=False)
+                    if w:
+                        target = len(w)
+                        self._sda_step(w)
                 continue
             act = self._decode(raw, in_q)
-            if act is None or act.round_idx != self.fence \
-                    or isinstance(act, EpochEnd):
+            if act is None or act.round_idx != self.fence:
+                continue   # corrupt, or from a dropped round
+            if isinstance(act, EpochEnd):
+                key = (act.client_id, act.epoch)
+                fence_copies[key] = fence_copies.get(key, 0) + 1
+                if fence_copies[key] == quorum:
+                    fences[act.client_id] = fences.get(act.client_id, 0) + 1
+                if strict:
+                    drain(require_full=True)
+                    drain_dead_barrier()
                 continue
-            self._last_step(act)
+            idle_since = None   # current-round traffic only
+            act.data = _from_wire_tree(act.data, self.device)
+            pending.setdefault(act.trace[0], []).append(act)
+            n_live = len(live())
+            if n_live > target:
+                target = min(width, n_live)
+            w = pop_window(require_full=True)
+            if w:
+                self._sda_step(w)
+            elif strict:
+                # a batch buffered behind a barrier that is already dead
+                # must not wait for a fence that has come and gone
+                drain_dead_barrier()
 
-    def _last_step(self, act: Activation) -> None:
+    def _sda_step(self, window: list[Activation]) -> None:
+        """One loss + backward + optimizer step on a window's batches
+        concatenated in window order; the input gradient is split back
+        per origin batch, and each part is sent (through the codec on
+        its own) to that batch's previous hop."""
         r = self.runner
-        x = _from_wire_tree(act.data, self.device)
-        labels = torch.from_numpy(np.asarray(act.labels, np.int32)).to(
+        sizes = [len(a.labels) for a in window]
+        x = _concat([a.data for a in window])
+        labels = torch.from_numpy(np.concatenate(
+            [np.asarray(a.labels, np.int32) for a in window])).to(
             self.device)
         loss, gx = r.last_step(x, labels)
         # NaN sentinel (src/train/VGG16.py:169), folded on the device and
         # synced once per round in _send_update
         self._ok_dev = self._ok_dev & torch.isfinite(loss)
         r.apply_update()
-        self.num_samples += len(act.labels)
-        self._send_gradient(gx, act.data_id, act.trace)
+        self.num_samples += sum(sizes)
+        off = 0
+        for act, n in zip(window, sizes):
+            part = gx if len(window) == 1 else _rows(gx, off, n)
+            off += n
+            self._send_gradient(part, act.data_id, act.trace)

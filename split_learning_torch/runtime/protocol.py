@@ -26,6 +26,7 @@ Queue naming (the reference's topology):
 * ``rpc_queue``                              any client -> server
 * ``reply_{client_id}``                      server -> one client
 * ``intermediate_queue_{stage}_{cluster}``   stage k -> k+1 activations
+  (``..._p{pair}``: a 2LS pair's or one DCSL device's own queue)
 * ``gradient_queue_{stage}_{client_id}``     stage k+1 -> one stage-k client
 
 Left out here (raising where a config asks for them): the aggregator
@@ -58,10 +59,15 @@ def reply_queue(client_id: str) -> str:
     return f"reply_{client_id}"
 
 
-def intermediate_queue(stage: int, cluster: int) -> str:
+def intermediate_queue(stage: int, cluster: int,
+                       pair: int | str | None = None) -> str:
     """Forward-activation queue, shared per cluster (natural load
-    balance across same-stage clients)."""
-    return f"intermediate_queue_{stage}_{cluster}"
+    balance across same-stage clients).  ``pair`` selects a private
+    queue, ``intermediate_queue_{stage}_{cluster}_p{pair}``: 2LS's fixed
+    edge<->head pairing (an in-cluster index) or DCSL's per-device
+    scatter (the consuming client's id)."""
+    base = f"intermediate_queue_{stage}_{cluster}"
+    return base if pair is None else f"{base}_p{pair}"
 
 
 def gradient_queue(stage: int, client_id: str) -> str:

@@ -17,14 +17,17 @@ checkpoint through the shared round loop.  Every barrier carries a
 deadline; clients that miss it are dropped from the round with a logged
 warning instead of wedging the server.
 
+All six round strategies run over it: relay STARTs one stage-1 client at
+a time, FLEX's hold rounds send STARTs without weights and PAUSEs that
+ask for none back, SDA widens each head's window over distinct feeders
+(DCSL's per-device scatter, strict SDA's epoch fences with their quorum
+and feeder sets rebroadcast with SYN), and 2LS pairs each in-cluster's
+feeders with its own head's queue.
+
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): the aggregator tree and remote aggregator nodes, stage hosts, the
 scheduler, elastic re-planning, async mode and the delta shadow (its
-codec raises in ``make_codecs``); and the choreography of four round
-strategies (:meth:`ProtocolContext._refuse_choreography`): relay's
-STARTs to a client subset, FLEX's held client state, SDA windows wider
-than one batch or strict SDA, and 2LS's in-cluster queue pairing.  The
-FedAvg and cluster-relay strategies run.  The telemetry exporter, liveness
+codec raises in ``make_codecs``).  The telemetry exporter, liveness
 monitor, blackbox and tracing spans are not run.
 """
 
@@ -34,6 +37,7 @@ import copy
 import dataclasses
 import threading
 import time
+from collections import Counter
 from typing import Any, Callable
 
 import numpy as np
@@ -76,6 +80,12 @@ def _torch_tree(tree: dict, device) -> dict:
                 else (v if isinstance(v, torch.Tensor)
                       else host_tensor(np.ascontiguousarray(v))).to(device))
             for k, v in tree.items()}
+
+
+def _stage_flag(flag: bool | dict, stage: int) -> bool:
+    """A strategy's per-round flag for ``stage``: a bool, or a
+    ``{stage: bool}`` map (a stage it does not name: True)."""
+    return bool(flag.get(stage, True) if isinstance(flag, dict) else flag)
 
 
 def _refuse_unported(cfg: Config) -> None:
@@ -269,42 +279,62 @@ class ProtocolContext(TorchContext):
 
     # -- one round -----------------------------------------------------------
 
-    def _refuse_choreography(self, plan: ClusterPlan, client_subset,
-                             per_client_params, sync_all_later_stages,
-                             send_params, send_weights) -> None:
-        """Raise ``NotImplementedError`` naming the piece of a strategy's
-        protocol choreography that is not ported (ROADMAP.md A.4), so
-        that no strategy runs a different algorithm in silence."""
-        stage1 = list(plan.stage1_clients)
-        agg = self.cfg.aggregation
-        missing = []
-        if client_subset is not None and set(stage1) - set(client_subset):
-            missing.append("STARTs to a subset of a cluster's stage-1 "
-                           "clients (the relay strategy)")
-        flags = [flag for arg in (send_params, send_weights)
-                 for flag in (arg.values() if isinstance(arg, dict)
-                              else [arg])]
-        if per_client_params or not all(flags):
-            missing.append("clients that hold their state between rounds: "
-                           "per-client START trees and the START/PAUSE "
-                           "send flags (the periodic strategy)")
-        if sync_all_later_stages and plan.n_stages >= 2:
-            if min(agg.sda_size, len(stage1)) > 1:
-                missing.append("SDA windows wider than one batch "
-                               "(aggregation.sda-size > 1 with several "
-                               "feeders)")
-            if agg.sda_strict:
-                missing.append("strict SDA epoch fences "
-                               "(aggregation.sda-strict)")
+    def _data_plane(self, plan: ClusterPlan, stage1: list,
+                    sync_all_later_stages: bool) -> tuple:
+        """The round's forward routing and SDA window: ``(pair_of,
+        pair_groups, sda, sda_route)``.
+
+        * 2LS's fixed 1:1 edge<->head pairing
+          (``other/2LS/src/train/VGG16.py:23``): with ``in-clusters`` > 1,
+          a two-stage plan and exactly one head per in-cluster, each
+          in-cluster's feeders and its head share the queue
+          ``..._p{group}`` (``pair_of``: client -> group); otherwise the
+          shared queue's natural load balance stays.
+        * The SDA window (``sda``): ``aggregation.sda-size`` under SDA,
+          never wider than the feeders a head hears (a wider window could
+          never gather distinct origins), else 1.
+        * DCSL's per-device scatter (``other/DCSL/src/Scheduler.py:21-26,
+          :110-133``): with a window wider than one batch and no pairing,
+          every later-stage client consumes its own queue ``..._p{id}``
+          and the previous stage scatters batches over them
+          (``sda_route``).  ``pair_groups`` is the pairing alone, before
+          those per-device entries: the strict head's feeder sets follow
+          it."""
+        pair_of: dict = {}
         n_in = self.cfg.topology.in_clusters
-        if n_in > 1 and plan.n_stages == 2 and len(plan.clients[1]) == len(
-                client_groups(len(stage1), min(n_in, len(stage1)))):
-            missing.append("2LS in-cluster queue pairing (each in-cluster's "
-                           "feeders on its own head's queue)")
-        if missing:
-            raise NotImplementedError(
-                "not ported to the protocol round yet (ROADMAP.md A.4): "
-                + "; ".join(missing) + ". Run this strategy in process")
+        if n_in > 1 and plan.n_stages == 2:
+            groups = client_groups(len(stage1), min(n_in, len(stage1)))
+            heads = plan.clients[1]
+            if len(heads) == len(groups):
+                for g, idxs in enumerate(groups):
+                    for i in idxs:
+                        pair_of[stage1[i]] = g
+                    pair_of[heads[g]] = g
+            else:
+                self.log.warning(
+                    f"in_clusters={n_in} but {len(heads)} heads for "
+                    f"{len(groups)} in-groups: keeping shared queues")
+        if pair_of:
+            n_feeders = min(Counter(pair_of[c] for c in stage1).values())
+        else:
+            n_feeders = len(stage1) if plan.n_stages >= 2 else 1
+        sda = (min(self.cfg.aggregation.sda_size, n_feeders)
+               if sync_all_later_stages else 1)
+        pair_groups = dict(pair_of)
+        sda_route = sda > 1 and not pair_of
+        if sda_route:
+            for s in range(2, plan.n_stages + 1):
+                for cid in plan.clients[s - 1]:
+                    pair_of[cid] = cid
+        return pair_of, pair_groups, sda, sda_route
+
+    @staticmethod
+    def _feeders(stage1: list, pair_groups: dict, cid: str) -> list:
+        """The stage-1 clients whose batches reach ``cid`` (its 2LS pair
+        group's, or every one)."""
+        return [c for c in stage1
+                if not pair_groups or pair_groups.get(c)
+                == pair_groups.get(cid)]
 
     def train_cluster(self, plan: ClusterPlan, params, stats, *,
                       round_idx: int = 0, epochs: int = 1,
@@ -314,24 +344,35 @@ class ProtocolContext(TorchContext):
                       sync_all_later_stages: bool = False,
                       send_params: bool | dict = True,
                       send_weights: bool | dict = True) -> list[Update]:
-        """One remote round for one cluster: every stage-1 client of the
-        plan and every later-stage client, each from ``params``.  The
-        strategies' other keywords are accepted and refused where they
-        ask for choreography that is not ported
-        (:meth:`_refuse_choreography`)."""
-        self._refuse_choreography(plan, client_subset, per_client_params,
-                                  sync_all_later_stages, send_params,
-                                  send_weights)
-        stage1 = list(plan.stage1_clients)
+        """One remote round for one cluster: the plan's stage-1 clients
+        (those in ``client_subset`` when it is given: the relay
+        strategy's one-at-a-time cycles) and every later-stage client.
+
+        FLEX's wire economy (``other/FLEX/src/Server.py:140-143``):
+        ``send_params`` False (a bool, or ``{stage: bool}``) sends a START
+        without weights, and the client keeps its shard, optimizer state
+        and data loader; ``per_client_params`` gives a client its own
+        tree; ``send_weights`` (same shape) rides the PAUSE, so the
+        clients of a non-aggregation round reply UPDATE with sample
+        counts and no weights.  ``sync_all_later_stages`` (SDA) and
+        ``topology.in-clusters`` set the data plane
+        (:meth:`_data_plane`); the strict-SDA fence quorum and feeder
+        sets go out with START and again, recomputed from the clients
+        that answered the READY barrier, with SYN."""
+        stage1 = [c for c in plan.stage1_clients
+                  if client_subset is None or c in client_subset]
         if not stage1:
             return []
         active = [(cid, 1) for cid in stage1]
         for s in range(2, plan.n_stages + 1):
             active += [(cid, s) for cid in plan.clients[s - 1]]
+        stage_of = dict(active)
         ranges = stage_ranges(len(self.specs), plan.cuts)
         learning = dataclasses.asdict(self.cfg.learning)
         if lr is not None:
             learning["learning_rate"] = lr
+        pair_of, pair_groups, sda, sda_route = self._data_plane(
+            plan, stage1, sync_all_later_stages)
         self._ready.clear()
         self._notified.clear()
         self._updates = []
@@ -351,17 +392,25 @@ class ProtocolContext(TorchContext):
                 expected, backend=self._fold_backend, faults=self.faults)
 
         # stage-ascending START fan-out: stage-1 feeders start streaming
-        # while later stages' STARTs are still encoding.  Shard trees
-        # are cut once per layer range; a big shard frame is published
-        # as crc'd SLTC chunks
+        # while later stages' STARTs are still encoding.  Shard trees of
+        # the shared base are cut once per layer range; a big shard
+        # frame is published as crc'd SLTC chunks
         fanout_t0 = time.perf_counter()
         shard_cache: dict = {}
         for cid, s in active:
             a, b = ranges[s - 1]
-            if (a, b) not in shard_cache:
-                shard_cache[(a, b)] = tuple(
-                    _np_tree(shard_params(tree, self.specs, a, b))
-                    for tree in (params, stats or {}))
+            if _stage_flag(send_params, s):
+                base = (per_client_params or {}).get(cid, params)
+                key = (a, b) if base is params else None
+                shard = shard_cache.get(key)
+                if shard is None:
+                    shard = tuple(
+                        _np_tree(shard_params(tree, self.specs, a, b))
+                        for tree in (base, stats or {}))
+                    if key is not None:
+                        shard_cache[key] = shard
+            else:
+                shard = (None, None)
             label_counts = None
             if s == 1:
                 label_counts = np.asarray(
@@ -369,16 +418,36 @@ class ProtocolContext(TorchContext):
             end_layer = -1 if s == plan.n_stages else b
             for part in encode_parts(Start(
                     start_layer=a, end_layer=end_layer,
-                    cluster=plan.cluster_id, params=shard_cache[(a, b)][0],
-                    batch_stats=shard_cache[(a, b)][1], learning=learning,
+                    cluster=plan.cluster_id, params=shard[0],
+                    batch_stats=shard[1], learning=learning,
                     label_counts=label_counts, round_idx=round_idx,
-                    extra={"epochs": epochs, "sda_size": 1,
+                    extra={"epochs": epochs, "sda_size": sda,
+                           "sda_strict": self._agg.sda_strict,
+                           # copies of each (feeder, epoch) fence to
+                           # collect before acting on it: one from each
+                           # previous-stage client (stage 2 hears the
+                           # feeders directly)
+                           "sda_fence_quorum": (
+                               1 if s <= 2
+                               else max(1, len(plan.clients[s - 2]))),
+                           # a consumer's full feeder set: the strict
+                           # head drains leftovers only once every one
+                           # has fenced its epochs
+                           "sda_feeders": (
+                               None if s == 1
+                               else self._feeders(stage1, pair_groups, cid)),
                            "n_stages": plan.n_stages,
+                           "pair": pair_of.get(cid),
+                           "sda_peers": (list(plan.clients[s])
+                                         if sda_route and s < plan.n_stages
+                                         else None),
                            "refresh": self.cfg.distribution.refresh,
                            "gen": self._cur_gen}),
                     self.cfg.transport.chunk_mb << 20):
                 self.bus.publish(reply_queue(cid), part)
-            self.log.sent(f"START -> {cid} layers=[{a}, {end_layer}]")
+            self.log.sent(f"START -> {cid} layers=[{a}, {end_layer}]"
+                          + ("" if shard[0] is not None
+                             else " (no weights)"))
         del shard_cache
         # wall of each phase of the round, read at the barriers
         phases = {"fanout_s": time.perf_counter() - fanout_t0}
@@ -403,8 +472,19 @@ class ProtocolContext(TorchContext):
                 if cid not in ids:
                     self._fold.drop(s, cid)
         lap("ready_s")   # clients decode their START and build shards
+        # strict SDA under client loss: a previous-stage client dropped
+        # at the READY barrier never sends its fence copies, and a
+        # dropped feeder never fences, so the quorum and the feeder sets
+        # are recomputed from the clients that answered and ride SYN
+        live_s1 = [c for c in stage1 if c in ids]
         for cid in sorted(ids):
-            self.bus.publish(reply_queue(cid), encode(Syn(round_idx)))
+            s = stage_of[cid]
+            quorum = (1 if s <= 2 else
+                      max(1, sum(c in ids for c in plan.clients[s - 2])))
+            feeders = (None if s == 1
+                       else self._feeders(live_s1, pair_groups, cid))
+            self.bus.publish(reply_queue(cid), encode(Syn(
+                round_idx, sda_fence_quorum=quorum, sda_feeders=feeders)))
         self.log.sent(f"SYN -> {sorted(ids)}")
 
         s1_ids = set(stage1) & ids
@@ -412,7 +492,8 @@ class ProtocolContext(TorchContext):
                          "NOTIFY from stage-1 clients")
         lap("train_s")   # SYN -> the last stage-1 NOTIFY
         for cid in sorted(ids):
-            self.bus.publish(reply_queue(cid), encode(Pause()))
+            self.bus.publish(reply_queue(cid), encode(Pause(
+                send_weights=_stage_flag(send_weights, stage_of[cid]))))
         self.log.sent(f"PAUSE -> {sorted(ids)}")
         self._pump_until(
             lambda: {u.client_id for u in self._updates} >= ids,

@@ -39,9 +39,10 @@ packages' VGG16 (the RNG streams cannot match).
   are held.
 * Relay, periodic (``t-client: 1, t-global: 2``), SDA (sda-size 2,
   and strict) and FedAsync with 2LS pairing (``in-clusters: 2`` with a
-  head per in-cluster) over the protocol raise ``NotImplementedError``
-  naming the missing piece of choreography; FedAvg and cluster relay
-  run.
+  head per in-cluster) over the protocol send their piece of
+  choreography with the first START fan-out; FedAvg, cluster relay, SDA
+  at one batch and periodic aggregating every round send the weights
+  on the shared data plane.
 """
 
 import threading
@@ -73,6 +74,7 @@ from split_learning_torch.runtime.context import TorchContext
 from split_learning_torch.runtime.log import Logger as TLogger
 from split_learning_torch.runtime.loop import run_training as trun
 from split_learning_torch.runtime.plan import plan_clusters as tplan
+from split_learning_torch.runtime.protocol import FrameAssembler, Start
 from split_learning_torch.runtime.server import ProtocolContext, run_inproc
 from split_learning_torch.runtime.strategies import make_strategy
 
@@ -287,19 +289,80 @@ def _protocol_ctx(tmp_path, **over):
     return cfg, ctx, plans, v["params"], v["batch_stats"]
 
 
-@pytest.mark.parametrize("agg,topology,clients,piece", [
-    ({"strategy": "relay"}, None, None, "subset of a cluster's stage-1"),
+class _Refused(Exception):
+    pass
+
+
+def _starts(ctx, strategy, plans, params, stats) -> dict:
+    """The START fan-out of the strategy's first ``train_cluster`` call,
+    stopped at the READY barrier that follows it: {client id: Start}."""
+    def barrier(*args, **kw):
+        raise _Refused
+    ctx._pump_until = barrier
+    with pytest.raises(_Refused):
+        strategy.run_round(ctx, plans, 0, params, stats)
+    starts = {}
+    for q in ctx.bus.bytes_out_snapshot():
+        asm = FrameAssembler()
+        while (raw := ctx.bus.get(q, timeout=0.01)) is not None:
+            msg = asm.feed(raw)
+            if msg is not None:
+                assert isinstance(msg, Start) and q.startswith("reply_")
+                starts[q[len("reply_"):]] = msg
+    return starts
+
+
+def _hold_round(strategy):
+    strategy._reseed_stages = set()   # after a round that re-seeded
+
+
+def _relay_subset(starts, plan, cfg):
+    assert set(starts) == {plan.stage1_clients[0], *plan.clients[1]}
+
+
+def _weightless(starts, plan, cfg):
+    assert starts and all(m.params is None for m in starts.values())
+
+
+def _window(starts, plan, cfg):
+    sda = min(2, len(plan.stage1_clients))
+    for cid, m in starts.items():
+        assert m.extra["sda_size"] == sda
+        assert m.extra["sda_peers"] == (
+            plan.clients[1] if sda > 1 and cid in plan.stage1_clients
+            else None)
+
+
+def _strict(starts, plan, cfg):
+    for cid, m in starts.items():
+        assert m.extra["sda_strict"] is True and m.extra["sda_size"] == 1
+        assert m.extra["sda_feeders"] == (
+            None if cid in plan.stage1_clients else plan.stage1_clients)
+
+
+def _paired(starts, plan, cfg):
+    assert {m.extra["pair"] for m in starts.values()} == {0, 1}
+    for g, head in enumerate(plan.clients[1]):
+        assert starts[head].extra["sda_feeders"] == [
+            c for c in plan.stage1_clients if starts[c].extra["pair"] == g]
+
+
+@pytest.mark.parametrize("agg,topology,clients,prep,want", [
+    ({"strategy": "relay"}, None, None, None, _relay_subset),
     ({"strategy": "periodic", "t-client": 1, "t-global": 2}, None, None,
-     "hold their state between rounds"),
-    ({"strategy": "sda", "sda-size": 2}, None, None,
-     "SDA windows wider than one batch"),
+     _hold_round, _weightless),
+    ({"strategy": "sda", "sda-size": 2}, None, None, None, _window),
     ({"strategy": "sda", "sda-size": 1, "sda-strict": True}, None, None,
-     "strict SDA epoch fences"),
-    ({"strategy": "fedasync"}, {"in-clusters": 2}, [4, 4],
-     "in-cluster queue pairing"),
+     None, _strict),
+    ({"strategy": "fedasync"}, {"in-clusters": 2}, [4, 4], None, _paired),
 ], ids=["relay", "periodic", "sda", "sda_strict", "fedasync_pairing"])
 def test_unported_choreography_raises(tmp_path, agg, topology, clients,
-                                      piece):
+                                      prep, want):
+    """The choreography these strategies ask for, once refused over the
+    protocol, now reaches the wire: the first START fan-out carries it
+    (relay: one stage-1 client and the heads; periodic's hold round: no
+    weights; SDA: the window and DCSL's scatter peers; strict SDA: the
+    flag and the heads' feeder sets; 2LS: each pair's index)."""
     over = {"aggregation": agg}
     if topology:
         over["topology"] = {"mode": "auto", "num-clusters": 2,
@@ -307,15 +370,10 @@ def test_unported_choreography_raises(tmp_path, agg, topology, clients,
     if clients:
         over["clients"] = clients
     cfg, ctx, plans, params, stats = _protocol_ctx(tmp_path, **over)
-    with pytest.raises(NotImplementedError, match=piece) as err:
-        make_strategy(cfg).run_round(ctx, plans, 0, params, stats)
-    assert "ROADMAP.md A.4" in str(err.value)
-    # nothing was sent: the refusal comes before the START fan-out
-    assert not ctx.bus.bytes_out_snapshot()
-
-
-class _Refused(Exception):
-    pass
+    strategy = make_strategy(cfg)
+    if prep is not None:
+        prep(strategy)
+    want(_starts(ctx, strategy, plans, params, stats), plans[0], cfg)
 
 
 @pytest.mark.parametrize("agg", [
@@ -324,19 +382,12 @@ class _Refused(Exception):
     {"strategy": "periodic", "t-client": 1, "t-global": 1}],
     ids=["fedavg", "cluster_relay", "sda_one_batch", "periodic_every_round"])
 def test_strategies_needing_no_unported_piece_pass(tmp_path, agg):
-    """The keywords FedAvg, cluster relay, SDA at sda-size 1 and periodic
-    aggregating every round pass to ``train_cluster`` ask for no
-    unported piece: the refusal (the first thing ``train_cluster`` does)
-    lets them through."""
+    """FedAvg, cluster relay, SDA at sda-size 1 and periodic aggregating
+    every round START every client of the first cluster with its weights
+    on the shared data plane (a window of one, no pairing, no scatter)."""
     cfg, ctx, plans, params, stats = _protocol_ctx(tmp_path, aggregation=agg)
-    passed = []
-    refuse = ctx._refuse_choreography
-
-    def check(*args):
-        refuse(*args)
-        passed.append(args)
-        raise _Refused   # stop before the START fan-out
-    ctx._refuse_choreography = check
-    with pytest.raises(_Refused):
-        make_strategy(cfg).run_round(ctx, plans, 0, params, stats)
-    assert len(passed) == 1
+    starts = _starts(ctx, make_strategy(cfg), plans, params, stats)
+    assert set(starts) == {c for ids in plans[0].clients for c in ids}
+    for m in starts.values():
+        assert m.params is not None and m.extra["sda_size"] == 1
+        assert m.extra["pair"] is None and m.extra["sda_peers"] is None

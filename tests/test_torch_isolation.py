@@ -330,3 +330,45 @@ def test_chip_smoke_fails_without_gpu():
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_strict_sda_protocol_round_runs_with_jax_blocked(tmp_path):
+    """Strict SDA over the protocol round (``[2, 1]``, ``sda-size: 2``:
+    DCSL's per-device queue, the head's two-origin windows, the feeders'
+    epoch fences) trains in a process where JAX and the JAX package
+    cannot be imported."""
+    kwt = {"model": "KWT", "dataset": "SPEECHCOMMANDS", "clients": [2, 1],
+           "synthetic-size": 48, "val-max-batches": 1, "val-batch-size": 8,
+           "compute-dtype": "float32",
+           "model-kwargs": {"embed_dim": 8, "num_heads": 2, "mlp_dim": 16},
+           "topology": {"cut-layers": [2]},
+           "distribution": {"num-samples": 8},
+           "aggregation": {"strategy": "sda", "sda-size": 2,
+                           "sda-strict": True},
+           "learning": {"batch-size": 4, "control-count": 2,
+                        "optimizer": "adamw"},
+           "checkpoint": {"save": False}, "log-path": str(tmp_path)}
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "from split_learning_torch.config import from_dict",
+        "from split_learning_torch.runtime.server import run_inproc",
+        f"run = run_inproc(from_dict({kwt!r}), device='cpu',"
+        " client_timeout=300)",
+        "assert [(r.ok, r.num_samples) for r in run.result.history]"
+        " == [(True, 16)], run.result.history",
+        "head = run.clients[-1]",
+        "assert head.sda_strict and head.sda_size == 2",
+        "assert head.sda_feeders == ['client_1_0', 'client_1_1']",
+        "q = 'intermediate_queue_1_0_pclient_2_0'",
+        "assert run.bus.bytes_out_snapshot().get(q, 0) > 0",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
+        " and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('strict sda ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "strict sda ok" in proc.stdout
