@@ -56,8 +56,9 @@ Phases, each fatal on failure:
    tensor-core backward kernel 88 a step, and the CUDA-core kernels are
    launched 0 times);
 5. profile — the same round once more, warm, with its device kernels
-   traced by ``torch.profiler`` (not counted): round wall, the device's
-   busy and idle share, and the kernels that take the most device time;
+   traced by ``torch.profiler`` (not counted) and summed by name from the
+   trace's kineto events: round wall, the device's busy and idle share,
+   and the kernels that take the most device time;
 6. protocol — the protocol round at the same width: ``ProtocolServer``
    in this thread and one ``ProtocolClient`` thread per client over a
    shared ``InProcTransport``, ``clients: [2, 1, 1, 1]``, an int8 codec
@@ -169,18 +170,39 @@ Phases, each fatal on failure:
 22. variants_tcp — ``dcsl_strict`` at the same width as broker, server
    and three client processes over TCP: the in-process samples, every
    UPDATE folded, the predicted launches;
-23. bert_slice — BERT-base on AG-News with LoRA (rank 8, alpha 16, the
+23. chaos_protocol — ``dcsl_strict`` at the same width with
+   ``control-count: 1`` in one process, twice fault-free (their final
+   parameters equal bit for bit), then under the JAX package's
+   acceptance recipe (seed 1234: drop 0.10, duplicate 0.10, reorder
+   0.15, corrupt 0.05, delay 0.10 of 5 ms) with ``transport.reliable``,
+   each participant on its own ``make_runtime_transport`` stack (async
+   sender, reliable layer, chaos) over the shared bus: its final
+   parameters bit for bit the fault-free ones, its samples and its
+   quantize, dequantize and finalize launches theirs (each held bit for
+   bit), drops, redeliveries, duplicates, dedup hits, corruptions and
+   rejected corrupt frames all counted;
+24. chaos_tcp — the same config as processes on a two-shard broker plane
+   (``python -m split_learning_torch.broker --shards 2``,
+   ``broker.shards: 2``), fault-free, then under the recipe with
+   reliable delivery on every protocol queue, the shard that owns
+   ``intermediate_queue_0_0`` SIGKILLed after the server's first SYN and
+   started again on its port with the supervisor's restart command: both
+   runs' rounds ok with the in-process samples, the participants'
+   ``kind=faults`` records showing reconnects and every fault above,
+   frames on both shards, and the chaos run's final checkpoint bit for
+   bit the fault-free run's;
+25. bert_slice — BERT-base on AG-News with LoRA (rank 8, alpha 16, the
    default targets) in process (``configs/bert_lora_agnews.yaml``: full
    width, ``[2, 2]``, cut 4, batch 32, 512 samples a client, AdamW,
    bf16), 2 rounds, the frozen leaves unchanged and the adapted ones
    moved; then one round warm and traced;
-24. bert_protocol — the same model as the protocol round in one process:
+26. bert_protocol — the same model as the protocol round in one process:
    the int8 codec on the ``(hidden, mask)`` boundary both ways, every
    kernel flag on, the sharded fold at ``server-momentum`` 0.9 then 0;
    every quantize, dequantize, momentum and finalize launch held bit for
    bit against its plain version, and each count equal to the one the
    batches, directions and parameter leaves predict;
-25. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+27. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
@@ -1213,12 +1235,40 @@ def _device_us(e) -> float:
     return t if t is not None else e.self_cuda_time_total
 
 
+@dataclasses.dataclass
+class _DeviceTotal:
+    """One name's device activity in a trace: what ``key_averages()``
+    gives for it (``key``, ``count``, ``self_device_time_total`` in µs)."""
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0
+
+
+def _device_totals(prof) -> list:
+    """The traced run's device activity (kernels, copies, fills) summed
+    by name, straight from the profiler's kineto events: the same
+    numbers as ``key_averages()`` over the device events, without
+    building torch's event tree for every host and device event of the
+    run (which took 15.4-56.8 s a traced phase on the H100)."""
+    from torch.autograd import DeviceType
+    totals: dict = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        t = totals.get(ev.name())
+        if t is None:
+            t = totals[ev.name()] = _DeviceTotal(ev.name())
+        t.count += 1
+        t.self_device_time_total += ev.duration_ns() / 1e3
+    return [t for t in totals.values() if t.self_device_time_total > 0]
+
+
 def phase_profile(cfg) -> dict:
     """Where the time goes: the slice's round once more, warm (after the
     counted main-path run, whose launches it does not touch), with the
     device's kernels traced by ``torch.profiler`` (device activity only:
-    tracing every host op of a round costs minutes)."""
-    from torch.autograd import DeviceType
+    tracing every host op of a round costs minutes) and summed by name
+    (:func:`_device_totals`)."""
     from torch.profiler import ProfilerActivity, profile
 
     from split_learning_torch.run import run_local
@@ -1230,16 +1280,15 @@ def phase_profile(cfg) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         t_end = time.perf_counter()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-    # the trace's collection and key_averages(), outside the run
+    kernels = _device_totals(prof)
+    # the trace's collection and summing, outside the run
     trace_s = time.perf_counter() - t_end
     busy_s = sum(_device_us(e) for e in kernels) / 1e6
     walls = [r.wall_s for r in res.history]
     print(f"  profiled run: round walls {[round(w, 3) for w in walls]} s, "
           f"run {wall:.3f} s, device busy {busy_s:.3f} s = "
           f"{busy_s / wall:.1%} of the run (idle {1 - busy_s / wall:.1%}); "
-          f"trace collection and key_averages {trace_s:.3f} s")
+          f"trace collection and sums {trace_s:.3f} s")
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     for e in top:
         print(f"    {_device_us(e) / 1e3:10.1f} ms {e.count:8d}x  "
@@ -1506,7 +1555,6 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
     # the plain-FedAvg round: only it runs the finalize kernel.  Its
     # device kernels are traced (CUDA activity only), for the device's
     # busy and idle share over a protocol round
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cfg0 = protocol_config(workdir / "m0", momentum=0.0, rounds=1)
     torch.cuda.synchronize()
@@ -1517,8 +1565,7 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
         torch.cuda.synchronize()
         wall0 = time.perf_counter() - t1
     launches0 = read()
-    busy_s = sum(_device_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA) / 1e6
+    busy_s = sum(_device_us(t) for t in _device_totals(prof)) / 1e6
     check([r.ok for r in res0.history] == [True]
           and math.isfinite(res0.history[0].val_loss),
           f"plain FedAvg protocol round failed: {res0.history}")
@@ -1667,6 +1714,15 @@ def _read_port(log: pathlib.Path, proc, deadline: float) -> int:
     raise SmokeFailure("broker did not start")
 
 
+def _answers(fn, *args) -> bool:
+    """Whether ``fn(*args)`` returns without a connection error."""
+    try:
+        fn("127.0.0.1", *args, timeout=1.0)
+        return True
+    except (OSError, ConnectionError):
+        return False
+
+
 def _metrics(log_path: pathlib.Path) -> list:
     """Every metrics record the participants wrote under ``log_path``."""
     return [json.loads(line)
@@ -1674,20 +1730,28 @@ def _metrics(log_path: pathlib.Path) -> list:
             for line in f.read_text().splitlines() if line.strip()]
 
 
-def _run_tcp(d: pathlib.Path, make_cfg, timeout: float) -> tuple:
+def _run_tcp(d: pathlib.Path, make_cfg, timeout: float, shards: int = 1,
+             during=None, broker_rc: int = 0) -> tuple:
     """One protocol deployment as processes, all on ``cuda:0``: one
     ``python -m split_learning_torch.broker`` and, through
     :func:`participant_main`, one ``split_learning_torch.server`` and one
     ``split_learning_torch.client`` per configured client, over TCP
     (async sender and receive prefetch, as ``make_runtime_transport``
     builds them).  ``make_cfg(d)`` gives the configuration, whose
-    transport is pointed at the broker here.  All run in one process
-    group, killed on any failure.  Returns (the configuration, the wall,
-    the broker's stats frame, each participant's report, the card's peak
-    used memory by ``nvidia-smi``)."""
+    transport is pointed at the broker here.  With ``shards`` > 1 the
+    broker is the ``--shards`` supervisor of that many shard processes on
+    a block of ports (``find_port_block``) and ``broker.shards`` says so;
+    ``during(d, spawn, base)``, when given, runs in a thread beside the
+    participants (``spawn(name, argv)`` starts a process in the group).
+    The broker must exit ``broker_rc`` when stopped.  All run in one
+    process group, killed on any failure.  Returns (the configuration,
+    the wall, the broker's stats frame — a list of every shard's with
+    ``shards`` > 1 —, each participant's report, the card's peak used
+    memory by ``nvidia-smi``)."""
     from split_learning_torch.config import to_dict
     from split_learning_torch.runtime.bus import (
-        BROKER_STATS_QUEUE, TcpTransport,
+        BROKER_STATS_QUEUE, TcpTransport, broker_stats,
+        collect_broker_stats, find_port_block,
     )
 
     d.mkdir(parents=True)
@@ -1712,13 +1776,28 @@ def _run_tcp(d: pathlib.Path, make_cfg, timeout: float) -> tuple:
     deadline = time.monotonic() + timeout
     smi = _SmiPoll()
     t0 = time.perf_counter()
+    side: dict = {}
     try:
-        broker = spawn("broker", ["-m", "split_learning_torch.broker",
-                                  "--port", "0"])
-        port = _read_port(procs["broker"][1], broker, deadline)
+        if shards > 1:
+            port = find_port_block(shards)
+            broker = spawn("broker", ["-m", "split_learning_torch.broker",
+                                      "--shards", str(shards), "--port",
+                                      str(port)])
+            while not all(_answers(broker_stats, port + i)
+                          for i in range(shards)):
+                check(broker.poll() is None and time.monotonic() < deadline,
+                      "broker plane did not start: "
+                      + procs["broker"][1].read_text()[-2000:])
+                time.sleep(0.1)
+        else:
+            broker = spawn("broker", ["-m", "split_learning_torch.broker",
+                                      "--port", "0"])
+            port = _read_port(procs["broker"][1], broker, deadline)
         cfg = make_cfg(d)
-        cfg = dataclasses.replace(cfg, transport=dataclasses.replace(
-            cfg.transport, kind="tcp", port=port))
+        cfg = dataclasses.replace(
+            cfg, transport=dataclasses.replace(cfg.transport, kind="tcp",
+                                               port=port),
+            broker=dataclasses.replace(cfg.broker, shards=shards))
         cfg_path = d / "config.json"   # JSON is YAML
         cfg_path.write_text(json.dumps(to_dict(cfg)))
         common = ["--config", str(cfg_path), "--device", DEVICE]
@@ -1730,9 +1809,18 @@ def _run_tcp(d: pathlib.Path, make_cfg, timeout: float) -> tuple:
                 cid = f"client_{s}_{i}"
                 spawn(cid, [*me, "split_learning_torch.client", *common,
                             "--layer_id", str(s), "--client_id", cid])
-        for name, (p, log) in procs.items():
-            if name == "broker":
-                continue
+        participants = [n for n in procs if n != "broker"]
+        watcher = None
+        if during is not None:
+            def watch():
+                try:
+                    during(d, spawn, port)
+                except BaseException as e:  # noqa: BLE001 — raised below
+                    side["error"] = e
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
+        for name in participants:
+            p, log = procs[name]
             try:
                 rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
@@ -1741,11 +1829,20 @@ def _run_tcp(d: pathlib.Path, make_cfg, timeout: float) -> tuple:
             check(rc == 0, f"{name} exited {rc}: "
                   f"{log.read_text()[-3000:]}")
         wall = time.perf_counter() - t0
-        probe = TcpTransport("127.0.0.1", port)
-        stats = json.loads(bytes(probe.get(BROKER_STATS_QUEUE, 30)))
-        probe.close()
+        if watcher is not None:
+            watcher.join(timeout=60)
+            if "error" in side:
+                raise SmokeFailure(f"{side['error']!r}") from side["error"]
+        if shards > 1:
+            stats = collect_broker_stats("127.0.0.1", port, shards,
+                                         timeout=30)
+        else:
+            probe = TcpTransport("127.0.0.1", port)
+            stats = json.loads(bytes(probe.get(BROKER_STATS_QUEUE, 30)))
+            probe.close()
         broker.terminate()
-        check(broker.wait(timeout=30) == 0, "broker did not exit cleanly")
+        check(broker.wait(timeout=30) == broker_rc,
+              f"broker exited {broker.returncode}, not {broker_rc}")
     finally:
         card_peak_mib = smi.stop()
         if group is not None:
@@ -1753,13 +1850,12 @@ def _run_tcp(d: pathlib.Path, make_cfg, timeout: float) -> tuple:
                 os.killpg(group, signal.SIGKILL)
             except ProcessLookupError:
                 pass
-        for p, _ in procs.values():
+        for p, _ in list(procs.values()):
             p.wait(timeout=30)
 
     reports = {}
-    for name, (_, log) in procs.items():
-        if name == "broker":
-            continue
+    for name in participants:
+        log = procs[name][1]
         lines = [ln for ln in log.read_text().splitlines()
                  if ln.startswith(PARTICIPANT_TAG)]
         check(len(lines) == 1, f"{name} printed no report")
@@ -3429,6 +3525,274 @@ def phase_variants_tcp(workdir: pathlib.Path, inproc: dict,
     return out
 
 
+# --------------------------------------------------------------------------
+# the transport plane under injected faults
+# --------------------------------------------------------------------------
+
+#: the JAX package's acceptance recipe for chaos rounds
+#: (``tests/test_chaos.py`` ``test_chaos_round_bit_identical_to_fault_free``)
+CHAOS_RECIPE = {"seed": 1234, "drop": 0.10, "duplicate": 0.10,
+                "reorder": 0.15, "corrupt": 0.05, "delay": 0.10,
+                "delay_s": 0.005}
+#: the counters the recipe must move in each chaos run
+CHAOS_MOVED = ("drops", "redeliveries", "duplicates", "dedup_hits",
+               "corruptions", "corrupt_rejected")
+#: reliable delivery on every protocol queue over TCP, ``reply_*`` among
+#: them: a SIGKILLed shard loses whatever it held (the patterns of the
+#: JAX package's ``test_broker_killed_and_restarted_mid_round``)
+CHAOS_TCP_RELIABLE = ("intermediate_queue*", "gradient_queue*",
+                      "rpc_queue", "reply_*")
+#: the shard killed in the TCP chaos run: the owner of this queue
+CHAOS_KILL_QUEUE = "intermediate_queue_0_0"
+#: each chaos run's client timeout; no barrier waits it out
+CHAOS_TIMEOUT = 120.0
+
+
+def chaos_config(workdir: pathlib.Path, chaos: bool,
+                 reliable_queues: tuple | None = None):
+    """The slice's path: ``dcsl_strict`` at KWT-1's width
+    (:func:`variant_protocol_config`: bf16, the int8 codec both ways,
+    every kernel flag, the sharded fold) with ``learning.control-count:
+    1`` — lockstep feeders and the strict window's sorted pop make a
+    fault-free run bit-identical to itself.  With ``chaos``,
+    :data:`CHAOS_RECIPE` and ``transport.reliable`` (over
+    ``reliable_queues`` when given)."""
+    cfg = variant_protocol_config(workdir, "dcsl_strict")
+    cfg = dataclasses.replace(cfg, learning=dataclasses.replace(
+        cfg.learning, control_count=1))
+    if chaos:
+        cfg = dataclasses.replace(
+            cfg, chaos=dataclasses.replace(cfg.chaos, enabled=True,
+                                           **CHAOS_RECIPE),
+            transport=dataclasses.replace(
+                cfg.transport, reliable=True,
+                reliable_queues=(reliable_queues
+                                 or cfg.transport.reliable_queues)))
+    return cfg.validate()
+
+
+def _host_tree(tree: dict) -> dict:
+    return {k: (_host_tree(v) if isinstance(v, dict)
+                else v.detach().to("cpu", copy=True))
+            for k, v in tree.items()}
+
+
+def _differing_leaves(a: dict, b: dict, path: str = "") -> list:
+    """The leaves of two parameter trees that are not equal bit for bit
+    (a missing or extra key counts)."""
+    out = [f"{path}{k}" for k in set(a) ^ set(b)]
+    for k in sorted(set(a) & set(b)):
+        if isinstance(a[k], dict):
+            out += _differing_leaves(a[k], b[k], f"{path}{k}.")
+        elif not (a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                  and torch.equal(_bits(a[k]), _bits(b[k]))):
+            out.append(f"{path}{k}")
+    return out
+
+
+def _fault_delta(before: dict) -> dict:
+    from split_learning_torch.runtime.trace import default_fault_counters
+    now = default_fault_counters.snapshot()
+    return {k: v - before.get(k, 0) for k, v in sorted(now.items())
+            if v != before.get(k, 0)}
+
+
+def phase_chaos_protocol(workdir: pathlib.Path) -> dict:
+    """The slice's path (:func:`chaos_config`) as the protocol round in
+    one process (``run_inproc``), each run checked and its codec and
+    finalize launches held bit for bit by :func:`_run_variant`: twice
+    fault-free over the shared bus (their final parameters must agree bit
+    for bit: the determinism that makes the next check mean something),
+    then under :data:`CHAOS_RECIPE` with every participant on its own
+    ``make_runtime_transport`` stack (async sender, reliable layer, chaos)
+    over that bus.  The chaos run must end bit for bit at the fault-free
+    parameters, with the fault-free runs' samples and launches (a
+    redelivery resends bytes, it never encodes again), the counters of
+    :data:`CHAOS_MOVED` above 0, and no reliable daemon left running."""
+    from split_learning_torch.runtime.trace import default_fault_counters
+    name = "dcsl_strict"
+    out, params = {}, {}
+    for label, chaos in (("fault_free_a", False), ("fault_free_b", False),
+                         ("chaos", True)):
+        cfg = chaos_config(workdir / f"chaos_{label}", chaos)
+        box = {}
+
+        def run(c):
+            server, _, bus, result = run_protocol(c, timeout=CHAOS_TIMEOUT)
+            box["result"] = result
+            return server, bus, result
+
+        before = default_fault_counters.snapshot()
+        out[label] = _run_variant(f"{name} {label}", cfg, run)
+        out[label]["faults"] = _fault_delta(before)
+        _check_variant_launches(name, out[label]["launches"])
+        params[label] = _host_tree(box["result"].params)
+        print(f"  {label}: faults {out[label]['faults']}")
+    differ = _differing_leaves(params["fault_free_a"],
+                               params["fault_free_b"])
+    check(not differ, f"the two fault-free runs differ at {differ[:8]} "
+          f"({len(differ)} leaves)")
+    chaos, base = out["chaos"], out["fault_free_a"]
+    differ = _differing_leaves(params["chaos"], params["fault_free_a"])
+    check(not differ, f"the chaos run differs from the fault-free runs "
+          f"at {differ[:8]} ({len(differ)} leaves)")
+    check([r["samples"] for r in chaos["rounds"]]
+          == [r["samples"] for r in base["rounds"]],
+          f"chaos samples {chaos['rounds']}, fault-free {base['rounds']}")
+    check(chaos["launches"] == base["launches"],
+          f"chaos launches {chaos['launches']}, fault-free "
+          f"{base['launches']}")
+    for k in CHAOS_MOVED:
+        check(chaos["faults"].get(k, 0) > 0,
+              f"the chaos run moved no {k}: {chaos['faults']}")
+    for label in ("fault_free_a", "fault_free_b"):
+        check(not any(out[label]["faults"].get(k) for k in CHAOS_MOVED),
+              f"{label} counted faults: {out[label]['faults']}")
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(("reliable-", "async-sender",
+                                   "prefetch-"))]
+    check(not alive, f"threads of the stacks left running: {alive}")
+    n = sum(p.numel() for layer in params["chaos"].values()
+            for p in layer.values())
+    print(f"  chaos run bit for bit equal to both fault-free runs over "
+          f"{n} parameters; launches {chaos['launches']} (fault-free "
+          f"{base['launches']}); run walls {base['run_wall_s']:.3f} / "
+          f"{out['fault_free_b']['run_wall_s']:.3f} / "
+          f"{chaos['run_wall_s']:.3f} s")
+    out["parameters_compared"] = n
+    return out
+
+
+def phase_chaos_tcp(workdir: pathlib.Path, inproc: dict,
+                    timeout: float = 300.0) -> dict:
+    """The slice's path in its deployment shape on a sharded plane
+    (:func:`_run_tcp` with ``shards=2``: ``python -m
+    split_learning_torch.broker --shards 2``, the server and three client
+    processes with ``broker.shards: 2``): once fault-free, then under
+    :data:`CHAOS_RECIPE` with reliable delivery on
+    :data:`CHAOS_TCP_RELIABLE`, where the shard that owns
+    :data:`CHAOS_KILL_QUEUE` is SIGKILLed once the server has logged its
+    first ``SYN ->`` and started again on its port with the command line
+    the supervisor printed.  Both runs: each round ok with the in-process
+    run's samples, every UPDATE folded, the predicted launches.  The
+    chaos run: the participants' last ``kind=faults`` records sum to
+    ``reconnects`` >= 1 and to :data:`CHAOS_MOVED` above 0, both shards
+    carried frames, and the server's final checkpoint equals the
+    fault-free run's bit for bit."""
+    from split_learning_torch.runtime.bus import (
+        broker_stats, shard_for,
+    )
+    from split_learning_torch.runtime.checkpoint import load_checkpoint
+    name = "dcsl_strict"
+    victim = shard_for(CHAOS_KILL_QUEUE, 2)
+    out, params = {}, {}
+    for label, chaos in (("fault_free", False), ("chaos", True)):
+        killed: dict = {}
+
+        def kill_after_syn(d, spawn, base):
+            log = d / "server.log"
+            end = time.monotonic() + timeout
+            while "SYN ->" not in log.read_text():
+                check(time.monotonic() < end, "the server sent no SYN")
+                time.sleep(0.02)
+            pid = broker_stats("127.0.0.1", base + victim)["pid"]
+            os.kill(pid, signal.SIGKILL)
+            killed["t"] = time.monotonic()
+            blog = d / "broker.log"
+            while "(restart: " not in blog.read_text():
+                check(time.monotonic() < end,
+                      "the supervisor did not report the dead shard")
+                time.sleep(0.02)
+            cmd = blog.read_text().split("(restart: ", 1)[1].split(
+                ")", 1)[0].split()
+            check(cmd[1:3] == ["-m", "split_learning_torch.broker"]
+                  and str(base + victim) in cmd,
+                  f"restart command {cmd}")
+            spawn("broker_shard_restarted", cmd[1:])
+            while not _answers(broker_stats, base + victim):
+                check(time.monotonic() < end, "the shard did not restart")
+                time.sleep(0.05)
+            killed["down_s"] = time.monotonic() - killed["t"]
+            killed["command"] = " ".join(cmd)
+
+        t0 = time.perf_counter()
+        cfg, wall, stats, reports, card_peak_mib = _run_tcp(
+            workdir / f"chaos_tcp_{label}",
+            lambda d: chaos_config(d, chaos, CHAOS_TCP_RELIABLE),
+            timeout, shards=2, during=kill_after_syn if chaos else None,
+            broker_rc=1 if chaos else 0)
+        phase_wall = time.perf_counter() - t0
+        launches = {k: sum(r["launches"].get(k, 0)
+                           for r in reports.values())
+                    for k in reports["server"]["launches"]}
+        records = _metrics(pathlib.Path(cfg.log_path))
+        rounds = sorted((r for r in records if r.get("kind") == "round"),
+                        key=lambda r: r["round_idx"])
+        aggs = [r for r in records if r.get("kind") == "agg"]
+        check(len(rounds) == len(aggs) == cfg.global_rounds,
+              f"{label} over TCP: {len(rounds)} rounds, {len(aggs)} folds")
+        for rec, agg, want in zip(rounds, aggs,
+                                  inproc["fault_free_a"]["rounds"]):
+            check(rec["ok"] and rec["num_samples"] == want["samples"],
+                  f"{label} over TCP: round {rec}, in process {want}")
+            check(agg["folded"] == sum(cfg.clients),
+                  f"{label} over TCP: folded {agg['folded']}")
+        _check_variant_launches(name, launches)
+        last = {}
+        for r in records:
+            if r.get("kind") == "faults":
+                last[r["participant"]] = r
+        faults: dict = {}
+        for r in last.values():
+            for k, v in r.items():
+                if isinstance(v, int) and k not in ("round_idx", "gen",
+                                                    "cluster", "ts"):
+                    faults[k] = faults.get(k, 0) + v
+        ck = load_checkpoint(cfg.checkpoint.directory, cfg.model_key)
+        check(ck is not None and ck["round_idx"] == cfg.global_rounds,
+              f"{label} over TCP: checkpoint {ck and ck['round_idx']}")
+        params[label] = ck["params"]
+        per_shard = [{k: s.get(k) for k in (
+            "shard_index", "shard", "published", "delivered",
+            "uptime_s", "error", "published_bytes_by_family")}
+            for s in stats]
+        out[label] = {
+            "run_wall_s": wall, "phase_wall_s": phase_wall,
+            "rounds": [{"round": r["round_idx"], "wall_s": r["wall_s"],
+                        "samples": r["num_samples"],
+                        "val_loss": r["val_loss"]} for r in rounds],
+            "launches": launches, "faults": faults,
+            "faults_by_participant": {p: {k: v for k, v in r.items()
+                                          if isinstance(v, int)}
+                                      for p, r in last.items()},
+            "shards": per_shard, "kill": killed,
+            "card_memory_used_peak_mib": card_peak_mib}
+        print(f"  {label} over 2 shards: run {wall:.3f} s; round walls "
+              + ", ".join(f"{r['wall_s']:.3f}" for r in out[label][
+                  "rounds"])
+              + f" s; samples {[r['samples'] for r in out[label]['rounds']]}"
+              f"; launches {launches}; faults {faults}; shards "
+              f"{per_shard}; kill {killed}")
+    chaos = out["chaos"]
+    check(chaos["kill"].get("down_s") is not None,
+          "the shard was never killed")
+    check(chaos["faults"].get("reconnects", 0) >= 1,
+          f"no participant reconnected: {chaos['faults']}")
+    for k in CHAOS_MOVED:
+        check(chaos["faults"].get(k, 0) > 0,
+              f"the TCP chaos run moved no {k}: {chaos['faults']}")
+    for s in chaos["shards"]:
+        check(not s.get("error") and s["published"] > 0,
+              f"shard {s} carried no frames")
+    differ = _differing_leaves(params["chaos"], params["fault_free"])
+    check(not differ, f"the TCP chaos run's checkpoint differs from the "
+          f"fault-free run's at {differ[:8]} ({len(differ)} leaves)")
+    print(f"  the TCP chaos run's checkpoint equals the fault-free run's "
+          f"bit for bit; shard {victim} (owner of {CHAOS_KILL_QUEUE}) "
+          f"was down {chaos['kill']['down_s']:.3f} s")
+    return out
+
+
 def _check_lora_result(cfg, params: dict) -> None:
     """A LoRA run's parameters: the frozen leaves (an embedding table, a
     LayerNorm, a bias of an adapted kernel) as the context drew them from
@@ -3589,6 +3953,10 @@ def main() -> int:
         variants_proto = phase_variants_protocol(workdir)
         mark("variants_tcp")
         variants_tcp = phase_variants_tcp(workdir, variants_proto)
+        mark("chaos_protocol")
+        chaos_proto = phase_chaos_protocol(workdir)
+        mark("chaos_tcp")
+        chaos_tcp = phase_chaos_tcp(workdir, chaos_proto)
         mark("bert_slice")
         bert_slice = phase_bert_slice(workdir)
         mark("bert_protocol")
@@ -3619,6 +3987,8 @@ def main() -> int:
         by_path["variants_protocol_dropped_feeder"] = variants_proto[
             "dropped_feeder"]["launches"][name]
         by_path["variants_tcp"] = variants_tcp["launches"][name]
+        by_path["chaos_protocol"] = chaos_proto["chaos"]["launches"][name]
+        by_path["chaos_tcp"] = chaos_tcp["chaos"]["launches"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -3687,6 +4057,8 @@ def main() -> int:
                       "kwt_slice": kwt_slice, "variants": variants,
                       "variants_protocol": variants_proto,
                       "variants_tcp": variants_tcp,
+                      "chaos_protocol": chaos_proto,
+                      "chaos_tcp": chaos_tcp,
                       "bert_slice": bert_slice,
                       "bert_protocol": bert_proto}))
     print(json.dumps({"kernels": entries}))

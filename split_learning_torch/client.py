@@ -4,7 +4,9 @@ process.
 Port of the JAX package's ``runtime/client.py`` ``main``: it reads
 ``--config``, builds its transport stack from the config, registers for
 stage ``--layer_id`` and trains whatever shard each START hands it until
-STOP.  The client runs on the card; ``--device cpu`` asks for the CPU,
+STOP.  A scripted crash (``chaos.crash``) ends the process as it ends the
+JAX package's: its stack is closed, the ``ChaosCrash`` propagates and
+the process exits 1.  The client runs on the card; ``--device cpu`` asks for the CPU,
 and without a GPU and without it the process fails at once.
 
 Usage::

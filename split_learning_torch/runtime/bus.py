@@ -19,15 +19,26 @@ round's two shapes run it:
 * :class:`AsyncTransport` — the outermost layer of a participant's
   stack (``transport.async-send``): a bounded send FIFO drained by one
   sender thread (a publish may be a thunk that builds its frame parts
-  there), and lazy per-queue receive prefetchers for the data plane.
+  there), and lazy per-queue receive prefetchers for the data plane;
+* :func:`shard_for` + :class:`ShardedTcpTransport` — the sharded broker
+  plane (``broker.shards`` > 1): every queue is owned by one of N
+  brokers on consecutive ports, by the JAX package's crc32 family hash,
+  and each shard gets its own lazily opened connection with its own
+  reconnect state; :func:`find_port_block`, :func:`broker_stats` and
+  :func:`collect_broker_stats` serve the plane's operators;
+* :class:`ReliableTransport` — at-least-once, in-order delivery
+  (``transport.reliable``): ``RB1`` envelopes with a crc32 over the
+  body (byte for byte the JAX package's), acks on ``__ack__.{token}``,
+  redelivery with capped x1.5 backoff, dedup and resequencing on the
+  receiver.
 
 Blocking ``get`` waits on a condition variable or a socket, never by
 polling.
 
-Not ported yet (each raises ``NotImplementedError`` where a config asks
-for it): the sharded broker plane (``broker.shards`` > 1), the
-reliable layer (``transport.reliable``), chaos injection and the
-native C++ broker.
+Not ported: the native C++ broker, the broker's span journal and
+flight-recorder queue (``__broker__.blackbox``), and the receiver's
+``transport_rtt`` histogram (the data envelope carries its send time
+all the same, so either package's receiver parses the port's frames).
 """
 
 from __future__ import annotations
@@ -37,11 +48,15 @@ import fnmatch
 import heapq
 import json
 import os
+import random
+import re
 import selectors
 import socket
 import struct
 import threading
 import time
+import uuid
+import zlib
 from typing import Iterable
 
 
@@ -276,7 +291,8 @@ class Broker:
     #: seconds a fixed port's bind is retried for
     BIND_TIMEOUT_S = 10.0
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 0):
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 shard_id: str | None = None):
         # a restarted broker re-binds the same port while the previous
         # incarnation's connections may still be draining: retry briefly
         deadline = time.monotonic() + self.BIND_TIMEOUT_S
@@ -289,7 +305,7 @@ class Broker:
                     raise
                 time.sleep(0.1)
         self.host, self.port = self._sock.getsockname()[:2]
-        self.shard_id = f"broker@{self.host}:{self.port}"
+        self.shard_id = shard_id or f"broker@{self.host}:{self.port}"
         self._sock.setblocking(False)
         self._sel = selectors.DefaultSelector()
         self._sel.register(self._sock, selectors.EVENT_READ, None)
@@ -411,8 +427,10 @@ class Broker:
             name = bytes(buf[off + 5:off + 5 + nlen])
             (plen,) = struct.unpack_from(">Q", buf, off + 5 + nlen)
             if plen > MAX_FRAME_BYTES:
-                # corrupt length prefix: fail the connection, never the
+                # corrupt length prefix or a frame over the cap
+                # (``--max-frame-gb``): fail the connection, never the
                 # multi-terabyte allocation
+                self._stats["oversize_frames"] += 1
                 self._drop(conn)
                 return
             if len(buf) - off < 13 + nlen + plen:
@@ -606,7 +624,8 @@ class Broker:
         stale.  The reference's keys, plus the payload bytes the queues
         hold now (``stored_bytes``) and at most (``stored_bytes_hwm``),
         and the payload bytes published and delivered by queue family
-        (:func:`queue_family`)."""
+        (:func:`queue_family`), and the frames refused for a payload
+        length over :data:`MAX_FRAME_BYTES` (``oversize_frames``)."""
         parked = sum(sum(1 for pg in d if not pg.done)
                      for d in self._parked.values())
         return {
@@ -625,6 +644,7 @@ class Broker:
             "get_timeouts": self._stats["get_timeouts"],
             "purges": self._stats["purges"],
             "backpressure_pauses": self._stats["backpressure_pauses"],
+            "oversize_frames": self._stats["oversize_frames"],
             "stored_bytes": self._stored_bytes,
             "stored_bytes_hwm": self._stored_hwm,
             "published_bytes_by_family": dict(self._fam_in),
@@ -815,6 +835,509 @@ class TcpTransport(Transport):
             self._sock.close()
         except OSError:
             pass
+
+
+# --------------------------------------------------------------------------
+# queue sharding: the broker plane
+# --------------------------------------------------------------------------
+
+_DIGIT_RE = re.compile(r"\d+")
+
+
+def shard_for(queue: str, shards: int) -> int:
+    """The owner shard of ``queue`` among ``shards`` brokers (ports
+    ``base .. base+shards-1``): the JAX package's function, so either
+    package's participants agree on every queue.
+
+    Stable across processes and restarts (crc32 and integer arithmetic,
+    never :func:`hash`), and family-aware: the digit groups are lifted
+    out of the name, the family template is hashed once and the indices
+    are mixed back in, so ``intermediate_queue_0_0``, ``_0_1``, ``_0_2``
+    round-robin across shards while one queue maps to one shard.
+    Digit-free names (``rpc_queue``) hash on the family alone."""
+    if shards <= 1:
+        return 0
+    family = _DIGIT_RE.sub("#", queue)
+    h = zlib.crc32(family.encode())
+    for d in _DIGIT_RE.findall(queue):
+        # 1000003: an odd prime far above any shard count, so each digit
+        # group's indices stay a bijection mod shards
+        h = h * 1000003 + int(d)
+    return h % shards
+
+
+class ShardedTcpTransport(Transport):
+    """One connection per shard of a broker plane.
+
+    Every publish and get goes to the queue's owner (:func:`shard_for`)
+    over a :class:`TcpTransport` opened on first use.  Each keeps its
+    own socket, lock and reconnect backoff, so a dead shard stalls only
+    its own queues while the others flow on, and the reliable layer
+    above redelivers what the dead shard lost once it is bound again.
+    ``purge(None)`` sweeps every shard."""
+
+    def __init__(self, host: str, port: int, shards: int,
+                 connect_timeout: float = 30.0,
+                 reconnect_timeout: float = 15.0, faults=None):
+        super().__init__()
+        self.host, self.port = host, int(port)
+        self.shards = int(shards)
+        self._connect_timeout = connect_timeout
+        self._reconnect_timeout = reconnect_timeout
+        self._faults = faults
+        self._closed = False
+        # guards the shard map only: connections are dialled outside it
+        # (a shard in its backoff must not stall a sibling's first use)
+        self._shard_lock = threading.Lock()
+        self._transports: dict[int, TcpTransport] = {}
+
+    def shard_of(self, queue: str) -> int:
+        return shard_for(queue, self.shards)
+
+    def endpoint(self, shard: int) -> tuple[str, int]:
+        return self.host, self.port + shard
+
+    def _conn(self, shard: int) -> TcpTransport:
+        t = self._transports.get(shard)
+        if t is not None:
+            return t
+        if self._closed:
+            raise ConnectionError("transport closed")
+        host, port = self.endpoint(shard)
+        fresh = TcpTransport(host, port,
+                             connect_timeout=self._connect_timeout,
+                             reconnect_timeout=self._reconnect_timeout,
+                             faults=self._faults)
+        with self._shard_lock:
+            cur = self._transports.get(shard)
+            if cur is None and not self._closed:
+                self._transports[shard] = fresh
+                return fresh
+        fresh.close()   # lost the race, or closed meanwhile
+        if cur is None:
+            raise ConnectionError("transport closed")
+        return cur
+
+    def publish(self, queue: str, payload: bytes) -> None:
+        self._count(queue, payload)
+        self._conn(self.shard_of(queue)).publish(queue, payload)
+
+    def get(self, queue: str, timeout: float | None = None
+            ) -> bytes | None:
+        return self._conn(self.shard_of(queue)).get(queue, timeout)
+
+    def purge(self, queues: Iterable[str] | None = None) -> None:
+        if queues is None:
+            for shard in range(self.shards):
+                self._conn(shard).purge(None)
+            return
+        by_shard: dict[int, list] = {}
+        for q in queues:
+            by_shard.setdefault(self.shard_of(q), []).append(q)
+        for shard, qs in sorted(by_shard.items()):
+            self._conn(shard).purge(qs)
+
+    def close(self) -> None:
+        with self._shard_lock:
+            self._closed = True
+            conns = list(self._transports.values())
+            self._transports.clear()
+        for t in conns:
+            t.close()
+
+
+def find_port_block(shards: int, host: str = "127.0.0.1",
+                    lo: int = 20000, hi: int = 28000,
+                    attempts: int = 64) -> int:
+    """A base port with ``shards`` consecutive bindable ports, below the
+    ephemeral range so that client sockets do not collide with the
+    plane.  Probing and releasing is racy: a caller whose bind fails
+    asks again."""
+    rng = random.Random()
+    for _ in range(attempts):
+        base = rng.randrange(lo, hi)
+        socks = []
+        try:
+            for i in range(shards):
+                s = socket.socket()
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                s.bind((host, base + i))
+                socks.append(s)
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+        if len(socks) == shards:
+            return base
+    raise OSError(f"no free {shards}-port block in [{lo}, {hi})")
+
+
+def broker_stats(host: str, port: int, timeout: float = 2.0) -> dict:
+    """One broker's stats frame (:data:`BROKER_STATS_QUEUE`)."""
+    t = TcpTransport(host, port, connect_timeout=timeout,
+                     reconnect_timeout=timeout)
+    try:
+        raw = t.get(BROKER_STATS_QUEUE, timeout=timeout)
+        if raw is None:
+            raise ConnectionError("stats request timed out")
+        return json.loads(bytes(raw).decode())
+    finally:
+        t.close()
+
+
+def collect_broker_stats(host: str, port: int, shards: int,
+                         timeout: float = 1.5) -> list[dict]:
+    """The stats of every shard of a plane, each with its
+    ``shard_index``; a shard that does not answer gives ``{"shard_index":
+    i, "port": p, "error": ...}`` instead of failing the sweep."""
+    out = []
+    for i in range(max(1, int(shards))):
+        try:
+            s = broker_stats(host, port + i, timeout=timeout)
+            s["shard_index"] = i
+        except Exception as e:  # noqa: BLE001 — down, refused, timed out
+            s = {"shard_index": i, "port": port + i,
+                 "error": f"{type(e).__name__}: {e}"}
+        out.append(s)
+    return out
+
+
+# --------------------------------------------------------------------------
+# reliable delivery: seq/ack envelopes, redelivery, dedup, resequencing
+# --------------------------------------------------------------------------
+# Envelope (the JAX package's, byte for byte):
+#   b"RB1" | 4B crc32(body) | body
+#   body(data) = 0x03 | 8B seq | 2B name-len | sender-token | f64 t-send
+#                | payload
+#   body(ack)  = 0x02 | 8B seq | 2B name-len | queue-name
+# Kind 0x01, the data envelope without a send time, is still parsed.
+# Data frames ride the application queue, acks ``__ack__.{token}``.  The
+# crc is checked before anything is parsed: a corrupt frame is dropped
+# without an ack, and the sender's redelivery repairs it.
+
+_ENV_MAGIC = b"RB1"
+_ENV_DATA, _ENV_ACK, _ENV_DATA_TS = 0x01, 0x02, 0x03
+_ENV_HDR = len(_ENV_MAGIC) + 4
+
+
+def _env_frame(kind: int, seq: int, name: bytes, payload: bytes,
+               t_send: float | None = None) -> bytes:
+    body = struct.pack(">BQH", kind, seq, len(name)) + name
+    if kind == _ENV_DATA_TS:
+        body += struct.pack(">d", time.time() if t_send is None
+                            else t_send)
+    body += payload
+    return _ENV_MAGIC + struct.pack(">I", zlib.crc32(body)) + body
+
+
+def _env_parse(raw: bytes):
+    """None: not an envelope; ``"corrupt"``: failed its integrity check;
+    else ``(kind, name, seq, payload, t_send)`` with the kind normalised
+    to ``_ENV_DATA`` or ``_ENV_ACK`` (``t_send`` None where the frame
+    has none)."""
+    if not raw.startswith(_ENV_MAGIC):
+        return None
+    if len(raw) < _ENV_HDR + 11:
+        return "corrupt"
+    (want,) = struct.unpack_from(">I", raw, len(_ENV_MAGIC))
+    body = raw[_ENV_HDR:]
+    if zlib.crc32(body) != want:
+        return "corrupt"
+    kind, seq, nlen = struct.unpack_from(">BQH", body, 0)
+    if kind not in (_ENV_DATA, _ENV_ACK, _ENV_DATA_TS) \
+            or len(body) < 11 + nlen:
+        return "corrupt"
+    name = bytes(body[11:11 + nlen]).decode("utf-8", "replace")
+    t_send = None
+    off = 11 + nlen
+    if kind == _ENV_DATA_TS:
+        if len(body) < off + 8:
+            return "corrupt"
+        (t_send,) = struct.unpack_from(">d", body, off)
+        off += 8
+        kind = _ENV_DATA
+    return kind, name, seq, bytes(body[off:]), t_send
+
+
+def _ack_queue(token: str) -> str:
+    return f"__ack__.{token}"
+
+
+class ReliableTransport(Transport):
+    """At-least-once, in-order delivery over any :class:`Transport`.
+
+    Sender (queues matching ``patterns``): each payload goes out in a
+    sequence-numbered envelope, is kept until acked and is redelivered
+    with capped x1.5 backoff up to ``max_redeliver`` times, then dropped
+    and counted ``gave_up``.  Receiver (envelopes describe themselves):
+    a frame is acked on receipt, deduplicated on ``(queue, sender token,
+    seq)`` and resequenced into the sender's publish order, so the layer
+    above sees each payload once and in order while the sender keeps
+    redelivering.  A gap whose frame the sender gave up on is skipped
+    after ``gap_timeout_s`` and counted ``lost``.
+
+    The sender token carries a per-instance nonce: a participant started
+    again begins a fresh sequence space.  The ack and redelivery daemon
+    publishes and reads acks on ``side`` when given (a second
+    connection, needed over :class:`TcpTransport`, whose blocking get
+    holds its socket), else on ``inner``.  Queues that match no pattern
+    pass through as they are.  Counters: ``redeliveries``,
+    ``dedup_hits``, ``resequenced``, ``lost``, ``gave_up``,
+    ``daemon_errors``, ``ack_send_failures``, ``corrupt_rejected``."""
+
+    def __init__(self, inner: Transport, sender: str,
+                 patterns: Iterable[str] | None = None,
+                 side: Transport | None = None,
+                 redeliver_s: float = 0.3, max_redeliver: int = 20,
+                 gap_timeout_s: float | None = None, faults=None):
+        super().__init__()
+        self.inner = inner
+        self._side = side if side is not None else inner
+        self._own_side = side is not None
+        self.sender = sender
+        self.token = f"{sender}#{uuid.uuid4().hex[:8]}"
+        if patterns is None:
+            from split_learning_torch.config import TransportConfig
+            patterns = TransportConfig().reliable_queues
+        self.patterns = tuple(patterns)
+        self._redeliver_s = redeliver_s
+        self._max_redeliver = max_redeliver
+        if gap_timeout_s is None:
+            # past the sender's whole retry horizon: a gap skipped while
+            # the sender still redelivers turns a late frame into a loss
+            horizon = sum(min(redeliver_s * (1.5 ** k), 1.0)
+                          for k in range(1, max_redeliver + 1))
+            gap_timeout_s = horizon + 10.0
+        self._gap_timeout_s = gap_timeout_s
+        if faults is None:
+            from split_learning_torch.runtime.trace import (
+                default_fault_counters,
+            )
+            faults = default_fault_counters
+        self.faults = faults
+        self._lock = threading.Lock()
+        self._seq: dict[str, int] = {}
+        # (queue, seq) -> [frame, next due, attempts]
+        self._unacked: dict[tuple, list] = {}
+        # receive state, keyed (queue, sender token): the next seq to
+        # hand up (never pruned while the token may still send), frames
+        # held for resequencing and when their gap opened
+        self._expected: dict[tuple, int] = {}
+        self._held: dict[tuple, dict] = {}
+        self._gap_since: dict[tuple, float] = {}
+        self._closed = threading.Event()
+        self._daemon = threading.Thread(target=self._daemon_loop,
+                                        daemon=True,
+                                        name=f"reliable-{sender}")
+        self._daemon.start()
+
+    # -- sender ------------------------------------------------------------
+
+    def _match(self, queue: str) -> bool:
+        return any(fnmatch.fnmatchcase(queue, p) for p in self.patterns)
+
+    def publish(self, queue: str, payload: bytes) -> None:
+        if not self._match(queue):
+            self.inner.publish(queue, payload)
+            return
+        with self._lock:
+            seq = self._seq.get(queue, 0)
+            self._seq[queue] = seq + 1
+            frame = _env_frame(_ENV_DATA_TS, seq, self.token.encode(),
+                               payload)
+            self._unacked[(queue, seq)] = [
+                frame, time.monotonic() + self._redeliver_s, 0]
+        self.inner.publish(queue, frame)
+
+    def _daemon_loop(self) -> None:
+        """Consume acks; redeliver overdue frames.  The only thread that
+        repairs losses, so it survives any error (counted
+        ``daemon_errors``); only stopping and a closed bus end it."""
+        ackq = _ack_queue(self.token)
+        while not self._closed.is_set():
+            try:
+                raw = self._side.get(ackq, timeout=0.05)
+            except QueueClosed:
+                return
+            except (ConnectionError, OSError):
+                if self._closed.is_set():
+                    return
+                time.sleep(0.2)
+                continue
+            except Exception:  # noqa: BLE001 — see docstring
+                self.faults.inc("daemon_errors")
+                time.sleep(0.2)
+                continue
+            if raw is not None:
+                parsed = _env_parse(raw)
+                if isinstance(parsed, tuple) and parsed[0] == _ENV_ACK:
+                    _, queue, seq, _, _ = parsed
+                    with self._lock:
+                        self._unacked.pop((queue, seq), None)
+                continue   # drain the acks before redelivering
+            now = time.monotonic()
+            due = []
+            with self._lock:
+                for key, ent in list(self._unacked.items()):
+                    if ent[1] > now:
+                        continue
+                    ent[2] += 1
+                    if ent[2] > self._max_redeliver:
+                        del self._unacked[key]
+                        self.faults.inc("gave_up")
+                        continue
+                    ent[1] = now + min(
+                        self._redeliver_s * (1.5 ** ent[2]), 1.0)
+                    due.append((key[0], ent[0]))
+            for queue, frame in due:
+                try:
+                    self._side.publish(queue, frame)
+                    self.faults.inc("redeliveries")
+                except QueueClosed:
+                    return
+                except (ConnectionError, OSError):
+                    break   # broker down: the next tick retries
+                except Exception:  # noqa: BLE001 — see docstring
+                    self.faults.inc("daemon_errors")
+                    break
+
+    # -- receiver ----------------------------------------------------------
+
+    def _send_ack(self, token: str, queue: str, seq: int) -> None:
+        try:
+            self.inner.publish(_ack_queue(token),
+                               _env_frame(_ENV_ACK, seq, queue.encode(),
+                                          b""))
+        except (QueueClosed, ConnectionError, OSError):
+            # a lost ack costs a redelivery and a dedup hit, counted so
+            # that a failing ack path shows
+            self.faults.inc("ack_send_failures")
+
+    def _pop_ready(self, queue: str) -> bytes | None:
+        """The next in-order held frame of ``queue``, if any."""
+        with self._lock:
+            for (q, token), held in self._held.items():
+                if q != queue or not held:
+                    continue
+                exp = self._expected.get((q, token), 0)
+                if exp in held:
+                    payload = held.pop(exp)
+                    self._expected[(q, token)] = exp + 1
+                    if held:
+                        self._gap_since[(q, token)] = time.monotonic()
+                    else:
+                        del self._held[(q, token)]
+                        self._gap_since.pop((q, token), None)
+                    return payload
+        return None
+
+    def _skip_dead_gaps(self, queue: str) -> None:
+        """A gap older than ``gap_timeout_s`` means its sender gave up or
+        died: jump past it rather than stall the queue."""
+        now = time.monotonic()
+        with self._lock:
+            for (q, token), since in list(self._gap_since.items()):
+                if q != queue or now - since < self._gap_timeout_s:
+                    continue
+                held = self._held.get((q, token))
+                if not held:
+                    self._gap_since.pop((q, token), None)
+                    continue
+                exp = self._expected.get((q, token), 0)
+                nxt = min(held)
+                self.faults.inc("lost", nxt - exp)
+                self._expected[(q, token)] = nxt
+                self._gap_since[(q, token)] = now
+
+    def get(self, queue: str, timeout: float | None = None) -> bytes | None:
+        if not self._match(queue):
+            # pass-through queues keep the inner transport's blocking wait
+            return self.inner.get(queue, timeout)
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
+        while True:
+            ready = self._pop_ready(queue)
+            if ready is not None:
+                return ready
+            remain = (None if deadline is None
+                      else deadline - time.monotonic())
+            if remain is not None and remain <= 0:
+                return None
+            raw = self.inner.get(queue, 0.1 if remain is None
+                                 else min(remain, 0.1))
+            if raw is None:
+                self._skip_dead_gaps(queue)
+                continue
+            parsed = _env_parse(raw)
+            if parsed is None or parsed == "corrupt":
+                # every sender on a reliable queue envelopes its frames,
+                # so a frame without one lost its magic to corruption:
+                # dropped unacked, and the sender's redelivery repairs it
+                self.faults.inc("corrupt_rejected")
+                continue
+            kind, token, seq, payload, _ = parsed
+            if kind != _ENV_DATA:
+                continue              # a stray ack on a data queue
+            self._send_ack(token, queue, seq)
+            key = (queue, token)
+            with self._lock:
+                exp = self._expected.get(key, 0)
+                if seq < exp or seq in self._held.get(key, {}):
+                    self.faults.inc("dedup_hits")
+                    continue
+                if seq == exp:
+                    self._expected[key] = exp + 1
+                    if self._held.get(key):
+                        self._gap_since[key] = time.monotonic()
+                    else:
+                        self._gap_since.pop(key, None)
+                    return payload
+                # a later frame: held until the gap fills
+                self._held.setdefault(key, {})[seq] = payload
+                self._gap_since.setdefault(key, time.monotonic())
+                self.faults.inc("resequenced")
+
+    # -- plumbing ----------------------------------------------------------
+
+    def purge(self, queues: Iterable[str] | None = None) -> None:
+        self.inner.purge(queues)
+        with self._lock:
+            if queues is None:
+                self._unacked.clear()
+                self._held.clear()
+                self._expected.clear()
+                self._gap_since.clear()
+            else:
+                qs = set(queues)
+                for d in (self._held, self._expected, self._gap_since):
+                    for key in [k for k in d if k[0] in qs]:
+                        del d[key]
+                for key in [k for k in self._unacked if k[0] in qs]:
+                    del self._unacked[key]
+
+    def bytes_out_snapshot(self) -> dict:
+        return self.inner.bytes_out_snapshot()
+
+    def stop(self, close_inner: bool = True) -> None:
+        """Stop the daemon and close the side connection this layer
+        owns; ``close_inner=False`` leaves a shared bus below open (a
+        participant that dies while the network lives on)."""
+        self._closed.set()
+        self._daemon.join(timeout=5.0)
+        try:
+            # the ack queue dies with the token: leave nothing of it in
+            # the broker
+            self.inner.purge([_ack_queue(self.token)])
+        except (QueueClosed, ConnectionError, OSError):
+            pass
+        if self._own_side:
+            self._side.close()
+        if close_inner:
+            self.inner.close()
+
+    def close(self) -> None:
+        self.stop(close_inner=True)
 
 
 # --------------------------------------------------------------------------
@@ -1100,11 +1623,15 @@ class _Prefetcher:
 
 
 def make_transport(kind: str = "inproc", host: str = "127.0.0.1",
-                   port: int = 5672, faults=None) -> Transport:
-    """A fresh transport of ``kind``: in-process queues, or one
-    connection to the TCP broker at ``host:port``."""
+                   port: int = 5672, shards: int = 1,
+                   faults=None) -> Transport:
+    """A fresh transport of ``kind``: in-process queues, or a connection
+    to the TCP broker at ``host:port`` (to the plane of ``shards``
+    brokers on ports ``port .. port+shards-1`` when ``shards`` > 1)."""
     if kind == "inproc":
         return InProcTransport()
     if kind == "tcp":
+        if shards > 1:
+            return ShardedTcpTransport(host, port, shards, faults=faults)
         return TcpTransport(host, port, faults=faults)
     raise ValueError(f"unknown transport kind {kind!r}; use inproc or tcp")

@@ -41,10 +41,17 @@ for).  Many client threads may share one card: every op launches on the
 thread's current stream, and tensors cross participants only as host
 bytes through the bus.  Without a transport from the caller, a client
 builds its configured stack (``runtime/chaos.py``
-``make_runtime_transport``).  On a deferred bus (the async sender) an
-activation or gradient's codec, device-to-host fetch and frame encode
-run in a thunk on the sender thread, on the CUDA stream that produced
-the tensor.
+``make_runtime_transport``: the async sender over the reliable layer
+over chaos injection, each as its config asks, on one broker or a
+sharded plane) and closes every layer of it when ``run`` ends.  A
+scripted :class:`~split_learning_torch.runtime.chaos.ChaosCrash` is not
+caught: it unwinds ``run`` as the process's death, as in the JAX
+package (a client process exits 1).  Each UPDATE logs the process's
+cumulative fault counters (``round faults (cumulative): ...`` and a
+``kind=faults`` record) when they changed.  On a deferred bus (the async
+sender) an activation or gradient's codec, device-to-host fetch and
+frame encode run in a thunk on the sender thread, on the CUDA stream
+that produced the tensor.
 
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): async decoupled mode and auxiliary heads, sync-overlap ticks (and
@@ -378,6 +385,7 @@ class ProtocolClient:
         self.bus = transport
         from split_learning_torch.runtime.trace import default_fault_counters
         self.faults = default_fault_counters
+        self._fault_base: dict | None = None
         # chunked-frame reassembly is per consumer thread; the client is
         # single-threaded over its queues
         self._assembler = FrameAssembler()
@@ -478,8 +486,9 @@ class ProtocolClient:
         self.log.info(f"[>>>] REGISTER stage={self.stage}")
 
     def run(self):
-        """Blocking lifecycle loop; returns on STOP (and then closes a
-        transport stack it built itself)."""
+        """Blocking lifecycle loop; returns on STOP.  However it ends
+        (STOP, a closed bus, a scripted crash), a transport stack the
+        client built itself is closed, every layer of it."""
         try:
             self._run()
         finally:
@@ -660,6 +669,15 @@ class ProtocolClient:
         self.log.info(f"[>>>] UPDATE samples={self.num_samples} "
                       f"ok={self.round_ok}"
                       + ("" if with_weights else " (no weights)"))
+        # the fault counters live per process: each client surfaces its
+        # own, cumulative, once a round they changed
+        snap = {k: v for k, v in self.faults.snapshot().items() if v}
+        if snap and snap != self._fault_base:
+            self._fault_base = snap
+            self.log.info("round faults (cumulative): " + " ".join(
+                f"{k}={v}" for k, v in sorted(snap.items())))
+            self.log.metric(kind="faults", client=self.client_id,
+                            round_idx=self.fence, **snap)
 
     def _redeliver(self, msg) -> Pause:
         """A STOP or a fresh START arriving mid-training: requeue it for

@@ -24,6 +24,14 @@ ask for none back, SDA widens each head's window over distinct feeders
 and feeder sets rebroadcast with SYN), and 2LS pairs each in-cluster's
 feeders with its own head's queue.
 
+Without a transport from the caller the server builds its configured
+stack (``runtime/chaos.py`` ``make_runtime_transport``: the async sender
+over the reliable layer over chaos injection, on one broker or a sharded
+plane) and closes every layer of it when ``serve`` ends.  The process's
+cumulative fault counters (drops, redeliveries, dedup hits, reconnects,
+...) go into a ``kind=faults`` record each round, and into a ``round
+faults (cumulative): ...`` log line when they changed.
+
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): the aggregator tree and remote aggregator nodes, stage hosts, the
 scheduler, elastic re-planning, async mode and the delta shadow (its
@@ -125,6 +133,7 @@ class ProtocolContext(TorchContext):
         self.bus = transport
         from split_learning_torch.runtime.trace import default_fault_counters
         self.faults = default_fault_counters
+        self._fault_base: dict | None = None
         self._assembler = FrameAssembler()   # chunked UPDATE reassembly
         self.log = logger or Logger.for_run(cfg, "server", console=False)
         self.client_timeout = client_timeout
@@ -551,8 +560,16 @@ class ProtocolContext(TorchContext):
         self.log.metric(kind="phases", gen=self._cur_gen,
                         round_idx=round_idx, cluster=plan.cluster_id,
                         **{k: round(v, 6) for k, v in phases.items()})
+        # CUMULATIVE fault counters of this process's stack (on the
+        # shared in-process bus: every participant's), so a chaos run is
+        # audited, not silently repaired
         snap = {k: v for k, v in self.faults.snapshot().items() if v}
         if snap:
+            if snap != self._fault_base:
+                self._fault_base = snap
+                self.log.info("round faults (cumulative): " + " ".join(
+                    f"{k}={v}" for k, v in sorted(snap.items())),
+                    "yellow")
             self.log.metric(kind="faults", gen=self._cur_gen,
                             round_idx=round_idx, cluster=plan.cluster_id,
                             **snap)
@@ -614,6 +631,11 @@ class InProcRun:
     clients: list
     bus: InProcTransport
     result: TrainResult
+    #: each participant's transport stack over ``bus`` (empty when the
+    #: participants share ``bus`` itself)
+    stacks: dict = dataclasses.field(default_factory=dict)
+    #: the clients that a scripted crash ended
+    crashed: list = dataclasses.field(default_factory=list)
 
 
 def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
@@ -625,9 +647,21 @@ def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
     unless the CPU is asked for): the server in the calling thread, one
     ``ProtocolClient`` thread per configured client (``client_{stage}_{i}``,
     registering ``profiles[client_id]`` when given), one shared
-    :class:`InProcTransport`.  A client that raises closes the bus, so
+    :class:`InProcTransport`.
+
+    With ``chaos.enabled`` or ``transport.reliable`` each participant
+    speaks through its own stack over the shared bus, as
+    ``make_runtime_transport`` builds it (the async sender, the reliable
+    layer, chaos injection): fault state and dedup state are per
+    participant, as they are per process.  A client that a scripted
+    :class:`~split_learning_torch.runtime.chaos.ChaosCrash` ends stops
+    its own stack and leaves the bus to the others (the round goes on
+    without it).  A client that raises anything else closes the bus, so
     the server fails at once instead of waiting out a barrier; its error
-    is raised here."""
+    is raised here.  Every stack is stopped before this returns."""
+    from split_learning_torch.runtime.chaos import (
+        ChaosCrash, make_runtime_transport, stop_stack,
+    )
     from split_learning_torch.runtime.client import ProtocolClient
 
     if cfg.transport.kind != "inproc":
@@ -636,18 +670,38 @@ def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
             f"transport.kind is {cfg.transport.kind!r}: start the broker, "
             "server and clients as processes for it")
     bus = InProcTransport()
-    server = ProtocolServer(cfg, bus, logger=logger,
-                            client_timeout=client_timeout, device=device)
-    clients = [ProtocolClient(cfg, f"client_{s}_{i}", s, bus,
-                              profile=(profiles or {}).get(
-                                  f"client_{s}_{i}"), device=device)
-               for s, n in enumerate(cfg.clients, start=1)
-               for i in range(n)]
+    layered = cfg.chaos.enabled or cfg.transport.reliable
+    stacks: dict = {}
+
+    def stack(name: str) -> Transport:
+        if not layered:
+            return bus
+        stacks[name] = make_runtime_transport(cfg, name, bus=bus)
+        return stacks[name]
+
+    ids = [(f"client_{s}_{i}", s) for s, n in enumerate(cfg.clients, 1)
+           for i in range(n)]
+    try:
+        server = ProtocolServer(cfg, stack("server"), logger=logger,
+                                client_timeout=client_timeout,
+                                device=device)
+        clients = [ProtocolClient(cfg, cid, s, stack(cid),
+                                  profile=(profiles or {}).get(cid),
+                                  device=device) for cid, s in ids]
+    except BaseException:
+        for t in stacks.values():
+            stop_stack(t, close_inner=False)
+        raise
     errors: list = []
+    crashed: list = []
 
     def run(client):
         try:
             client.run()
+        except ChaosCrash:
+            # the participant died; the network lives on
+            crashed.append(client.client_id)
+            stop_stack(client.bus, close_inner=False)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append((client.client_id, e))
             bus.close()
@@ -657,18 +711,23 @@ def run_inproc(cfg: Config, device=None, client_timeout: float = 600.0,
     for t in threads:
         t.start()
     try:
-        result = server.serve(init_params=init_params,
-                              init_stats=init_stats)
-    except QueueClosed as e:
-        if errors:
-            cid, err = errors[0]
-            raise RuntimeError(f"protocol client {cid} failed") from err
-        raise RuntimeError("the in-process bus closed") from e
-    for t in threads:
-        t.join(timeout=120)
-        if t.is_alive():
-            raise RuntimeError(f"protocol client {t.name} did not stop")
+        try:
+            result = server.serve(init_params=init_params,
+                                  init_stats=init_stats)
+        except QueueClosed as e:
+            if errors:
+                cid, err = errors[0]
+                raise RuntimeError(f"protocol client {cid} failed") from err
+            raise RuntimeError("the in-process bus closed") from e
+        for t in threads:
+            t.join(timeout=120)
+            if t.is_alive():
+                raise RuntimeError(f"protocol client {t.name} did not stop")
+    finally:
+        for name, t in stacks.items():
+            if name not in crashed:
+                stop_stack(t, close_inner=False)
     if errors:
         cid, err = errors[0]
         raise RuntimeError(f"protocol client {cid} failed") from err
-    return InProcRun(server, clients, bus, result)
+    return InProcRun(server, clients, bus, result, stacks, crashed)

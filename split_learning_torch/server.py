@@ -4,9 +4,11 @@ process.
 Port of the JAX package's ``runtime/server.py`` ``main``: it reads
 ``--config``, builds its transport stack from the config
 (``transport.kind: tcp`` connects to the broker at
-``transport.host``/``transport.port``), waits for every configured
-client to register, runs the round loop and sends STOP.  ``--broker``
-hosts the event-loop broker in this process as well.  The server runs on
+``transport.host``/``transport.port``, or to the plane of
+``broker.shards`` brokers on the ports from there up), waits for every
+configured client to register, runs the round loop and sends STOP.
+``--broker`` hosts the event-loop broker in this process as well (one
+per shard).  The server runs on
 the card; ``--device cpu`` asks for the CPU, and without a GPU and
 without it the process fails at once.
 
@@ -46,9 +48,14 @@ def main(argv=None):
     # float32 products in full float32, as run_local computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    broker = None
+    brokers = []
     if args.broker and cfg.transport.kind == "tcp":
-        broker = Broker(cfg.transport.host, cfg.transport.port)
+        # one event loop per shard: the one-command deployment keeps
+        # working with broker.shards > 1 (``python -m
+        # split_learning_torch.broker --shards N`` runs them as processes)
+        brokers = [Broker(cfg.transport.host, cfg.transport.port + i,
+                          shard_id=f"shard_{i}")
+                   for i in range(cfg.broker.shards)]
     try:
         server = ProtocolServer(cfg, client_timeout=args.client_timeout,
                                 ready_timeout=args.ready_timeout,
@@ -60,7 +67,7 @@ def main(argv=None):
             print(f"round {rec.round_idx}: ok={rec.ok} "
                   f"samples={rec.num_samples} val_loss={rec.val_loss}{acc}")
     finally:
-        if broker is not None:
+        for broker in brokers:
             broker.close()
     return server
 

@@ -372,3 +372,60 @@ def test_strict_sda_protocol_round_runs_with_jax_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "strict sda ok" in proc.stdout
+
+
+def test_chaos_reliable_sharded_stack_runs_with_jax_blocked():
+    """The full transport stack of a participant — the async sender over
+    the reliable layer over chaos injection over a 2-shard broker plane,
+    as ``make_runtime_transport`` builds it from the config — carries the
+    JAX package's acceptance recipe's stream (seed 1234) exact and in
+    order to another participant's stack, in a process where JAX and the
+    JAX package cannot be imported."""
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "from split_learning_torch.config import from_dict",
+        "from split_learning_torch.runtime import bus",
+        "from split_learning_torch.runtime.chaos import ("
+        "ChaosTransport, make_runtime_transport)",
+        "from split_learning_torch.runtime.trace import FaultCounters",
+        "base = bus.find_port_block(2)",
+        "brokers = [bus.Broker('127.0.0.1', base + i) for i in range(2)]",
+        "cfg = from_dict({'model': 'KWT', 'dataset': 'SPEECHCOMMANDS',"
+        " 'clients': [1, 1], 'broker': {'shards': 2},"
+        " 'transport': {'kind': 'tcp', 'port': base, 'reliable': True,"
+        " 'redeliver-s': 0.05},"
+        " 'chaos': {'enabled': True, 'seed': 1234, 'drop': 0.10,"
+        " 'duplicate': 0.10, 'reorder': 0.15, 'corrupt': 0.05,"
+        " 'delay': 0.10, 'delay-s': 0.005}})",
+        "fc = FaultCounters()",
+        "tx = make_runtime_transport(cfg, 'client_1_0', faults=fc)",
+        "rx = make_runtime_transport(cfg, 'client_2_0', faults=fc)",
+        "assert isinstance(tx.inner.inner, ChaosTransport)",
+        "assert isinstance(tx.inner.inner.inner, bus.ShardedTcpTransport)",
+        "queues = ['intermediate_queue_1_0', 'gradient_queue_1_client_1_1']",
+        "assert {bus.shard_for(q, 2) for q in queues} == {0, 1}",
+        "for q in queues:",
+        "    sent = [b'%s-%03d' % (q.encode(), i) for i in range(60)]",
+        "    for m in sent:",
+        "        tx.publish(q, m)",
+        "    got = [bytes(rx.get(q, timeout=30)) for _ in sent]",
+        "    assert got == sent, (q, got[:5])",
+        "snap = fc.snapshot()",
+        "for k in ('drops', 'duplicates', 'reorders', 'corruptions',"
+        " 'delays', 'redeliveries', 'dedup_hits', 'corrupt_rejected'):",
+        "    assert snap.get(k), (k, snap)",
+        "tx.close()",
+        "rx.close()",
+        "for b in brokers:",
+        "    b.close()",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
+        " and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('chaos stack ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "chaos stack ok" in proc.stdout
