@@ -131,7 +131,7 @@ Phases, each fatal on failure:
    256 samples a client, each held to its own contract (samples,
    validated rounds, finite losses, FedAsync's per-merge checkpoints);
 16. baseline3_slice — BASELINE config 3 in process (``run_local``) as
-   written but for its depth (3 of its 5 rounds):
+   written but for its depth (2 of its 5 rounds):
    ResNet-50/CIFAR-100, ``[2, 2, 2]``, cuts ``[3, 6]``, batch 64, bf16,
    every launch counter 0, the 17 layers of (nested) BatchNorm
    statistics in the checkpoint; then one round once more, warm and
@@ -142,13 +142,13 @@ Phases, each fatal on failure:
    0.9 then 0; every quantize, dequantize, momentum and finalize launch
    held bit for bit against its plain version;
 18. baseline4_slice — BASELINE config 4 in process as written but for
-   its depth (3 of its 5 rounds): ViT-S/16 on CIFAR-10, ``[2,
+   its depth (2 of its 5 rounds): ViT-S/16 on CIFAR-10, ``[2,
    1]``, cut ``[10]``, AdamW with weight decay 0.05, dropout 0.1, bf16;
    then one round warm and traced;
 19. kwt_slice — KWT-1 on SpeechCommands in process
    (``configs/kwt1_speechcommands.yaml``: its published width, ``[2,
-   2]``, cut 2, AdamW 1e-3, batch 32, bf16), 3 rounds, every launch
-   counter 0; then one round warm and traced;
+   2]``, cut 2, AdamW 1e-3, batch 32, bf16), 2 of its 3 rounds, every
+   launch counter 0; then one round warm and traced;
 20. variants — the eight ``examples/variants/*.yaml`` in process as
    written (KWT in relay, cluster relay, SDA, strict SDA in two and
    three stages, periodic and FedAsync; the fine-grained BERT_EMOTION in
@@ -202,7 +202,25 @@ Phases, each fatal on failure:
    every quantize, dequantize, momentum and finalize launch held bit for
    bit against its plain version, and each count equal to the one the
    batches, directions and parameter leaves predict;
-27. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+27. async_protocol — baseline 1 (VGG16/CIFAR10, ``[2, 2]``, cut 7,
+   batch 32, 2500 samples a client) in async mode as the protocol round
+   in one process: ``pooled-linear`` aux heads, ``max-staleness: 2``,
+   ``staleness-decay: 0.5``, every kernel flag on, the sharded fold at
+   ``server-momentum: 0.9``.  Run a, ``async-quorum: 0``, 3 rounds with
+   the int8 activation codec and ``rpc: delta:int8``: no gradient frame,
+   every UPDATE a delta at most 0.3 of the float32 frame it replaces.
+   Run b, ``async-quorum: 2``, 2 rounds, one feeder's first UPDATE held
+   back until its next START: a stale admit at weight 0.5, no barrier
+   waiting out the client timeout.  Every quantize, dequantize, finalize
+   and momentum launch of both runs held bit for bit, the finalize and
+   momentum ones on the decayed total weight too;
+28. codec_protocol — baseline 1 in sync mode, 2 rounds, ``intermediate:
+   int8``, ``gradient: "topk:0.05"``, ``rpc: delta:int8``: gradient
+   bytes ≈ 0.1 of the float32 dense frames, every top-k step held to the
+   error-feedback identity with its residual carried, every UPDATE a
+   delta, every quantize, dequantize, finalize and momentum launch held
+   bit for bit;
+29. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
@@ -1538,9 +1556,7 @@ def phase_protocol(workdir: pathlib.Path) -> dict:
 
     # data-plane bytes per queue family, and the codec's dense bf16
     # equivalent (the compression ratio's denominator)
-    actual: dict = {}
-    for q, nb in bus.bytes_out_snapshot().items():
-        actual[queue_family(q)] = actual.get(queue_family(q), 0) + nb
+    actual = _family_bytes(bus)
     raw: dict = {}
     for c in clients:
         for q, nb in c.raw_bytes_out.items():
@@ -2444,7 +2460,6 @@ def _run_protocol_path(path: str, make_cfg) -> dict:
     beside them."""
     from split_learning_torch.ops.kernels import quant as kq
     from split_learning_torch.ops.kernels import update as ku
-    from split_learning_torch.runtime.bus import queue_family
 
     seen: dict = {}
     held_by_run: dict = {}
@@ -2479,9 +2494,7 @@ def _run_protocol_path(path: str, make_cfg) -> dict:
         check(server.ctx.last_fold.folded == sum(cfg.clients),
               f"folded {server.ctx.last_fold.folded}")
         _check_stats_checkpoint(cfg, res, 1)
-        fam: dict = {}
-        for q, nb in bus.bytes_out_snapshot().items():
-            fam[queue_family(q)] = fam.get(queue_family(q), 0) + nb
+        fam = _family_bytes(bus)
         out["runs"][str(m)] = {
             "round_wall_s": rec.wall_s, "run_wall_s": wall,
             "samples": rec.num_samples,
@@ -3014,14 +3027,14 @@ def baseline3_protocol_config(workdir: pathlib.Path, momentum: float):
 
 def phase_baseline3_slice(workdir: pathlib.Path) -> dict:
     """BASELINE config 3 in process (``run_local``) as written but for
-    its depth (3 of its 5 rounds, for the script's time):
+    its depth (2 of its 5 rounds, for the script's time):
     ResNet-50/CIFAR-100, ``[2, 2, 2]`` (two lockstep columns through
     three stages, cuts ``[3, 6]``), batch 64, control-count 4, 2500
     samples a client, SGD with momentum, bf16; the nested statistics of
     all 17 layers in the checkpoint (:func:`_run_slice`).  Then one
     round once more, warm and traced (:func:`phase_profile`)."""
     cfg = dataclasses.replace(yaml_config(workdir / "b3_slice", BASELINE3),
-                              global_rounds=3)
+                              global_rounds=2)
     out = _run_slice("baseline 3", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
@@ -3043,14 +3056,14 @@ def phase_baseline3_protocol(workdir: pathlib.Path) -> dict:
 
 def phase_baseline4_slice(workdir: pathlib.Path) -> dict:
     """BASELINE config 4 in process (``run_local``) as written but for
-    its depth (3 of its 5 rounds, for the script's time): ViT-S/16 on
+    its depth (2 of its 5 rounds, for the script's time): ViT-S/16 on
     CIFAR-10 (12 blocks, dropout 0.1), ``[2, 1]`` (one shared stage-2
     client: the columns' stage-2 gradients averaged every step), cut
     ``[10]``, batch 64, AdamW with weight decay 0.05, bf16
     (:func:`_run_slice`; no statistics).  Then one round once more, warm
     and traced."""
     cfg = dataclasses.replace(yaml_config(workdir / "b4_slice", BASELINE4),
-                              global_rounds=3)
+                              global_rounds=2)
     out = _run_slice("baseline 4", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
@@ -3073,9 +3086,11 @@ def phase_kwt_slice(workdir: pathlib.Path) -> dict:
     """KWT-1 on SpeechCommands in process (``run_local``) at its
     published width (``configs/kwt1_speechcommands.yaml``: embed 64, 1
     head, MLP 256, 12 blocks, 40 x 98 MFCCs, 10 classes), ``[2, 2]``, cut
-    2, AdamW at 1e-3, batch 32, bf16, the synthetic set, 3 rounds
-    (:func:`_run_slice`); then one round once more, warm and traced."""
-    cfg = yaml_config(workdir / "kwt_slice", KWT1)
+    2, AdamW at 1e-3, batch 32, bf16, the synthetic set, 2 of its 3
+    rounds, for the script's time (:func:`_run_slice`); then one round
+    once more, warm and traced."""
+    cfg = dataclasses.replace(yaml_config(workdir / "kwt_slice", KWT1),
+                              global_rounds=2)
     out = _run_slice("KWT-1", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
@@ -3137,6 +3152,11 @@ VARIANT_SAMPLES, VARIANT_BATCH = 128, 32
 #: packages' plans) answers within a few seconds once the process has
 #: used the card (a cold first READY of eight clients took 8.2 s)
 VARIANT_TIMEOUT = 20.0
+#: ``cluster_fsl``'s client timeout: its headless second cluster waits
+#: it out at the NOTIFY barrier every round, while its first cluster's
+#: barriers answer in about a second (it runs after ``2ls``, which takes
+#: the cold READY), so a short one keeps the phase short
+HEADLESS_TIMEOUT = 8.0
 #: launches over each variant's whole run, as PERF.md §6 predicted them
 #: before the first run: (quantize, dequantize, finalize).  One quantize
 #: and one dequantize a batch a direction a cut; one finalize a
@@ -3319,7 +3339,6 @@ def _run_variant(name: str, cfg, run, gone: tuple = ()) -> dict:
     gradients."""
     from split_learning_torch.ops.kernels import quant as kq
     from split_learning_torch.ops.kernels import update as ku
-    from split_learning_torch.runtime.bus import queue_family
     from split_learning_torch.runtime.plan import plan_clusters
 
     held: dict = {}
@@ -3352,9 +3371,7 @@ def _run_variant(name: str, cfg, run, gone: tuple = ()) -> dict:
     _check_held(name, cfg.aggregation.server_momentum, held, launches)
     check(seen.get("torch.float32", 0) and seen.get("torch.bfloat16", 0),
           f"{name}: the quantizer was not handed both frame dtypes: {seen}")
-    fam: dict = {}
-    for q, nb in bus.bytes_out_snapshot().items():
-        fam[queue_family(q)] = fam.get(queue_family(q), 0) + nb
+    fam = _family_bytes(bus)
     out = {"strategy": cfg.aggregation.strategy,
            "clients": list(cfg.clients), "run_wall_s": wall,
            "rounds": [{"round": r.round_idx, "wall_s": r.wall_s,
@@ -3394,8 +3411,8 @@ def _check_variant_launches(name: str, launches: dict) -> None:
               f"predicted {want.get(k, 0)}")
 
 
-def _inproc_variant(cfg) -> tuple:
-    server, _, bus, result = run_protocol(cfg, timeout=VARIANT_TIMEOUT)
+def _inproc_variant(cfg, timeout: float = VARIANT_TIMEOUT) -> tuple:
+    server, _, bus, result = run_protocol(cfg, timeout=timeout)
     return server, bus, result
 
 
@@ -3457,7 +3474,10 @@ def phase_variants_protocol(workdir: pathlib.Path) -> dict:
     out = {}
     for name in KWT_VARIANTS:
         cfg = variant_protocol_config(workdir / f"vp_{name}", name)
-        out[name] = _run_variant(name, cfg, _inproc_variant)
+        timeout = (HEADLESS_TIMEOUT if name == "cluster_fsl"
+                   else VARIANT_TIMEOUT)
+        out[name] = _run_variant(
+            name, cfg, lambda c, t=timeout: _inproc_variant(c, t))
         _check_variant_launches(name, out[name]["launches"])
     cfg = variant_protocol_config(workdir / "vp_ghost", "dcsl_strict_deep")
     timeout = 120.0
@@ -3891,6 +3911,474 @@ def phase_bert_protocol(workdir: pathlib.Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 27-28. async decoupled split learning and the top-k and delta codecs
+# --------------------------------------------------------------------------
+
+#: the async phase's run a: rounds at async-quorum 0
+ASYNC_ROUNDS = 3
+#: run b: the stage-1 client whose first UPDATE is held back until its
+#: next START arrives (it then lands one version late)
+LATE_CLIENT = "client_1_1"
+#: run b's client timeout: no barrier may wait it out
+ASYNC_TIMEOUT = 300.0
+
+
+def async_protocol_config(workdir: pathlib.Path, quorum: int,
+                          rounds: int, codec: dict):
+    """Baseline 1 (VGG16/CIFAR10, ``[2, 2]``, cut 7, batch 32, 2500
+    samples a client) in async mode: ``pooled-linear`` aux heads,
+    ``max-staleness: 2``, ``staleness-decay: 0.5``, ``async-quorum`` =
+    ``quorum``; ``codec`` on the wire, every kernel flag on, the sharded
+    fold at ``server-momentum: 0.9`` (as :func:`vgg_protocol_config`)."""
+    cfg = vgg_protocol_config(workdir, 0.9)
+    return dataclasses.replace(
+        cfg, global_rounds=rounds,
+        transport=dataclasses.replace(cfg.transport, codec=codec),
+        learning=dataclasses.replace(
+            cfg.learning, mode="async", aux_head="pooled-linear",
+            max_staleness=2, staleness_decay=0.5,
+            async_quorum=quorum)).validate()
+
+
+class _AsyncRecorder:
+    """Records, while entered: each client's banked overlap samples after
+    every overlap pass, the fold's staleness scales by key, and the total
+    weights ``tw`` the finalize and momentum wrappers are handed (a
+    wrapper over whatever is installed, restored on exit)."""
+
+    def __init__(self, ku):
+        self.ku = ku
+        self.banked: list = []
+        self.scales: list = []
+        self.tws: dict = {"finalize": set(), "momentum": set()}
+
+    def __enter__(self):
+        from split_learning_torch.runtime import aggregate as agg
+        from split_learning_torch.runtime.client import ProtocolClient
+        ku, rec = self.ku, self
+        self._saved = [(ProtocolClient, "_overlap_ticks",
+                        ProtocolClient._overlap_ticks),
+                       (agg.StreamingFold, "add_update",
+                        agg.StreamingFold.add_update),
+                       (ku, "finalize_leaf", ku.finalize_leaf),
+                       (ku, "momentum_leaf", ku.momentum_leaf)]
+        overlap, add, fin, mom = (f for _, _, f in self._saved)
+
+        def overlap_ticks(client):
+            overlap(client)
+            if client._overlap_samples:
+                rec.banked.append((client.client_id,
+                                   client._overlap_samples))
+
+        def add_update(fold, u, *, scale=1.0, key=None):
+            rec.scales.append((key or u.client_id, scale))
+            return add(fold, u, scale=scale, key=key)
+
+        def finalize_leaf(acc, tw, dtype, *, rnd=False):
+            rec.tws["finalize"].add(float(tw))
+            return fin(acc, tw, dtype, rnd=rnd)
+
+        def momentum_leaf(acc, base, vel, tw, m, dtype):
+            rec.tws["momentum"].add(float(tw))
+            return mom(acc, base, vel, tw, m, dtype)
+
+        ProtocolClient._overlap_ticks = overlap_ticks
+        agg.StreamingFold.add_update = add_update
+        ku.finalize_leaf, ku.momentum_leaf = finalize_leaf, momentum_leaf
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+class _LateUpdateTransport:
+    """One client's transport that holds back its first UPDATE and
+    publishes it when that client's next START arrives, so that it lands
+    exactly one version late (``tests/test_async.py``'s
+    ``_UpdateCrashTransport``, but late instead of lost)."""
+
+    def __init__(self, inner, client_id: str):
+        from split_learning_torch.runtime.protocol import reply_queue
+        self.inner = inner
+        self.reply = reply_queue(client_id)
+        self.held = None
+        self.released = False
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def publish(self, queue, payload):
+        from split_learning_torch.runtime import protocol as proto
+        if (queue == proto.RPC_QUEUE and self.held is None
+                and not self.released
+                and isinstance(proto.FrameAssembler().feed(payload),
+                               proto.Update)):
+            self.held = payload
+            return
+        self.inner.publish(queue, payload)
+
+    def get(self, queue, timeout=None):
+        from split_learning_torch.runtime import protocol as proto
+        raw = self.inner.get(queue, timeout=timeout)
+        if (raw is not None and queue == self.reply
+                and self.held is not None
+                and isinstance(proto.FrameAssembler().feed(raw),
+                               proto.Start)):
+            self.inner.publish(proto.RPC_QUEUE, self.held)
+            self.held = None
+            self.released = True
+        return raw
+
+
+def _run_late_update(cfg, timeout: float):
+    """The protocol deployment of ``run_inproc`` (the server in this
+    thread, one client thread per client over one ``InProcTransport``)
+    with :data:`LATE_CLIENT` speaking through a
+    :class:`_LateUpdateTransport`."""
+    from split_learning_torch.runtime.bus import InProcTransport
+    from split_learning_torch.runtime.client import ProtocolClient
+    from split_learning_torch.runtime.log import Logger
+    from split_learning_torch.runtime.server import ProtocolServer
+
+    bus = InProcTransport()
+    late = _LateUpdateTransport(bus, LATE_CLIENT)
+    server = ProtocolServer(cfg, bus, client_timeout=timeout,
+                            logger=Logger.for_run(cfg, "server",
+                                                  console=False),
+                            device=DEVICE)
+    clients = [ProtocolClient(cfg, cid, s,
+                              late if cid == LATE_CLIENT else bus,
+                              device=DEVICE)
+               for s, n in enumerate(cfg.clients, 1)
+               for cid in (f"client_{s}_{i}" for i in range(n))]
+    errors: list = []
+
+    def run(c):
+        try:
+            c.run()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append((c.client_id, e))
+            bus.close()
+    threads = [threading.Thread(target=run, args=(c,), daemon=True)
+               for c in clients]
+    for t in threads:
+        t.start()
+    try:
+        res = server.serve()
+    except Exception as e:
+        raise SmokeFailure(f"async run b failed: {e!r} (clients: "
+                           f"{errors})") from e
+    for t in threads:
+        t.join(timeout=120)
+        check(not t.is_alive(), "an async run b client did not stop")
+    check(not errors, f"async run b clients failed: {errors}")
+    return server, clients, bus, res, late
+
+
+def _round_bytes(cfg, family: str) -> list:
+    """Per round, the bytes the server's ``kind=wire`` records count on
+    ``family`` (``rpc`` or ``data``), from their cumulative totals."""
+    recs = [r for r in _metrics(pathlib.Path(cfg.log_path))
+            if r.get("kind") == "wire"]
+    totals = [r[f"cumulative_{family}_bytes"] for r in recs]
+    return [b - a for a, b in zip([0] + totals, totals)]
+
+
+def _family_bytes(bus) -> dict:
+    from split_learning_torch.runtime.bus import queue_family
+    fam: dict = {}
+    for q, nb in bus.bytes_out_snapshot().items():
+        fam[queue_family(q)] = fam.get(queue_family(q), 0) + nb
+    return fam
+
+
+def _rounds(label: str, cfg, res, want_samples: int | None) -> list:
+    """Each round ok with finite validation (and ``want_samples``
+    samples, when given); returns the rounds' walls and rates."""
+    check(len(res.history) == cfg.global_rounds,
+          f"{label}: {len(res.history)} rounds")
+    out = []
+    for rec in res.history:
+        check(rec.ok and math.isfinite(rec.val_loss)
+              and math.isfinite(rec.val_accuracy),
+              f"{label} round {rec.round_idx} failed: {rec}")
+        if want_samples is not None:
+            check(rec.num_samples == want_samples, f"{label} round "
+                  f"{rec.round_idx}: {rec.num_samples} samples, expected "
+                  f"{want_samples}")
+        out.append({"round": rec.round_idx, "wall_s": rec.wall_s,
+                    "samples": rec.num_samples,
+                    "train_samples_per_s": rec.num_samples / rec.wall_s,
+                    "val_loss": rec.val_loss,
+                    "val_accuracy": rec.val_accuracy})
+    return out
+
+
+def phase_async_protocol(workdir: pathlib.Path, sync: dict) -> dict:
+    """Baseline 1 in async mode as the protocol round in one process
+    (:func:`async_protocol_config`), every quantize, dequantize, finalize
+    and momentum launch held bit for bit against its plain version
+    (:func:`_hold_on_path`).
+
+    * Run a: ``async-quorum: 0``, ``intermediate: int8`` and ``rpc:
+      delta:int8``, :data:`ASYNC_ROUNDS` rounds through ``run_inproc``.
+      No frame and no byte on the gradient family; every UPDATE a delta
+      (``delta_folds``), the rpc family at most 0.3 of the float32 full
+      frames it replaces; one quantize and one dequantize per activation
+      batch; every round's samples and finite validation.
+    * Run b: ``async-quorum: 2`` with :data:`LATE_CLIENT`'s first UPDATE
+      held back until its next START (:class:`_LateUpdateTransport`), 2
+      rounds, full float32 UPDATEs (a delta against the superseded base
+      would be dropped: the server's shadow keeps one version a client,
+      as in the JAX package).  At least one stale admit at weight 0.5,
+      no barrier waiting out the client timeout, and the finalize and
+      momentum launches on the decayed total weight held bit for bit.
+
+    Prints the round walls, samples/s and the overlap samples banked
+    between rounds beside the sync baseline-1 protocol round's
+    (``sync``: :func:`phase_vgg_protocol`'s result)."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime.protocol import RPC_QUEUE
+    from split_learning_torch.runtime.trace import default_fault_counters
+
+    out = {}
+    # -- run a
+    cfg = async_protocol_config(workdir / "async_a", 0, ASYNC_ROUNDS,
+                                {"intermediate": "int8",
+                                 "rpc": "delta:int8"})
+    held: dict = {}
+    seen: dict = {}
+    originals = _hold_on_path(kq, ku, held, seen)
+    try:
+        with _AsyncRecorder(ku) as rec:
+            faults0 = default_fault_counters.snapshot()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            server, clients, bus, res = run_protocol(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
+    faults = _fault_delta(faults0)
+    rounds = _rounds("async a", cfg, res,
+                     _expected_samples(cfg, protocol=True))
+    fam = _family_bytes(bus)
+    grad_queues = [q for q in bus.bytes_out_snapshot()
+                   if q.startswith("gradient_queue")]
+    check(not grad_queues and not fam.get("gradient"),
+          f"async run a sent gradient frames: {grad_queues} {fam}")
+    _check_held("async protocol a", 0.9, held, launches)
+    batches = (cfg.clients[0] * cfg.distribution.num_samples
+               // cfg.learning.batch_size)
+    for name in ("quantize", "dequantize"):
+        check(launches[name] == ASYNC_ROUNDS * batches,
+              f"async a: {name} launched {launches[name]} times, "
+              f"expected {ASYNC_ROUNDS * batches} (activations only)")
+    check(launches["quantize_generic"] == 0
+          and launches["finalize"] > 0 and launches["momentum"] > 0,
+          f"async a launches {launches}")
+    full = sum(c.raw_bytes_out.get(RPC_QUEUE, 0) for c in clients)
+    rpc = _round_bytes(cfg, "rpc")
+    ratio = sum(rpc) / full if full else float("inf")
+    n_up = sum(cfg.clients) * ASYNC_ROUNDS
+    check(faults.get("delta_folds") == n_up
+          and not faults.get("delta_full_frames")
+          and not faults.get("delta_resyncs"),
+          f"async a: every UPDATE a delta, {n_up} expected: {faults}")
+    check(ratio <= 0.3, f"async a: rpc bytes {sum(rpc)} are {ratio:.4f} "
+          f"of the float32 full frames ({full} B)")
+    out["a"] = {"rounds": rounds, "run_wall_s": wall,
+                "phases": server.ctx.round_phases,
+                "bytes_by_family": fam, "rpc_bytes_per_round": rpc,
+                "rpc_full_frame_bytes": full, "rpc_ratio": ratio,
+                "faults": faults, "launches": launches, "held": held,
+                "quantized_dtypes": seen,
+                "overlap_banked_samples": rec.banked,
+                "total_weights": {k: sorted(v)
+                                  for k, v in rec.tws.items()},
+                "max_memory_allocated_bytes": peak}
+    # -- run b
+    cfg = async_protocol_config(workdir / "async_b", 2, 2,
+                                {"intermediate": "int8"})
+    held_b: dict = {}
+    originals = _hold_on_path(kq, ku, held_b, {})
+    try:
+        with _AsyncRecorder(ku) as rec_b:
+            faults0 = default_fault_counters.snapshot()
+            _reset_launches()
+            t0 = time.perf_counter()
+            server_b, _, bus_b, res_b, late = _run_late_update(
+                cfg, ASYNC_TIMEOUT)
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - t0
+            launches_b = _launch_counts()
+    finally:
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
+    faults_b = _fault_delta(faults0)
+    rounds_b = _rounds("async b", cfg, res_b, None)
+    stale = [(k, s) for k, s in rec_b.scales if s != 1.0]
+    check(late.released, "async b: the held UPDATE was never released")
+    check(faults_b.get("agg_stale_admits", 0) >= 1
+          and (f"{LATE_CLIENT}@v1", 0.5) in stale,
+          f"async b: no stale admit of {LATE_CLIENT} at weight 0.5: "
+          f"{faults_b} {stale}")
+    check(not faults_b.get("timeouts")
+          and all(r["wall_s"] < ASYNC_TIMEOUT for r in rounds_b),
+          f"async b: a barrier waited out the client timeout: "
+          f"{faults_b} {rounds_b}")
+    _check_held("async protocol b", 0.9, held_b, launches_b)
+    check(launches_b["finalize"] > 0 and launches_b["momentum"] > 0,
+          f"async b launches {launches_b}")
+    tws = {k: sorted(v) for k, v in rec_b.tws.items()}
+    out["b"] = {"rounds": rounds_b, "run_wall_s": wall_b,
+                "phases": server_b.ctx.round_phases,
+                "bytes_by_family": _family_bytes(bus_b),
+                "faults": faults_b, "stale_scales": stale,
+                "launches": launches_b, "held": held_b,
+                "overlap_banked_samples": rec_b.banked,
+                "total_weights": tws}
+    s0 = sync["runs"]["0.9"]
+    for r in rounds:
+        print(f"  async a round {r['round']}: wall {r['wall_s']:.3f} s, "
+              f"{r['samples']} samples, {r['train_samples_per_s']:.1f} "
+              f"training samples/s, val_loss {r['val_loss']:.4f} val_acc "
+              f"{r['val_accuracy']:.4f}")
+    print(f"  (sync baseline-1 protocol round: wall "
+          f"{s0['round_wall_s']:.3f} s, {s0['train_samples_per_s']:.1f} "
+          f"samples/s)")
+    print(f"  async a: run {wall:.3f} s; phases {server.ctx.round_phases};"
+          f" bytes by family {fam}; rpc per round {rpc} = {ratio:.4f} of "
+          f"the float32 full frames ({full} B); overlap banked "
+          f"{rec.banked}; faults {faults}; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}")
+    for r in rounds_b:
+        print(f"  async b round {r['round']}: wall {r['wall_s']:.3f} s, "
+              f"{r['samples']} samples, val_loss {r['val_loss']:.4f}")
+    print(f"  async b: run {wall_b:.3f} s; stale admits {stale}; total "
+          f"weights {tws}; faults {faults_b}; launches {launches_b}")
+    return out
+
+
+def phase_codec_protocol(workdir: pathlib.Path) -> dict:
+    """Baseline 1 in sync mode as the protocol round in one process, 2
+    rounds, ``intermediate: int8``, ``gradient: "topk:0.05"``, ``rpc:
+    delta:int8``, every kernel flag on, the sharded fold at
+    ``server-momentum: 0.9``.  Every quantize, dequantize, finalize and
+    momentum launch held bit for bit (:func:`_hold_on_path`; the top-k
+    gradient frames are never quantized).  Every top-k step is held to
+    the error-feedback identity (the sent values plus the new residual
+    equal the gradient plus the old residual, bit for bit; the sent
+    entries zero in the new residual), and the steps that start from a
+    carried (nonzero) residual are counted.  The gradient family's bytes
+    are held to ≈ 0.1 of the float32 dense frames; every UPDATE is a
+    delta (``delta_full_frames`` 0)."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime.codec import sparse
+    from split_learning_torch.runtime.trace import default_fault_counters
+
+    cfg = vgg_protocol_config(workdir / "codec", 0.9)
+    cfg = dataclasses.replace(
+        cfg, global_rounds=2, transport=dataclasses.replace(
+            cfg.transport, codec={"intermediate": "int8",
+                                  "gradient": "topk:0.05",
+                                  "rpc": "delta:int8"})).validate()
+    ef = {"steps": 0, "carried": 0, "broken": 0}
+    lock = threading.Lock()
+    topk = sparse.topk_dev
+
+    def topk_held(g, res, k):
+        idx, val, new_res = topk(g, res, k)
+        acc = g.reshape(-1).to(torch.float32) + res
+        sent = torch.zeros_like(acc)
+        sent[idx.long()] = val
+        ok = (torch.equal(_bits(sent + new_res), _bits(acc))
+              and not bool(new_res[idx.long()].any()))
+        with lock:
+            ef["steps"] += 1
+            ef["carried"] += int(bool(res.any()))
+            ef["broken"] += int(not ok)
+        return idx, val, new_res
+    held: dict = {}
+    seen: dict = {}
+    originals = _hold_on_path(kq, ku, held, seen)
+    sparse.topk_dev = topk_held
+    try:
+        faults0 = default_fault_counters.snapshot()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        server, clients, bus, res = run_protocol(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        sparse.topk_dev = topk
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
+    faults = _fault_delta(faults0)
+    rounds = _rounds("codec", cfg, res,
+                     _expected_samples(cfg, protocol=True))
+    _check_held("codec protocol", 0.9, held, launches)
+    batches = (cfg.clients[0] * cfg.distribution.num_samples
+               // cfg.learning.batch_size)
+    for name in ("quantize", "dequantize"):
+        check(launches[name] == 2 * batches, f"codec: {name} launched "
+              f"{launches[name]} times, expected {2 * batches}")
+    fam = _family_bytes(bus)
+    itemsize = torch.tensor([], dtype=clients[0].wire_dtype).element_size()
+    dense32 = sum(n for c in clients for q, n in c.raw_bytes_out.items()
+                  if q.startswith("gradient_queue")) // itemsize * 4
+    ratio = fam.get("gradient", 0) / dense32 if dense32 else float("inf")
+    check(0.09 <= ratio <= 0.11, f"codec: gradient bytes "
+          f"{fam.get('gradient')} are {ratio:.4f} of the float32 dense "
+          f"frames ({dense32} B)")
+    check(ef["steps"] == 2 * batches and not ef["broken"]
+          and ef["carried"] >= ef["steps"] - 2 * cfg.clients[0]
+          * cfg.clients[1], f"codec: error feedback {ef}")
+    residuals = {c.client_id: {k: float(v.norm())
+                               for k, v in c.codecs["gradient"]
+                               .state_dict().items()}
+                 for c in clients if c.stage == 2}
+    check(all(v and all(n > 0 for n in v.values())
+              for v in residuals.values()),
+          f"codec: residuals not carried: {residuals}")
+    n_up = sum(cfg.clients) * cfg.global_rounds
+    check(faults.get("delta_folds") == n_up
+          and not faults.get("delta_full_frames"),
+          f"codec: every UPDATE a delta, {n_up} expected: {faults}")
+    rpc = _round_bytes(cfg, "rpc")
+    out = {"rounds": rounds, "run_wall_s": wall,
+           "phases": server.ctx.round_phases, "bytes_by_family": fam,
+           "gradient_dense_float32_bytes": dense32,
+           "gradient_ratio": ratio, "error_feedback": ef,
+           "residual_norms": residuals, "rpc_bytes_per_round": rpc,
+           "delta_full_frames": faults.get("delta_full_frames", 0),
+           "faults": faults, "launches": launches, "held": held,
+           "quantized_dtypes": seen}
+    for r in rounds:
+        print(f"  codec round {r['round']}: wall {r['wall_s']:.3f} s, "
+              f"{r['samples']} samples, {r['train_samples_per_s']:.1f} "
+              f"training samples/s, val_loss {r['val_loss']:.4f} val_acc "
+              f"{r['val_accuracy']:.4f}")
+    print(f"  codec: run {wall:.3f} s; phases {server.ctx.round_phases}; "
+          f"bytes by family {fam}; gradient {ratio:.4f} of the float32 "
+          f"dense frames ({dense32} B); error feedback {ef}; rpc per round "
+          f"{rpc}; delta_full_frames "
+          f"{faults.get('delta_full_frames', 0)}; faults {faults}; "
+          f"launches {launches}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -3961,6 +4449,10 @@ def main() -> int:
         bert_slice = phase_bert_slice(workdir)
         mark("bert_protocol")
         bert_proto = phase_bert_protocol(workdir)
+        mark("async_protocol")
+        async_proto = phase_async_protocol(workdir, vgg_proto)
+        mark("codec_protocol")
+        codec_proto = phase_codec_protocol(workdir)
     mark("summary")
     entries = []
     for name, r in kernels.items():
@@ -3989,6 +4481,10 @@ def main() -> int:
         by_path["variants_tcp"] = variants_tcp["launches"][name]
         by_path["chaos_protocol"] = chaos_proto["chaos"]["launches"][name]
         by_path["chaos_tcp"] = chaos_tcp["chaos"]["launches"][name]
+        for run in ("a", "b"):
+            by_path[f"async_protocol_{run}"] = async_proto[run][
+                "launches"][name]
+        by_path["codec_protocol"] = codec_proto["launches"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -4020,7 +4516,11 @@ def main() -> int:
                     for v in (*KWT_VARIANTS, "dropped_feeder")},
                 "variants_protocol_launches_held_bitwise": sum(
                     r["held"].get(name, {}).get("launches", 0)
-                    for r in variants_proto.values())}
+                    for r in variants_proto.values()),
+                "async_codec_launches_held_bitwise": sum(
+                    r["held"].get(name, {}).get("launches", 0)
+                    for r in (async_proto["a"], async_proto["b"],
+                              codec_proto))}
         else:
             main_path = "protocol"
             per_round = proto["launches_per_round"][name]
@@ -4060,7 +4560,9 @@ def main() -> int:
                       "chaos_protocol": chaos_proto,
                       "chaos_tcp": chaos_tcp,
                       "bert_slice": bert_slice,
-                      "bert_protocol": bert_proto}))
+                      "bert_protocol": bert_proto,
+                      "async_protocol": async_proto,
+                      "codec_protocol": codec_proto}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ LoRA adapter trees (:mod:`split_learning_torch.ops.lora`) cross with
 :func:`from_jax_lora` / :func:`to_jax_lora`: the JAX package keeps
 ``{"a": (in, r), "b": (r, out)}`` under a kernel's path, the port keeps
 ``{"a": (r, in), "b": (out, r)}`` under the weight's dotted key — each
-factor transposed.
+factor transposed.  An auxiliary head's parameters (async mode) cross
+with :func:`from_jax_aux` / :func:`to_jax_aux`.
 
 The inverse needs the model to tell which flax name each ``weight``
 had: every parametric leaf module of the port names it in its
@@ -180,6 +181,32 @@ def to_jax_lora(lora: dict) -> dict:
                 node = node.setdefault(part, {})
             node["kernel"] = {n: np.ascontiguousarray(
                 entry[n].detach().cpu().numpy().T) for n in ("a", "b")}
+    return out
+
+
+def from_jax_aux(tree: dict) -> dict:
+    """An auxiliary head's flax params (``{"proj": {"kernel", "bias"},
+    "probe": {...}}``, :mod:`split_learning_torch.ops.auxiliary`) ->
+    the :class:`~split_learning_torch.ops.auxiliary.AuxHead`'s state
+    dict of CPU tensors (each Dense kernel transposed)."""
+    return {f"{layer}.{'weight' if name == 'kernel' else name}":
+            torch.from_numpy(np.array(
+                _kernel_to_torch(np.asarray(leaf)) if name == "kernel"
+                else leaf, order="C"))
+            for layer, leaves in tree.items()
+            for name, leaf in leaves.items()}
+
+
+def to_jax_aux(state: dict) -> dict:
+    """An AuxHead's state dict -> the JAX package's flax params tree
+    (numpy)."""
+    out: dict = {}
+    for key, t in state.items():
+        layer, pname = key.split(".")
+        arr = t.detach().cpu().numpy()
+        name = "kernel" if pname == "weight" else pname
+        out.setdefault(layer, {})[name] = np.ascontiguousarray(
+            _kernel_to_jax(arr) if name == "kernel" else arr)
     return out
 
 

@@ -10,7 +10,8 @@ Port of the flat part of the JAX package's ``runtime/aggregate.py``:
   window holds early arrivals until their predecessors land (or are
   dropped) — so the float summation sequence is the barrier oracle's
   (``aggregate_cluster`` over the client-id-sorted list) and the result
-  is bit-identical to it.
+  is bit-identical to it.  Async mode's late contributions fold at a
+  staleness-scaled weight under their own keys, at finish.
 * :class:`HostFoldBackend` — numpy accumulate/divide, the single-host
   default.
 * :class:`CudaFoldBackend` — the counterpart of the JAX package's
@@ -317,15 +318,23 @@ class StreamingFold:
 
     # -- ingest --------------------------------------------------------------
 
-    def add_update(self, u: Update) -> None:
+    def add_update(self, u: Update, *, scale: float = 1.0,
+                   key: str | None = None) -> None:
         """Fold one client Update (params may be None — a weight-less
         update occupies its canonical slot, counts stage-1 samples, and
-        contributes nothing, like the barrier oracle skips it)."""
+        contributes nothing, like the barrier oracle skips it).
+
+        ``scale`` multiplies the FedAvg weight (async mode's staleness
+        decay, ``staleness-decay ** lag``); at 1.0 the integer weight is
+        kept, so a sync fold stays bit for bit the barrier oracle's.
+        ``key`` overrides the fold key: a stale-admitted contribution
+        folds under ``client@vN``, which never collides with the same
+        client's fresh slot and folds (sorted) at finish."""
         if getattr(u, "delta_base", None) is not None:
             raise ValueError(
                 f"delta-encoded Update from {u.client_id} reached the "
                 "streaming fold un-reconstructed")
-        self._enqueue(int(u.stage), u.client_id, u,
+        self._enqueue(int(u.stage), key or u.client_id, (u, scale),
                       0 if u.params is None else _tree_nbytes(u.params))
 
     def drop(self, stage: int, key: str) -> None:
@@ -338,7 +347,7 @@ class StreamingFold:
             st.gone.add(key)
             self._drain(st)
 
-    def _enqueue(self, stage: int, key, u: Update, nbytes: int) -> None:
+    def _enqueue(self, stage: int, key, item: tuple, nbytes: int) -> None:
         with self._lock:
             st = self._stages.get(stage)
             if st is None:
@@ -349,9 +358,9 @@ class StreamingFold:
                 self.faults.inc("agg_dup_drops")
                 return
             if key not in st.order_set or key in st.gone:
-                st.extras[key] = u
+                st.extras[key] = item
             else:
-                st.pending[key] = u
+                st.pending[key] = item
             self._held_bytes += nbytes
             self._held_hwm_bytes = max(self._held_hwm_bytes,
                                        self._held_bytes)
@@ -366,24 +375,28 @@ class StreamingFold:
     def _drain(self, st: _StageFold) -> None:
         while st.next < len(st.order):
             k = st.order[st.next]
-            u = st.pending.pop(k, None)
-            if u is None:
+            item = st.pending.pop(k, None)
+            if item is None:
                 if k in st.gone or k in st.folded:
                     st.next += 1
                     continue
                 return   # window holds until the predecessor lands
-            self._fold_item(st, k, u)
+            self._fold_item(st, k, item)
             st.next += 1
 
-    def _fold_item(self, st: _StageFold, key, u: Update) -> None:
+    def _fold_item(self, st: _StageFold, key, item: tuple) -> None:
         t0 = time.perf_counter()
+        u, scale = item
         if u.stage == 1:
             self.n_samples += u.num_samples
         if u.params is not None:
             self._held_bytes -= _tree_nbytes(u.params)
             # the INT weight keeps the float summation bit-identical to
-            # the barrier oracle
+            # the barrier oracle; the staleness decay scales it only
+            # when it decays
             w = max(1, u.num_samples)
+            if scale != 1.0:
+                w = w * float(scale)
             st.total_w += w
             self._fold_tree(st.acc, st.dtype, u.params, w)
             if u.batch_stats:

@@ -14,6 +14,12 @@ replacing the ``{name}`` symlink.  A process killed at any point leaves
 either the previous or the new complete checkpoint visible, and
 :func:`load_checkpoint` treats an unreadable checkpoint as absent
 (warn + ``None``).
+
+A client's error-feedback residuals (the top-k and delta codecs) are a
+sidecar beside it: :func:`save_sidecar` writes ``{name}.pt`` (a flat
+``{key: tensor}`` dict, ``torch.save``) into the checkpoint directory
+through a temporary file and an atomic rename, and :func:`load_sidecar`
+reads it back (``None`` when absent or unreadable).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import shutil
 import warnings
 from typing import Any
 
+import numpy as np
 import torch
 
 from split_learning_torch.convert import tree_to
@@ -95,3 +102,38 @@ def load_checkpoint(directory: str | pathlib.Path,
             stacklevel=2)
         return None
 
+
+def _sidecar_path(directory: str | pathlib.Path,
+                  name: str) -> pathlib.Path:
+    return pathlib.Path(directory).resolve() / f"{name}.pt"
+
+
+def save_sidecar(directory: str | pathlib.Path, name: str,
+                 arrays: dict) -> None:
+    """Write a flat ``{key: tensor or array}`` dict as ``{name}.pt`` in
+    ``directory``, atomically (a reader sees the old file or the new
+    one, never a torn one)."""
+    path = _sidecar_path(directory, name)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    state = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                 else torch.from_numpy(np.array(v)))
+             for k, v in arrays.items()}
+    tmp = path.parent / f".{path.name}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+
+
+def load_sidecar(directory: str | pathlib.Path,
+                 name: str) -> dict | None:
+    """The dict :func:`save_sidecar` wrote (CPU tensors), or None when
+    it is absent or unreadable (warned)."""
+    path = _sidecar_path(directory, name)
+    if not path.exists():
+        return None
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # noqa: BLE001 — any torn/corrupt state
+        warnings.warn(f"sidecar {path} is unreadable "
+                      f"({type(e).__name__}: {e}); ignoring it",
+                      RuntimeWarning, stacklevel=2)
+        return None

@@ -53,10 +53,33 @@ sender) an activation or gradient's codec, device-to-host fetch and
 frame encode run in a thunk on the sender thread, on the CUDA stream
 that produced the tensor.
 
-Left out (each raises ``NotImplementedError`` when its config asks for
-it): async decoupled mode and auxiliary heads, sync-overlap ticks (and
-their speculative forwards across a hold START), the legacy int8 wire
-dtype.  Heartbeats, tracing spans and scheduler knobs are not emitted.
+Async decoupled mode (``learning.mode: async``): every non-final stage
+trains against a local auxiliary head on its cut boundary
+(:mod:`split_learning_torch.ops.auxiliary`) and steps right after its
+forward, so no gradient crosses the wire; the last stage steps on the
+true loss and returns nothing.  A PAUSE starts a bounded drain of the
+in-flight activation stream (every feeder's last epoch fence, or
+:data:`ASYNC_DRAIN_IDLE_S` of silence).  The head and its optimizer
+state are client-local, shaped from one forward of the boundary and
+reset when its shape signature changes.  After its UPDATE a stage-1
+client keeps ticking locally (nothing published) until the next control
+frame arrives; those samples are banked for the next round's UPDATE and
+kept only across a hold START (a re-seed discards the shard work they
+trained).  A START arriving mid-round uploads the round's work, late:
+the server admits it through its bounded-staleness window.
+
+Wire codecs: the ``gradient`` family may be top-k with error feedback,
+and the ``rpc`` family sends the UPDATE as a quantized delta against the
+START's weights when the version the server advertised still matches
+(else the full frame).  With ``checkpoint.save`` the codecs' residuals
+are written as sidecars beside the checkpoint after every UPDATE, and
+read back at start-up with ``checkpoint.load``.  The legacy per-tensor
+int8 wire dtype (``transport.wire-dtype: int8``) quantizes every
+data-plane payload on the host.
+
+Left out (raises ``NotImplementedError`` when its config asks for it):
+sync-overlap ticks (and their speculative forwards across a hold START).
+Heartbeats, tracing spans and scheduler knobs are not emitted.
 """
 
 from __future__ import annotations
@@ -87,26 +110,29 @@ from split_learning_torch.runtime.context import make_optimizer
 from split_learning_torch.runtime.log import Logger
 from split_learning_torch.runtime.protocol import (
     RPC_QUEUE, Activation, EpochEnd, FrameAssembler, Float0, Gradient,
-    Notify, Pause, QuantLeaf, Ready, Register, Start, Stop, Syn, Update,
-    encode, encode_parts, gradient_queue, host_tensor, intermediate_queue,
-    reply_queue,
+    Notify, Pause, QuantLeaf, Ready, Register, SparseLeaf, Start, Stop,
+    Syn, Update, encode, encode_parts, gradient_queue, host_tensor,
+    intermediate_queue, reply_queue,
 )
 from split_learning_torch.runtime.validation import (
     dataset_for_model, dataset_kwargs_for_model,
 )
 
 _WIRE_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-                "bfloat16": torch.bfloat16}
+                "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+#: async drain-on-pause idle grace (seconds): a PAUSEd async consumer
+#: keeps eating its in-flight activation stream until every origin
+#: feeder's last epoch fence arrived, or the queue was silent this long
+#: (a delayed stream's tail beyond it is dropped, not waited for)
+ASYNC_DRAIN_IDLE_S = 0.5
 
 
 def wire_torch_dtype(name: str) -> torch.dtype:
+    """``transport.wire-dtype`` as a torch dtype; ``int8`` stands for
+    the legacy per-tensor quantizer."""
     from split_learning_torch.config import TransportConfig
-    name = TransportConfig.WIRE_DTYPE_ALIASES.get(name, name)
-    if name not in _WIRE_DTYPES:
-        raise NotImplementedError(
-            f"transport.wire-dtype {name} (the legacy per-tensor int8 "
-            "quantizer) is not ported; use transport.codec int8/int4")
-    return _WIRE_DTYPES[name]
+    return _WIRE_DTYPES[TransportConfig.WIRE_DTYPE_ALIASES.get(name, name)]
 
 
 def _map(fn, tree):
@@ -121,14 +147,25 @@ def _to_wire_tree(tree, dtype: torch.dtype):
     """Device tree -> host payload: float leaves cast to the wire dtype
     on the device, then fetched (bfloat16 stays a CPU tensor, numpy
     cannot hold it); a :class:`Float0` gradient as zeros of the wire
-    dtype; others at their own dtype."""
+    dtype; others at their own dtype.  ``torch.int8`` is the legacy
+    per-tensor quantizer: each float leaf is fetched in float32 and
+    quantized on the host, a :class:`Float0` ships float32 zeros."""
+    legacy = dtype == torch.int8
+
     def conv(leaf):
         if isinstance(leaf, Float0):
+            if legacy:
+                return np.zeros(leaf.shape, np.float32)
             leaf = torch.zeros(leaf.shape, dtype=dtype)
         if not isinstance(leaf, torch.Tensor):
             return leaf
         t = leaf.detach()
         if t.is_floating_point():
+            if legacy:
+                from split_learning_torch.runtime.codec.quant import (
+                    quantize_per_tensor_np,
+                )
+                return quantize_per_tensor_np(t.float().cpu().numpy())
             t = t.to(dtype)
         t = t.cpu()
         return t if t.dtype == torch.bfloat16 else t.numpy()
@@ -144,6 +181,11 @@ def _from_wire_tree(tree, device: torch.device):
                 dequantize_leaf,
             )
             return dequantize_leaf(leaf, device)
+        if isinstance(leaf, SparseLeaf):
+            from split_learning_torch.runtime.codec.sparse import (
+                densify_leaf,
+            )
+            return densify_leaf(leaf, device)
         if isinstance(leaf, torch.Tensor):
             return leaf.to(device)
         return host_tensor(np.ascontiguousarray(leaf)).to(device)
@@ -198,7 +240,12 @@ class ShardRunner:
     its own) over the shard's target kernels; the model's last layer
     trains too when this shard holds it, and every other parameter is
     frozen.  A shard with neither (``lora_noop``) trains all its
-    parameters.  :meth:`state_tree` is then the merged weights."""
+    parameters.  :meth:`state_tree` is then the merged weights.
+
+    In async mode (``learning.mode: async``) the runner knows its
+    auxiliary head's architecture (``aux``; the label space comes from
+    the model key, so a token dataset raises here) and draws a head's
+    weights from its own generator (:meth:`init_aux_head`)."""
 
     #: this round's LoRA adapters (None: the shard trains its parameters)
     lora: dict | None = None
@@ -219,6 +266,16 @@ class ShardRunner:
         self.lora_noop = False
         self._trainable: list = []
         self._lora_gen = torch.Generator(device=device).manual_seed(seed)
+        self.aux = None
+        if self.learning.mode == "async":
+            from split_learning_torch.ops.auxiliary import (
+                build_aux_head, num_classes_for,
+            )
+            self.aux = build_aux_head(self.learning.aux_head,
+                                      num_classes_for(model_key),
+                                      hidden=self.learning.aux_hidden)
+            self._aux_gen = torch.Generator(device=device).manual_seed(
+                seed + 1)
 
     @property
     def is_final_shard(self) -> bool:
@@ -307,16 +364,49 @@ class ShardRunner:
         backward_boundary(out, cts)
         return self._input_grads(xr)
 
-    def last_step(self, x, labels: torch.Tensor):
+    def last_step(self, x, labels: torch.Tensor, input_grad: bool = True):
         """Last stage: float32 cross entropy, gradients into ``.grad``;
-        returns (loss, input gradient tree)."""
-        xr = cut_boundary(x)
+        returns (loss, input gradient tree, or None when
+        ``input_grad`` is off: async mode returns nothing upstream)."""
+        xr = cut_boundary(x) if input_grad else x
         logits = self._apply(xr)
         loss = F.cross_entropy(
             logits.float().reshape(-1, logits.shape[-1]),
             labels.reshape(-1).long())
         loss.backward()
-        return loss.detach(), self._input_grads(xr)
+        return loss.detach(), (self._input_grads(xr) if input_grad
+                               else None)
+
+    def boundary(self, x):
+        """This shard's output on ``x`` without a graph, the dropout
+        generators left as they were: the shape probe of an aux head."""
+        rng = self.model.rng_state()
+        with torch.no_grad():
+            out = self._apply(x)
+        self.model.set_rng_state(rng)
+        return out
+
+    def init_aux_head(self, boundary):
+        """A fresh aux head for ``boundary`` from the runner's own
+        generator (:func:`~split_learning_torch.ops.auxiliary.
+        init_aux_params`)."""
+        from split_learning_torch.ops.auxiliary import init_aux_params
+        device = self._aux_gen.device
+        return init_aux_params(self.aux, self._aux_gen, boundary,
+                               device=device)
+
+    def aux_step(self, x, labels: torch.Tensor, head):
+        """Decoupled forward + the aux head's float32 cross entropy, the
+        shard's and the head's gradients into ``.grad`` in one backward
+        (no wire cotangent); returns (loss, the boundary output,
+        detached: it still streams downstream)."""
+        out = self._apply(x)
+        logits = head(out)
+        loss = F.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]),
+            labels.reshape(-1).long())
+        loss.backward()
+        return loss.detach(), _map(lambda t: t.detach(), out)
 
     def apply_update(self) -> None:
         """The optimizer step on the batch's gradients, and the batch's
@@ -360,15 +450,10 @@ class ProtocolClient:
                  transport: Transport | None = None,
                  cluster: int | None = None, profile: dict | None = None,
                  logger: Logger | None = None, device=None):
-        lrn = cfg.learning
-        if lrn.mode == "async":
-            raise NotImplementedError(
-                "learning.mode: async (decoupled stages with auxiliary "
-                "heads) is not ported yet; it comes with the async slice")
-        if lrn.sync_overlap:
+        if cfg.learning.sync_overlap:
             raise NotImplementedError(
                 "learning.sync-overlap is not ported yet; it comes with "
-                "the async slice")
+                "a later slice")
         self.cfg = cfg
         self.client_id = client_id
         self.stage = stage
@@ -419,6 +504,26 @@ class ProtocolClient:
         # isfinite(loss) into it without a host sync; _send_update reads
         # it once per round
         self._ok_dev = None
+        # delta codec state: (version, base tree) of the last weighted
+        # START, and the shadow version the server advertised; a delta
+        # goes out only when the two agree (else the full frame)
+        self._delta_base = None
+        self._delta_advert = None
+        # async mode: the client-local aux head, its optimizer, the
+        # boundary shape signature that resets them, and the key
+        # (layers, batch shapes) the signature was taken at
+        self.aux_head = None
+        self.aux_optimizer = None
+        self._aux_sig = None
+        self._aux_key = None
+        self._aux_learning = None
+        # samples of overlap ticks between this round's UPDATE and the
+        # next START (credited to the next UPDATE), and control frames
+        # an overlap loop popped for run() to handle in order
+        self._overlap_samples = 0
+        self._pending_ctrl: list = []
+        if cfg.checkpoint.load:
+            self._load_ef_state()
 
     # -- control plane -----------------------------------------------------
 
@@ -479,6 +584,49 @@ class ProtocolClient:
             return _to_wire_tree(tree, self.wire_dtype)
         return c.encode(c.prepare(tree, key=queue))
 
+    def _encode_update_wire(self, params_h):
+        """(wire params tree, delta base version) of this round's
+        UPDATE: a quantized delta against the START's weights when the
+        version chain is intact, else the full float32 frame (the resync
+        path: a restarted client, a moved shadow, no rpc codec)."""
+        rpc = self.codecs.get("rpc")
+        if rpc is None or params_h is None:
+            return params_h, None
+        base = self._delta_base
+        if (base is None or self._delta_advert is None
+                or base[0] != self._delta_advert):
+            return params_h, None   # the server counts the full frame
+        ver, base_tree = base
+        self.raw_bytes_out[RPC_QUEUE] = (self.raw_bytes_out.get(RPC_QUEUE, 0)
+                                         + wire_raw_nbytes(params_h,
+                                                           torch.float32))
+        return rpc.encode_update(params_h, base_tree), ver
+
+    def _ef_stateful_codecs(self):
+        for family in ("gradient", "rpc"):
+            c = self.codecs.get(family)
+            if c is not None and hasattr(c, "state_dict"):
+                yield family, c
+
+    def _save_ef_state(self) -> None:
+        """Each stateful codec's error-feedback residuals, as a sidecar
+        beside the checkpoint, so that a restarted client resumes with
+        its unsent mass instead of dropping it."""
+        from split_learning_torch.runtime.checkpoint import save_sidecar
+        for family, c in self._ef_stateful_codecs():
+            state = c.state_dict()
+            if state:
+                save_sidecar(self.cfg.checkpoint.directory,
+                             f"ef_{self.client_id}_{family}", state)
+
+    def _load_ef_state(self) -> None:
+        from split_learning_torch.runtime.checkpoint import load_sidecar
+        for family, c in self._ef_stateful_codecs():
+            state = load_sidecar(self.cfg.checkpoint.directory,
+                                 f"ef_{self.client_id}_{family}")
+            if state:
+                c.load_state_dict(state)
+
     def register(self):
         self.bus.publish(RPC_QUEUE, encode(Register(
             client_id=self.client_id, stage=self.stage,
@@ -504,7 +652,11 @@ class ProtocolClient:
         started = False
         while True:
             try:
-                raw = self.bus.get(q, timeout=None if started else 3.0)
+                # control frames an overlap loop already popped come
+                # first, in the order they arrived
+                raw = (self._pending_ctrl.pop(0) if self._pending_ctrl
+                       else self.bus.get(q, timeout=None if started
+                                         else 3.0))
             except (QueueClosed, ConnectionError, OSError) as e:
                 if not started:
                     raise
@@ -547,9 +699,24 @@ class ProtocolClient:
         self.sda_feeders = extra.get("sda_feeders")
         self.pair = extra.get("pair")
         self.sda_peers = extra.get("sda_peers")
+        # the delta codec's version chain: the shadow version the server
+        # holds for this client
+        self._delta_advert = extra.get("delta_base_version")
         if msg.params is None:
             self._hold(msg)
             return
+        if self.codecs.get("rpc") is not None \
+                and self._delta_advert is not None:
+            # the base is the shard exactly as received: the server's
+            # shadow holds the same float32 bytes
+            self._delta_base = (self._delta_advert, msg.params)
+        if self._overlap_samples:
+            # overlap ticks trained the previous seed's shard, which this
+            # START replaces: that work never reaches the fold, so its
+            # samples are not credited (the aux head keeps its progress)
+            self.log.info(f"overlap: {self._overlap_samples} old-seed "
+                          "samples uncounted (shard re-seeded)")
+            self._overlap_samples = 0
         r = self.runner
         if (r is None or (r.start_layer, r.end_layer)
                 != (msg.start_layer, msg.end_layer)
@@ -586,12 +753,19 @@ class ProtocolClient:
             raise RuntimeError(
                 "START without params but no matching local shard "
                 f"(layers [{msg.start_layer}, {msg.end_layer}])")
-        if r.learning_dict != dict(msg.learning or {}) \
-                or r.optimizer is None:
+        changed = r.learning_dict != dict(msg.learning or {})
+        if changed or r.optimizer is None:
             r.relearn(msg.learning)
+            if changed:
+                self._reset_aux()   # as the JAX package rebuilds it
             self.log.info("fresh optimizer over the kept weights")
         else:
             self.log.info("keeping local shard weights (no re-seed)")
+        # the delta base survives a hold only while it still matches the
+        # server's shadow; a drifted advertisement means a full frame
+        if (self._delta_base is not None
+                and self._delta_base[0] != self._delta_advert):
+            self._delta_base = None
         if (self.stage == 1 and msg.label_counts is not None
                 and ((msg.extra or {}).get("refresh")
                      or [int(c) for c in msg.label_counts]
@@ -627,8 +801,15 @@ class ProtocolClient:
             self.sda_feeders = list(msg.sda_feeders)
         self.round_ok = True
         self._ok_dev = torch.ones((), dtype=torch.bool, device=self.device)
-        self.num_samples = 0
-        if self.stage == 1:
+        # overlap-tick samples survive only a hold START (the kept shard
+        # is what this round's UPDATE uploads); a re-seed zeroed them
+        self.num_samples, self._overlap_samples = self._overlap_samples, 0
+        if self._async_mode:
+            pause = (self._train_first_async() if self.stage == 1
+                     else self._train_last_async()
+                     if self.stage == self.n_stages
+                     else self._train_middle_async())
+        elif self.stage == 1:
             pause = self._train_first()
         elif self.stage == self.n_stages:
             pause = self._train_last()
@@ -637,12 +818,15 @@ class ProtocolClient:
         if isinstance(pause, _AbortPause):
             return   # round abandoned: the server stopped counting us
         self._send_update(with_weights=pause.send_weights)
+        # pipelined async rounds: keep ticking while the server folds,
+        # validates and fans the next START out
+        self._overlap_ticks()
 
     def _send_update(self, with_weights: bool):
         # the round's ONE host sync of the NaN sentinel
         if self._ok_dev is not None and not bool(self._ok_dev):
             self.round_ok = False
-        params_h = stats_h = None
+        params_h = stats_h = delta_base = None
         if with_weights:
             params_h, stats_h = (
                 {layer: {k: t.detach().cpu().numpy()
@@ -650,6 +834,9 @@ class ProtocolClient:
                  for layer, sd in tree.items()}
                 for tree in (self.runner.state_tree(),
                              self.runner.stats_tree()))
+            # rpc codec: ``trained - base`` against the START's version
+            # when the chain is intact, the full float32 frame otherwise
+            params_h, delta_base = self._encode_update_wire(params_h)
         # TENSOR-framed and chunked: a shard UPDATE is the biggest frame
         # a client publishes.  The weights were fetched above, on this
         # thread: the next START loads into the same parameters in place
@@ -657,14 +844,22 @@ class ProtocolClient:
             client_id=self.client_id, stage=self.stage,
             cluster=self.cluster, params=params_h, batch_stats=stats_h,
             num_samples=self.num_samples, ok=self.round_ok,
-            round_idx=self.fence, version=self.fence)
+            round_idx=self.fence, delta_base=delta_base,
+            # the generation these weights were seeded from: the
+            # server's staleness window reads it
+            version=self.fence)
         self._publish_parts(
             RPC_QUEUE, lambda: encode_parts(msg, self._chunk_bytes))
-        if with_weights:
+        if self.cfg.checkpoint.save and self.codecs:
+            # error-feedback residuals are durable client state
+            self._save_ef_state()
+        if with_weights and not self._async_mode:
             # the server folds the weights and the next START re-seeds
             # the shard with a fresh optimizer: free the moments now,
             # while the server folds, rather than holding them on the
-            # card.  Without weights the shard is held, moments and all
+            # card.  Without weights the shard is held, moments and all;
+            # an async shard keeps training between rounds (overlap
+            # ticks) and keeps them too
             self.runner.optimizer = None
         self.log.info(f"[>>>] UPDATE samples={self.num_samples} "
                       f"ok={self.round_ok}"
@@ -683,9 +878,16 @@ class ProtocolClient:
         """A STOP or a fresh START arriving mid-training: requeue it for
         the run() loop and unwind the hot loop without uploading (the
         server is shutting down, or timed this client out of the round
-        and moved on)."""
+        and moved on).  In async mode a START instead uploads the
+        round's work first: the UPDATE carries the old seed's version,
+        and the server's bounded-staleness window folds it at a decayed
+        weight."""
         self.bus.publish(reply_queue(self.client_id), encode(msg))
         if isinstance(msg, Start):
+            if self._async_mode:
+                self.log.info("START mid-round (async): uploading a late "
+                              "update, swapping seeds at the tick")
+                return Pause(send_weights=True)
             self.log.warning("START while mid-round: rejoining next round")
         return _AbortPause(send_weights=False)
 
@@ -1016,3 +1218,223 @@ class ProtocolClient:
             part = gx if len(window) == 1 else _rows(gx, off, n)
             off += n
             self._send_gradient(part, act.data_id, act.trace)
+
+    # -- async decoupled mode (learning.mode: async) -------------------------
+
+    @property
+    def _async_mode(self) -> bool:
+        r = self.runner
+        return r is not None and r.learning.mode == "async"
+
+    def _reset_aux(self) -> None:
+        self.aux_head = None
+        self.aux_optimizer = None
+        self._aux_sig = None
+        self._aux_key = None
+        self._aux_learning = None
+
+    def _ensure_aux(self, x) -> None:
+        """Shape (or re-shape) the aux head for the current boundary.
+
+        The boundary comes from one forward of this shard on the live
+        batch, taken again only when the shard's layers or the batch's
+        shapes moved.  A changed shape signature means a re-plan moved
+        the cut: the head AND its optimizer state reset; an unchanged
+        one keeps both, so the local probe keeps converging across
+        rounds.  The head's optimizer is the shard's kind with its own
+        state, and follows the shard's learning settings."""
+        from split_learning_torch.ops.auxiliary import aux_shapes_signature
+        r = self.runner
+        key = (r.start_layer, r.end_layer,
+               tuple(tuple(t.shape) for t in (
+                   x if isinstance(x, tuple) else (x,))))
+        if self.aux_head is None or key != self._aux_key:
+            boundary = r.boundary(x)
+            sig = aux_shapes_signature(boundary)
+            if sig != self._aux_sig:
+                if self._aux_sig is not None:
+                    self.log.info("aux head re-shaped (re-plan moved the "
+                                  "cut): optimizer state reset")
+                self.aux_head = r.init_aux_head(boundary)
+                self.aux_optimizer = None
+                self._aux_sig = sig
+            self._aux_key = key
+        if self.aux_optimizer is None \
+                or self._aux_learning != r.learning_dict:
+            # new learning settings (an lr decay) reach the head's
+            # optimizer as they reach the shard's; its state is kept
+            # while the optimizer's kind is
+            opt = make_optimizer(r.learning, self.aux_head.parameters())
+            if type(opt) is type(self.aux_optimizer):
+                opt.state = self.aux_optimizer.state
+            self.aux_optimizer = opt
+            self._aux_learning = r.learning_dict
+
+    def _aux_tick(self, x, labels: torch.Tensor, n: int):
+        """One decoupled tick: forward + aux loss, then the shard's and
+        the head's steps.  Returns the boundary output."""
+        r = self.runner
+        self._ensure_aux(x)
+        loss, out = r.aux_step(x, labels, self.aux_head)
+        self._ok_dev = self._ok_dev & torch.isfinite(loss)
+        r.apply_update()
+        params = list(self.aux_head.parameters())
+        if r.learning.clip_grad_norm:
+            clip_by_global_norm(params, r.learning.clip_grad_norm)
+        self.aux_optimizer.step()
+        self.aux_optimizer.zero_grad(set_to_none=True)
+        self.num_samples += n
+        return out
+
+    def _overlap_ticks(self) -> None:
+        """Pipelined rounds: after the round's UPDATE leaves, a stage-1
+        async client keeps ticking on its current weights (aux steps,
+        nothing published) while the server folds, validates and fans
+        the next START out.  At most one pass over the loader; any
+        control frame ends it and is handed back to run() in arrival
+        order.  The samples are banked for the next round's UPDATE
+        (kept only across a hold START)."""
+        if (not self._async_mode or self.stage != 1
+                or self.loader is None or self.aux_head is None):
+            return
+        q = reply_queue(self.client_id)
+        ticked = 0
+        for x, labels in self.loader:
+            try:
+                raw = self.bus.get(q, timeout=0.0005)
+            except (QueueClosed, ConnectionError, OSError):
+                return   # transport gone between rounds: run() exits
+            if raw is not None:
+                self._pending_ctrl.append(raw)
+                break
+            self._aux_tick(torch.from_numpy(np.asarray(x)).to(self.device),
+                           torch.from_numpy(np.asarray(labels, np.int32))
+                           .to(self.device), len(labels))
+            # _aux_tick counted them into this round's (sent) UPDATE:
+            # move the credit to the next round
+            self.num_samples -= len(labels)
+            self._overlap_samples += len(labels)
+            ticked += 1
+        if ticked:
+            self.log.info(f"async overlap: {ticked} local ticks "
+                          f"({self._overlap_samples} samples banked for "
+                          "the next round)")
+
+    def _train_first_async(self) -> Pause:
+        """Stage-1 decoupled loop: a local aux step per batch, the
+        activations streamed downstream, no gradient wait (the gradient
+        queue and its codec stay dormant).  Each epoch ends with an
+        :class:`EpochEnd` fence down every out-queue, so a PAUSEd
+        consumer's drain ends as soon as every feeder's last fence
+        lands."""
+        out_qs = self._out_queues()
+        n_fwd = 0
+        for ep in range(self.epochs):
+            data_iter = iter(self.loader)
+            while True:
+                pause = self._check_pause()
+                if pause is not None:
+                    return pause
+                item = next(data_iter, None)
+                if item is None:
+                    break
+                x, labels = item
+                labels = np.asarray(labels, np.int32)
+                out = self._aux_tick(
+                    torch.from_numpy(np.asarray(x)).to(self.device),
+                    torch.from_numpy(labels).to(self.device), len(labels))
+                self._send_activation(out, out_qs[n_fwd % len(out_qs)],
+                                      uuid.uuid4().hex, labels,
+                                      [self.client_id])
+                n_fwd += 1
+            for q in out_qs:
+                self.bus.publish(q, encode(EpochEnd(
+                    client_id=self.client_id, round_idx=self.fence,
+                    epoch=ep)))
+        self.bus.publish(RPC_QUEUE, encode(Notify(
+            client_id=self.client_id, cluster=self.cluster,
+            round_idx=self.fence)))
+        self.log.info(f"[>>>] NOTIFY fwd={n_fwd} (async)")
+        return self._wait_pause()
+
+    def _drained(self, fenced: set, last_rx: float) -> bool:
+        """The PAUSE drain's exit test: every origin feeder's last epoch
+        fence arrived (per-queue FIFO: nothing it covers is still
+        upstream), or the in-queue was idle past the grace."""
+        feeders = set(self.sda_feeders or ())
+        if feeders and feeders <= fenced:
+            return True
+        return time.monotonic() - last_rx > ASYNC_DRAIN_IDLE_S
+
+    def _async_consume(self, step) -> Pause:
+        """A later stage's decoupled loop: ``step(act, raw)`` on every
+        frame of this round (``raw`` its bytes); an :class:`EpochEnd`
+        goes to ``step`` too (a middle stage relays it) and, at a
+        feeder's last epoch, fences this stage's PAUSE drain.  A PAUSE does not
+        abandon the in-flight stream: the feeders NOTIFY the moment
+        their data is dispatched, well before the stream is in."""
+        in_q = intermediate_queue(self.stage - 1, self.cluster, self.pair)
+        fenced: set = set()
+        paused: Pause | None = None
+        last_rx = time.monotonic()
+        while True:
+            if paused is None:
+                pause = self._check_pause()
+                if isinstance(pause, _AbortPause):
+                    return pause     # round abandoned: nothing to drain
+                if pause is not None:
+                    paused = pause
+                    last_rx = time.monotonic()
+            elif self._drained(fenced, last_rx):
+                self.log.info("[<<<] PAUSE (stream drained)")
+                return paused
+            raw = self.bus.get(in_q, timeout=0.001)
+            if raw is None:
+                continue
+            act = self._decode(raw, in_q)
+            if act is None or act.round_idx != self.fence:
+                continue
+            if isinstance(act, EpochEnd) and act.epoch >= self.epochs - 1:
+                fenced.add(act.client_id)
+            step(act, raw)
+            # the grace measures the in-queue's silence, not this step's
+            # compute (the JAX package's step returns at dispatch)
+            last_rx = time.monotonic()
+
+    def _train_middle_async(self) -> Pause:
+        """Middle stage: a local aux step on every upstream activation,
+        its output forwarded downstream; fences relayed as they come."""
+        out_qs = self._out_queues()
+        n_fwd = [0]
+
+        def step(act, raw) -> None:
+            if isinstance(act, EpochEnd):
+                for q in out_qs:
+                    self.bus.publish(q, raw)
+                return
+            labels = np.asarray(act.labels, np.int32)
+            out = self._aux_tick(
+                _from_wire_tree(act.data, self.device),
+                host_tensor(labels).to(self.device), len(labels))
+            self._send_activation(out, out_qs[n_fwd[0] % len(out_qs)],
+                                  act.data_id, act.labels,
+                                  list(act.trace) + [self.client_id])
+            n_fwd[0] += 1
+        return self._async_consume(step)
+
+    def _train_last_async(self) -> Pause:
+        """Last stage: the true loss and a local step per received batch,
+        and no input gradient returned (the point of the mode)."""
+        r = self.runner
+
+        def step(act, _) -> None:
+            if isinstance(act, EpochEnd):
+                return
+            labels = host_tensor(np.asarray(act.labels, np.int32)).to(
+                self.device)
+            loss, _ = r.last_step(_from_wire_tree(act.data, self.device),
+                                  labels, input_grad=False)
+            self._ok_dev = self._ok_dev & torch.isfinite(loss)
+            r.apply_update()
+            self.num_samples += len(act.labels)
+        return self._async_consume(step)

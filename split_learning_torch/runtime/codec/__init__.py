@@ -2,17 +2,27 @@
 
 Port of the JAX package's ``runtime/codec/__init__.py``.  A codec is a
 per-queue-family policy configured in ``transport.codec`` (grammar in
-:mod:`.specs`).  Ported so far: the tiled int8/int4 quantizer
-(:class:`~.quant.QuantCodec`) for the ``intermediate`` and ``gradient``
-families.  Its shape is the JAX package's two-phase encoder:
-``prepare(tree, key)`` runs on the training thread (device ops) and
-``encode(prepared)`` builds the host wire leaves.
+:mod:`.specs`):
+
+* ``intermediate`` — :class:`~.quant.QuantCodec`, tiled absmax int8/int4
+  codes computed on the sender's device;
+* ``gradient`` — the same quantizer, or :class:`~.sparse.TopKCodec`:
+  top-k sparsification with a checkpointable error-feedback residual;
+* ``rpc`` — :class:`~.delta.DeltaCodec`: UPDATE frames carry ``trained
+  - base`` against the server's versioned shadow copy.
+
+The data-plane codecs share the JAX package's two-phase encoder:
+``prepare(tree, key)`` runs on the training thread (device ops and any
+residual update, so state order is publish order) and
+``encode(prepared)`` builds the host wire leaves.  The ``partial``
+family (the aggregator tree's sums) is not ported.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from split_learning_torch.runtime.protocol import Float0
@@ -26,10 +36,8 @@ __all__ = [
     "parse_codec_map", "parse_spec", "make_codecs", "wire_raw_nbytes",
 ]
 
-#: codec kinds (and families) not ported yet -> the slice that ports them
+#: codec families not ported yet -> the slice that ports them
 _LATER = {
-    "topk": "the codec slice (top-k gradients with error feedback)",
-    "delta": "the codec slice (delta-encoded Updates)",
     "partial": "the aggregator-tree slice (compressed partial sums)",
 }
 
@@ -48,22 +56,30 @@ def make_codecs(cfg, faults=None) -> dict:
         kplane.configure(kcfg)
     out: dict = {}
     for family, spec in specs.items():
-        if family == "partial" or spec.kind in ("topk", "delta"):
-            what = _LATER["partial" if family == "partial" else spec.kind]
+        if family in _LATER:
             raise NotImplementedError(
                 f"transport.codec {family}: {spec.kind} is not ported "
-                f"yet; it comes with {what}")
-        from split_learning_torch.runtime.codec.quant import QuantCodec
-        out[family] = QuantCodec(spec, faults=faults, kernels=kcfg)
+                f"yet; it comes with {_LATER[family]}")
+        if spec.kind == "topk":
+            from split_learning_torch.runtime.codec.sparse import TopKCodec
+            out[family] = TopKCodec(spec, faults=faults)
+        elif spec.kind == "delta":
+            from split_learning_torch.runtime.codec.delta import DeltaCodec
+            out[family] = DeltaCodec(spec, faults=faults)
+        else:
+            from split_learning_torch.runtime.codec.quant import (
+                QuantCodec,
+            )
+            out[family] = QuantCodec(spec, faults=faults, kernels=kcfg)
     return out
 
 
 def wire_raw_nbytes(tree, wire_dtype: torch.dtype) -> int:
-    """Bytes this payload tree WOULD occupy on the plain (codec-less)
-    wire: float leaves at ``wire_dtype``, a :class:`Float0` gradient at
-    4 bytes an element (as the JAX package counts a float0 leaf),
-    everything else at its own width.  Shape-only — no device sync.  The
-    denominator of the compression ratio."""
+    """Bytes this payload tree (of tensors, or host arrays) WOULD occupy
+    on the plain (codec-less) wire: float leaves at ``wire_dtype``, a
+    :class:`Float0` gradient at 4 bytes an element (as the JAX package
+    counts a float0 leaf), everything else at its own width.  Shape-only
+    — no device sync.  The denominator of the compression ratio."""
     if isinstance(tree, Float0):
         return 4 * math.prod(tree.shape)
     itemsize = torch.tensor([], dtype=wire_dtype).element_size()
@@ -71,6 +87,10 @@ def wire_raw_nbytes(tree, wire_dtype: torch.dtype) -> int:
         return sum(wire_raw_nbytes(v, wire_dtype) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(wire_raw_nbytes(v, wire_dtype) for v in tree)
+    if isinstance(tree, np.ndarray):   # a host tree (an UPDATE's)
+        return tree.size * (itemsize if np.issubdtype(tree.dtype,
+                                                       np.floating)
+                            else tree.itemsize)
     if not isinstance(tree, torch.Tensor):
         return 0
     n = tree.numel()

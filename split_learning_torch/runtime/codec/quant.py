@@ -15,7 +15,10 @@ Numerics: ``x ≈ q * scale`` per tile with ``scale = max|x| / qmax``
 tile ships a NaN scale so the receiver's NaN sentinel still fires.
 
 The numpy twins (:func:`quantize_np`, :func:`dequantize_leaf_np`) are
-the host-side form of the same codec for payloads already on the host.
+the host-side form of the same codec for payloads already on the host
+(the delta codec's UPDATE path).  :func:`quantize_per_tensor_np` is the
+legacy per-tensor int8 wire dtype, on the host as in the JAX package;
+its leaves decode through the same two functions.
 """
 
 from __future__ import annotations
@@ -142,11 +145,11 @@ def dequantize_leaf(leaf: QuantLeaf, device=None,
     path).  Decode is self-describing (no sender config in scope), so
     the kernel engages through the RECEIVER's plan — the explicit
     ``kernels`` argument, or the process-wide plan."""
-    if leaf.tile == 0 and leaf.shape is None:
-        raise NotImplementedError(
-            "the legacy per-tensor int8 wire dtype (transport.wire-dtype: "
-            "int8) is not ported; use transport.codec int8/int4")
     device = torch.device("cpu" if device is None else device)
+    if leaf.tile == 0 and leaf.shape is None:
+        # the legacy per-tensor form: its own exact computation
+        q = host_tensor(np.ascontiguousarray(leaf.q)).to(device)
+        return q.to(torch.float32) * float(np.float32(leaf.scale))
     q = host_tensor(np.ascontiguousarray(leaf.q)).to(device)
     scale = host_tensor(np.ascontiguousarray(leaf.scale,
                                              np.float32)).to(device)
@@ -177,7 +180,23 @@ def quantize_np(x: np.ndarray, tile: int, bits: int) -> QuantLeaf:
                      shape=tuple(int(s) for s in np.shape(x)))
 
 
+def quantize_per_tensor_np(a: np.ndarray):
+    """The legacy per-tensor int8 quantizer (``transport.wire-dtype:
+    int8``, behind ``transport.allow-global-lossy``) of one float leaf:
+    ``q = round(a / scale)`` with ``scale = max|a| / 127`` (1 for an
+    all-zero leaf).  A non-finite leaf ships raw float32, so the
+    receiver's NaN sentinel still fires."""
+    a32 = np.asarray(a, np.float32)
+    amax = float(np.max(np.abs(a32))) if a32.size else 0.0
+    if not np.isfinite(amax):
+        return a32
+    scale = (amax / 127.0) or 1.0
+    return QuantLeaf(q=np.round(a32 / scale).astype(np.int8), scale=scale)
+
+
 def dequantize_leaf_np(leaf: QuantLeaf) -> np.ndarray:
+    if leaf.tile == 0 and leaf.shape is None:
+        return np.asarray(leaf.q, np.float32) * np.float32(leaf.scale)
     if leaf.bits == 4:
         u = np.asarray(leaf.q, np.uint8)
         codes = np.stack([u & 0xF, u >> 4], axis=-1).reshape(-1).astype(

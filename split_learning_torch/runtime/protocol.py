@@ -1,10 +1,11 @@
 """Typed control-plane protocol: queue names, messages and frames.
 
 Port of the part of the JAX package's ``runtime/protocol.py`` that a
-synchronous FedAvg round runs: the queue names, the round's messages
-(REGISTER, READY, NOTIFY, UPDATE, START, SYN, PAUSE, STOP, the
-ACTIVATION/GRADIENT data plane, EPOCHEND and the quantized
-:class:`QuantLeaf`), and the three frame families with the same bytes:
+FedAvg round runs: the queue names, the round's messages (REGISTER,
+READY, NOTIFY, UPDATE, START, SYN, PAUSE, STOP, the ACTIVATION/GRADIENT
+data plane, EPOCHEND, the quantized :class:`QuantLeaf` and the top-k
+:class:`SparseLeaf`), and the three frame families with the same
+bytes:
 
 * ``SLT1`` — pickled frame ``MAGIC | crc32(body) | pickle(body)`` for
   control messages, read back by a restricted unpickler that admits the
@@ -30,8 +31,8 @@ Queue naming (the reference's topology):
 * ``gradient_queue_{stage}_{client_id}``     stage k+1 -> one stage-k client
 
 Left out here (raising where a config asks for them): the aggregator
-tree, stage-host, digest, blackbox and heartbeat messages, sparse
-leaves and the trace-context sidecar's span plumbing (the context bytes
+tree, stage-host, digest, blackbox and heartbeat messages and the
+trace-context sidecar's span plumbing (the context bytes
 still ride the frames unchanged).
 """
 
@@ -204,12 +205,27 @@ class QuantLeaf:
     ``x ≈ q * scale``.  ``q`` is the FLAT padded code array (int8, or
     uint8 with two 4-bit codes per byte when ``bits == 4``), ``scale``
     a float32 array with one entry per ``tile`` values, ``shape`` the
-    original shape.  A non-finite tile ships a NaN scale."""
+    original shape.  A non-finite tile ships a NaN scale.  The legacy
+    per-tensor form (``transport.wire-dtype: int8``) keeps ``q`` int8 in
+    the tensor's own shape, ``scale`` a Python float, ``tile`` 0 and
+    ``shape`` None."""
     q: np.ndarray
     scale: Any
     bits: int = 8
     tile: int = 0
     shape: tuple | None = None
+
+
+@dataclasses.dataclass
+class SparseLeaf:
+    """One top-k sparsified float tensor on the data-plane wire
+    (``transport.codec`` ``topk:<frac>``, ``runtime/codec/sparse.py``):
+    flat ``idx`` into the dense tensor (int32, ascending), the kept
+    ``val``ues (float32), and the dense ``shape`` to scatter back into
+    (zeros elsewhere)."""
+    idx: np.ndarray
+    val: np.ndarray
+    shape: tuple = ()
 
 
 @dataclasses.dataclass
@@ -225,7 +241,8 @@ DATA_TYPES = (Activation, Gradient, EpochEnd)
 TENSOR_TYPES = (Activation, Gradient, Update)
 _TYPE_BY_NAME = {t.__name__: t for t in CONTROL_TYPES + DATA_TYPES}
 #: nested wire-format helpers (never valid as a top-level message)
-_WIRE_HELPERS = {"QuantLeaf": QuantLeaf, "_TensorRef": _TensorRef}
+_WIRE_HELPERS = {"QuantLeaf": QuantLeaf, "SparseLeaf": SparseLeaf,
+                 "_TensorRef": _TensorRef}
 
 
 def host_tensor(a: np.ndarray) -> torch.Tensor:
@@ -381,6 +398,9 @@ def _encode_tensor(msg, ctx: bytes = b"") -> bytes:
                   | (TENSOR_FLAG_TILED if o.tile else 0))
             return QuantLeaf(q=strip(o.q, qf), scale=strip(o.scale),
                              bits=o.bits, tile=o.tile, shape=o.shape)
+        if isinstance(o, SparseLeaf):
+            return SparseLeaf(idx=strip(o.idx), val=strip(o.val),
+                              shape=o.shape)
         if isinstance(o, dict):
             return {k: strip(v) for k, v in o.items()}
         if isinstance(o, list):
@@ -489,6 +509,21 @@ def _decode_tensor(raw: bytes):
                         f"bits={o.bits} tile={o.tile})")
             return QuantLeaf(q=fill(o.q), scale=fill(o.scale),
                              bits=o.bits, tile=o.tile, shape=o.shape)
+        if isinstance(o, SparseLeaf):
+            idx, val = fill(o.idx), fill(o.val)
+            # bounds-checked here, where a decode error costs one
+            # message, not at densify time on the training thread
+            n = int(math.prod(o.shape)) if o.shape else 1
+            if isinstance(idx, np.ndarray):
+                if np.shape(idx) != np.shape(val):
+                    raise CorruptFrame("sparse leaf idx/val length "
+                                       "mismatch")
+                if idx.size and (int(idx.min()) < 0
+                                 or int(idx.max()) >= n):
+                    raise CorruptFrame(
+                        f"sparse leaf index out of range for shape "
+                        f"{o.shape}")
+            return SparseLeaf(idx=idx, val=val, shape=o.shape)
         if isinstance(o, dict):
             return {k: fill(v) for k, v in o.items()}
         if isinstance(o, list):

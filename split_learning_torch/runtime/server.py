@@ -32,11 +32,28 @@ cumulative fault counters (drops, redeliveries, dedup hits, reconnects,
 ...) go into a ``kind=faults`` record each round, and into a ``round
 faults (cumulative): ...`` log line when they changed.
 
+Async decoupled mode (``learning.mode: async``): the generation is the
+global model version.  An UPDATE seeded from version ``v`` is admitted
+while ``version - v <= learning.max-staleness`` and folds at weight
+``staleness-decay ** lag`` under the key ``client@vN``; an older one is
+rejected and counted.  With ``learning.async-quorum`` N the NOTIFY and
+UPDATE barriers cut the version at N fresh contributions, and a
+straggler's work folds late through the window.  A READY arriving after
+the SYN fan-out of an async round still gets its SYN (with the
+responsive set's fence overrides) and its PAUSE.
+
+With an ``rpc`` delta codec the server keeps a versioned shadow of the
+shard each weighted START carried, advertises its version in every
+START, and folds ``base + delta`` back into a full tree before the
+streaming fold; a full frame is counted (``delta_full_frames``), and a
+delta against an unknown base drops its weights and re-seeds the client
+with a full START next round.
+
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): the aggregator tree and remote aggregator nodes, stage hosts, the
-scheduler, elastic re-planning, async mode and the delta shadow (its
-codec raises in ``make_codecs``).  The telemetry exporter, liveness
-monitor, blackbox and tracing spans are not run.
+scheduler, elastic re-planning, the per-leaf legacy fold finish
+(``aggregation.update-sharded: false``).  The telemetry exporter,
+liveness monitor, blackbox and tracing spans are not run.
 """
 
 from __future__ import annotations
@@ -105,13 +122,12 @@ def _refuse_unported(cfg: Config) -> None:
         (cfg.scheduler.enabled, "scheduler.enabled (the closed-loop "
                                 "scheduler)"),
         (topo.elastic_join, "topology.elastic-join (elastic re-planning)"),
-        (cfg.learning.mode == "async", "learning.mode: async"),
     ]
     for on, what in later:
         if on:
             raise NotImplementedError(
-                f"{what} is not ported yet; the in-process synchronous "
-                "protocol round is (see ROADMAP.md)")
+                f"{what} is not ported yet; the flat protocol round is "
+                "(see ROADMAP.md)")
 
 
 class ProtocolContext(TorchContext):
@@ -147,7 +163,17 @@ class ProtocolContext(TorchContext):
         self._updates: list[Update] = []
         # installs this process's kernel plan (the receiver decode path
         # has no config in scope) and refuses unported codecs up front
-        make_codecs(cfg, faults=self.faults)
+        codecs = make_codecs(cfg, faults=self.faults)
+        # delta-encoded UPDATEs (an rpc codec): a versioned shadow copy
+        # of each client's START shard, to fold a delta back into a
+        # full tree
+        self._delta_shadow = None
+        if "rpc" in codecs:
+            from split_learning_torch.runtime.codec.delta import DeltaShadow
+            self._delta_shadow = DeltaShadow(faults=self.faults)
+        # clients whose next START must carry weights whatever the
+        # strategy's wire economy says (a broken delta chain)
+        self._needs_params: set = set()
         # streaming aggregation plane: fold each UPDATE into a running
         # per-stage weighted sum the moment it decodes
         self._agg = cfg.aggregation
@@ -165,9 +191,20 @@ class ProtocolContext(TorchContext):
         # satisfy a later invocation's barriers
         self._gen = 0
         self._cur_gen = 0
+        # async decoupled mode: the generation IS the global model
+        # version; the UPDATE pump admits contributions through a
+        # bounded-staleness window and the barriers cut a new version at
+        # learning.async-quorum fresh contributions
+        self._async = cfg.learning.mode == "async"
         # (client_id, version) pairs already folded — at-least-once
-        # redelivery must not double-count
+        # redelivery must not double-count; pruned past the window
         self._folded_versions: set = set()
+        # late-READY SYN: True between an async round's SYN fan-out and
+        # its end, so that a straggler's late READY still gets its SYN
+        # (with the responsive set's fence overrides, kept per client)
+        self._syn_live = False
+        self._syn_round = 0
+        self._syn_overrides: dict = {}
         self.last_fold: agg_plane.FoldResult | None = None
         #: per invocation, the wall of each round phase (START fan-out,
         #: READY, training, UPDATE upload + fold, the fold's update)
@@ -201,7 +238,20 @@ class ProtocolContext(TorchContext):
                 self.log.warning(f"stale READY {msg.client_id} "
                                  f"gen={msg.round_idx} (dropped)")
             else:
+                late = self._syn_live and msg.client_id not in self._ready
                 self._ready.add(msg.client_id)
+                if late:
+                    # async pipelining: the SYN fan-out already went out
+                    # (the READY barrier collapsed to the responsive
+                    # set); a straggler that finished its late upload
+                    # still joins THIS round, with the fan-out's fence
+                    # overrides (the START's may name dropped feeders)
+                    q, feeders = self._syn_overrides.get(
+                        msg.client_id, (None, None))
+                    self.bus.publish(reply_queue(msg.client_id), encode(Syn(
+                        self._syn_round, sda_fence_quorum=q,
+                        sda_feeders=feeders)))
+                    self.log.sent(f"SYN -> {msg.client_id} (late READY)")
         elif isinstance(msg, Notify):
             if msg.round_idx != self._cur_gen:
                 self.log.warning(f"stale NOTIFY {msg.client_id} "
@@ -217,9 +267,18 @@ class ProtocolContext(TorchContext):
         return True
 
     def _admit_update(self, msg: Update) -> None:
-        """The one admission door for client Updates: dedup on
-        ``(client_id, version)`` before any sample accounting, then the
-        generation fence (only the current invocation folds)."""
+        """The one admission door for client Updates.
+
+        * dedup first: a redelivered Update for a ``(client_id,
+          version)`` already folded is dropped before any sample
+          accounting (``agg_dup_drops``);
+        * sync: only the current generation folds (the hard fence);
+        * async: an Update seeded from version ``v`` is admitted while
+          ``version - v <= learning.max-staleness``, its FedAvg weight
+          scaled by ``staleness-decay ** lag`` under the fold key
+          ``client@vN`` (``agg_stale_admits``); anything older is
+          rejected and counted (``agg_stale_updates``)."""
+        lrn = self.cfg.learning
         ver = msg.version if msg.version is not None else msg.round_idx
         key = (msg.client_id, ver)
         if key in self._folded_versions:
@@ -227,19 +286,25 @@ class ProtocolContext(TorchContext):
             self.log.warning(f"duplicate UPDATE {msg.client_id} "
                              f"v{ver} (already folded; dropped)")
             return
-        if ver != self._cur_gen or msg.round_idx != self._cur_gen:
+        lag = self._cur_gen - ver
+        fresh = lag == 0 and msg.round_idx == self._cur_gen
+        stale = (not fresh and self._async and self._fold is not None
+                 and 0 < lag <= lrn.max_staleness)
+        if not (fresh or stale):
             self.faults.inc("agg_stale_updates")
             self.log.warning(f"stale UPDATE {msg.client_id} v{ver} "
-                             "(rejected)")
+                             f"lag={lag} (rejected)")
             return
-        if msg.delta_base is not None:
-            raise NotImplementedError(
-                "delta-encoded UPDATE frames (transport.codec rpc) are not "
-                "ported yet; they come with the codec slice")
+        self._fold_update(msg)
         if self._fold is not None:
             # the weights fold into the running sum NOW; the barrier
             # list holds a weight-stripped record
-            self._fold.add_update(copy.copy(msg))
+            if stale:
+                scale = lrn.staleness_decay ** lag
+                self._fold.add_update(copy.copy(msg), scale=scale,
+                                      key=f"{msg.client_id}@v{ver}")
+            else:
+                self._fold.add_update(copy.copy(msg))
             msg.params = None
             msg.batch_stats = None
         elif msg.params is not None:
@@ -247,8 +312,41 @@ class ProtocolContext(TorchContext):
             msg.batch_stats = _torch_tree(msg.batch_stats or {}, "cpu")
         self._folded_versions.add(key)
         self._updates.append(msg)
-        self.log.received(f"UPDATE {msg.client_id} "
-                          f"samples={msg.num_samples} ok={msg.ok}")
+        if stale:
+            self.faults.inc("agg_stale_admits")
+            self.log.received(
+                f"UPDATE {msg.client_id} v{ver} lag={lag} "
+                f"(stale-admitted, weight x{scale:g})")
+        else:
+            self.log.received(f"UPDATE {msg.client_id} "
+                              f"samples={msg.num_samples} ok={msg.ok}")
+
+    def _fold_update(self, msg: Update) -> None:
+        """Reconstruct a delta-encoded UPDATE in place (``base +
+        dequant(delta)`` against the versioned shadow).  When the chain
+        is broken (shadow missing or moved) the delta is unusable: the
+        update is kept weight-less (the barrier must not stall on it)
+        and the client is re-seeded with a full START next round.  Full
+        frames pass through and are counted: they are the resync
+        path."""
+        if msg.delta_base is None:
+            if self._delta_shadow is not None and msg.params is not None:
+                self.faults.inc("delta_full_frames")
+            return
+        full = (None if self._delta_shadow is None
+                else self._delta_shadow.fold(msg.client_id,
+                                             msg.delta_base, msg.params))
+        if full is None:
+            self.log.warning(
+                f"delta UPDATE {msg.client_id} against unknown base "
+                f"v{msg.delta_base}: weights dropped; full-frame resync "
+                "next round")
+            self._needs_params.add(msg.client_id)
+            msg.params = None
+            msg.batch_stats = None
+        else:
+            msg.params = full
+        msg.delta_base = None   # downstream sees a plain (full) update
 
     def _pump_until(self, pred: Callable[[], bool],
                     what: str | Callable[[], str],
@@ -387,8 +485,12 @@ class ProtocolContext(TorchContext):
         self._updates = []
         self._gen += 1
         self._cur_gen = self._gen
-        self._folded_versions = {(c, v) for c, v in self._folded_versions
-                                 if self._cur_gen - v <= 1}
+        self._syn_live = False
+        # async: the generation is the global model version — the dedup
+        # ledger is pruned past the admission window
+        self._folded_versions = {
+            (c, v) for c, v in self._folded_versions
+            if self._cur_gen - v <= self.cfg.learning.max_staleness + 1}
 
         # streaming fold for this invocation, in canonical per-stage
         # sorted client-id order; built BEFORE the START fan-out so the
@@ -408,7 +510,13 @@ class ProtocolContext(TorchContext):
         shard_cache: dict = {}
         for cid, s in active:
             a, b = ranges[s - 1]
-            if _stage_flag(send_params, s):
+            sp = _stage_flag(send_params, s)
+            if cid in self._needs_params:
+                # a broken delta chain: a weight-less START would leave
+                # the client without a base the shadow knows
+                sp = True
+                self._needs_params.discard(cid)
+            if sp:
                 base = (per_client_params or {}).get(cid, params)
                 key = (a, b) if base is params else None
                 shard = shard_cache.get(key)
@@ -420,6 +528,17 @@ class ProtocolContext(TorchContext):
                         shard_cache[key] = shard
             else:
                 shard = (None, None)
+            # delta codec: a versioned shadow of exactly what this START
+            # carries, and the version held advertised (a weight-less
+            # START advertises the standing shadow)
+            delta_ver = None
+            if self._delta_shadow is not None:
+                if sp:
+                    self._delta_shadow.note_sent(cid, self._cur_gen,
+                                                 shard[0])
+                    delta_ver = self._cur_gen
+                else:
+                    delta_ver = self._delta_shadow.version_for(cid)
             label_counts = None
             if s == 1:
                 label_counts = np.asarray(
@@ -451,6 +570,7 @@ class ProtocolContext(TorchContext):
                                          if sda_route and s < plan.n_stages
                                          else None),
                            "refresh": self.cfg.distribution.refresh,
+                           "delta_base_version": delta_ver,
                            "gen": self._cur_gen}),
                     self.cfg.transport.chunk_mb << 20):
                 self.bus.publish(reply_queue(cid), part)
@@ -484,30 +604,65 @@ class ProtocolContext(TorchContext):
         # strict SDA under client loss: a previous-stage client dropped
         # at the READY barrier never sends its fence copies, and a
         # dropped feeder never fences, so the quorum and the feeder sets
-        # are recomputed from the clients that answered and ride SYN
+        # are recomputed from the clients that answered and ride SYN.
+        # Kept for every active client: a late READY's SYN reuses them
         live_s1 = [c for c in stage1 if c in ids]
-        for cid in sorted(ids):
-            s = stage_of[cid]
+        self._syn_overrides = {}
+        for cid, s in active:
             quorum = (1 if s <= 2 else
                       max(1, sum(c in ids for c in plan.clients[s - 2])))
             feeders = (None if s == 1
                        else self._feeders(live_s1, pair_groups, cid))
+            self._syn_overrides[cid] = (quorum, feeders)
+        for cid in sorted(ids):
+            quorum, feeders = self._syn_overrides[cid]
             self.bus.publish(reply_queue(cid), encode(Syn(
                 round_idx, sda_fence_quorum=quorum, sda_feeders=feeders)))
         self.log.sent(f"SYN -> {sorted(ids)}")
+        # async: the SYN window stays open for a straggler's late READY
+        self._syn_live = self._async
+        self._syn_round = round_idx
 
         s1_ids = set(stage1) & ids
-        self._pump_until(lambda: s1_ids <= self._notified,
-                         "NOTIFY from stage-1 clients")
+        quorum_n = self.cfg.learning.async_quorum if self._async else 0
+        if quorum_n:
+            # async quorum: the round moves on once enough feeders have
+            # dispatched their data; a slow one folds late instead
+            s1_need = min(len(s1_ids), quorum_n)
+            self._pump_until(
+                lambda: len(self._notified & s1_ids) >= s1_need,
+                f"NOTIFY quorum {s1_need}/{len(s1_ids)}")
+        else:
+            self._pump_until(lambda: s1_ids <= self._notified,
+                             "NOTIFY from stage-1 clients")
         lap("train_s")   # SYN -> the last stage-1 NOTIFY
-        for cid in sorted(ids):
+        # late-READY joiners (async) get their PAUSE too: they are
+        # training and upload like everyone else
+        pause_ids = ids | (self._ready & set(stage_of))
+        for cid in sorted(pause_ids):
             self.bus.publish(reply_queue(cid), encode(Pause(
                 send_weights=_stage_flag(send_weights, stage_of[cid]))))
-        self.log.sent(f"PAUSE -> {sorted(ids)}")
-        self._pump_until(
-            lambda: {u.client_id for u in self._updates} >= ids,
-            lambda: ("UPDATE from "
-                     + str(ids - {u.client_id for u in self._updates})))
+        self.log.sent(f"PAUSE -> {sorted(pause_ids)}")
+
+        def fresh_ids() -> set:
+            # the current version's contributions only: an async
+            # straggler's stale-admitted Update also rides the list
+            return {u.client_id for u in self._updates
+                    if (u.version if u.version is not None
+                        else u.round_idx) == self._cur_gen}
+        if quorum_n:
+            # bounded-staleness version cut at async-quorum fresh
+            # contributions
+            need = min(quorum_n, len(ids))
+            self._pump_until(
+                lambda: len(fresh_ids() & ids) >= need,
+                lambda: (f"UPDATE quorum {need}/{len(ids)} (missing "
+                         f"{sorted(ids - fresh_ids())})"))
+        else:
+            self._pump_until(
+                lambda: fresh_ids() >= ids,
+                lambda: "UPDATE from " + str(ids - fresh_ids()))
+        self._syn_live = False
         lap("upload_s")   # PAUSE -> every UPDATE decoded and folded
         updates = list(self._updates)
         self._updates = []

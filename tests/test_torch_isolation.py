@@ -429,3 +429,56 @@ def test_chaos_reliable_sharded_stack_runs_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "chaos stack ok" in proc.stdout
+
+
+#: the modules of the async and codec slice
+ASYNC_CODECS = ("split_learning_torch.ops.auxiliary",
+                "split_learning_torch.runtime.codec.sparse",
+                "split_learning_torch.runtime.codec.delta")
+
+
+def test_async_round_with_topk_and_delta_runs_with_jax_blocked(tmp_path):
+    """An async round (aux heads, no gradient frames) with the top-k
+    gradient codec and the delta UPDATE codec, and a sync round with the
+    same codecs (top-k gradients on the wire), run in a process where JAX
+    and the JAX package cannot be imported."""
+    assert set(ASYNC_CODECS) <= set(_port_modules())
+    kwt = {"model": "KWT", "dataset": "SPEECHCOMMANDS", "clients": [2, 1],
+           "global-rounds": 2, "synthetic-size": 48, "val-max-batches": 1,
+           "val-batch-size": 8, "compute-dtype": "float32",
+           "model-kwargs": {"embed_dim": 8, "num_heads": 2, "mlp_dim": 16},
+           "topology": {"cut-layers": [2]},
+           "distribution": {"num-samples": 8},
+           "transport": {"codec": {"gradient": "topk:0.05",
+                                   "rpc": "delta:int8"}},
+           "learning": {"mode": "async", "batch-size": 4,
+                        "optimizer": "adamw"},
+           "checkpoint": {"save": False}, "log-path": str(tmp_path)}
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "from split_learning_torch.config import from_dict",
+        "from split_learning_torch.runtime.server import run_inproc",
+        f"kwt = {kwt!r}",
+        "for mode in ('async', 'sync'):",
+        "    kwt['learning']['mode'] = mode",
+        "    run = run_inproc(from_dict(kwt), device='cpu',"
+        " client_timeout=300)",
+        "    assert [(r.ok, r.num_samples) for r in run.result.history]"
+        " == [(True, 16)] * 2, run.result.history",
+        "    grad = sum(n for q, n in run.bus.bytes_out_snapshot().items()"
+        " if q.startswith('gradient_queue'))",
+        "    assert (grad == 0) == (mode == 'async'), (mode, grad)",
+        "    assert all(c.aux_head is not None for c in run.clients[:2])"
+        " == (mode == 'async')",
+        "    assert run.server.ctx.faults.snapshot().get('delta_folds')",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
+        " and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('async codecs ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "async codecs ok" in proc.stdout
