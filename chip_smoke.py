@@ -71,13 +71,14 @@ Phases, each fatal on failure:
    (each tensor-core backward kernel 176 launches a round, the vec
    quantizer and the dequantizer 48, the CUDA-core kernels and the
    generic quantizer 0);
-7. protocol_tcp — the same 2 rounds in the deployment shape (the second
-   START carries the folded weights to client processes already
-   running): one ``python -m split_learning_torch.broker`` and one
-   process each for the server and the five clients, all on the card,
-   over TCP with the async sender and receive prefetch.  The samples
-   and each kernel's launches across the processes must equal the
-   in-process run's; reports the phase walls beside the in-process
+7. protocol_tcp — the first of those rounds in the deployment shape
+   (one round, for the script's length; ``variants_tcp`` carries a
+   second START to running client processes): one
+   ``python -m split_learning_torch.broker`` and one process each for
+   the server and the five clients, all on the card, over TCP with the
+   async sender and receive prefetch.  The samples and each kernel's
+   launches across the processes must equal the in-process run's a
+   round; reports the phase walls beside the in-process
    ones, the broker's bytes by queue family, each process's peak memory
    and the card's by ``nvidia-smi``;
 8. step_check — one float32 train step of VGG16/CIFAR10 (cut 7), of
@@ -220,7 +221,17 @@ Phases, each fatal on failure:
    error-feedback identity with its residual carried, every UPDATE a
    delta, every quantize, dequantize, finalize and momentum launch held
    bit for bit;
-29. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+29. tree_protocol — baseline 1 at ``[4, 2]`` under the thread-mode
+   aggregator tree (fan-in 2, 2 levels: the root folds 2 partials, one
+   level-2 aggregator 2 level-1 partials): run a with raw float32
+   partials, the root bit for bit the host fold of the six tapped
+   UPDATEs in canonical (stage, group, client) order; run b with the
+   ``delta:int8:64`` partial codec and one level-1 aggregator killed,
+   completed through the counted direct-to-root fallback, bit for bit
+   the same fold through the codec and within its derived bound of the
+   fold without it, its root partial bytes against run a's; every
+   quantize, dequantize, finalize and momentum launch held bit for bit;
+30. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
@@ -1883,12 +1894,12 @@ def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
                        timeout: float = 900.0) -> dict:
     """The protocol round in its deployment shape (:func:`_run_tcp`):
     the broker, the server and one process per client of ``clients: [2,
-    1, 1, 1]``, at the in-process ``protocol`` phase's configuration (2
-    rounds of FedAvgM 0.9).  ``inproc`` is that phase's result: the
-    samples and the kernel launches must equal its 2-round run's."""
+    1, 1, 1]``, at the in-process ``protocol`` phase's configuration
+    (FedAvgM 0.9), one round.  ``inproc`` is that phase's result: the
+    samples and the kernel launches must equal its run's a round."""
     cfg, wall, stats, reports, card_peak_mib = _run_tcp(
         workdir / "tcp",
-        lambda d: protocol_config(d, momentum=0.9, rounds=2), timeout)
+        lambda d: protocol_config(d, momentum=0.9, rounds=1), timeout)
     launches = {k: sum(r["launches"].get(k, 0) for r in reports.values())
                 for k in reports["server"]["launches"]}
 
@@ -1916,9 +1927,9 @@ def phase_protocol_tcp(workdir: pathlib.Path, inproc: dict,
                  "flash_bwd_dkv", "flash_bwd_dq"):
         check(launches[name] > 0, f"kernel {name} was not launched on "
               "the TCP path")
-        check(launches[name] == inproc["launches"][name],
-              f"{name}: {launches[name]} launches over TCP, "
-              f"{inproc['launches'][name]} in process")
+        inproc_n = inproc["launches_per_round"][name] * n_rounds
+        check(launches[name] == inproc_n, f"{name}: {launches[name]} "
+              f"launches over TCP, {inproc_n} in process")
 
     out = {
         "run_wall_s": wall, "rounds": [
@@ -4033,23 +4044,34 @@ class _LateUpdateTransport:
 
 
 def _run_late_update(cfg, timeout: float):
+    """The protocol deployment of ``run_inproc`` with :data:`LATE_CLIENT`
+    speaking through a :class:`_LateUpdateTransport`."""
+    late = []
+
+    def client_bus(bus, cid):
+        if cid != LATE_CLIENT:
+            return bus
+        late.append(_LateUpdateTransport(bus, cid))
+        return late[0]
+    return (*_run_inproc_with(cfg, timeout, client_bus, "async run b"),
+            late[0])
+
+
+def _run_inproc_with(cfg, timeout: float, client_bus, label: str):
     """The protocol deployment of ``run_inproc`` (the server in this
-    thread, one client thread per client over one ``InProcTransport``)
-    with :data:`LATE_CLIENT` speaking through a
-    :class:`_LateUpdateTransport`."""
+    thread, one client thread per client over one ``InProcTransport``),
+    each client speaking through ``client_bus(bus, client_id)``."""
     from split_learning_torch.runtime.bus import InProcTransport
     from split_learning_torch.runtime.client import ProtocolClient
     from split_learning_torch.runtime.log import Logger
     from split_learning_torch.runtime.server import ProtocolServer
 
     bus = InProcTransport()
-    late = _LateUpdateTransport(bus, LATE_CLIENT)
     server = ProtocolServer(cfg, bus, client_timeout=timeout,
                             logger=Logger.for_run(cfg, "server",
                                                   console=False),
                             device=DEVICE)
-    clients = [ProtocolClient(cfg, cid, s,
-                              late if cid == LATE_CLIENT else bus,
+    clients = [ProtocolClient(cfg, cid, s, client_bus(bus, cid),
                               device=DEVICE)
                for s, n in enumerate(cfg.clients, 1)
                for cid in (f"client_{s}_{i}" for i in range(n))]
@@ -4068,13 +4090,13 @@ def _run_late_update(cfg, timeout: float):
     try:
         res = server.serve()
     except Exception as e:
-        raise SmokeFailure(f"async run b failed: {e!r} (clients: "
+        raise SmokeFailure(f"{label} failed: {e!r} (clients: "
                            f"{errors})") from e
     for t in threads:
         t.join(timeout=120)
-        check(not t.is_alive(), "an async run b client did not stop")
-    check(not errors, f"async run b clients failed: {errors}")
-    return server, clients, bus, res, late
+        check(not t.is_alive(), f"a {label} client did not stop")
+    check(not errors, f"{label} clients failed: {errors}")
+    return server, clients, bus, res
 
 
 def _round_bytes(cfg, family: str) -> list:
@@ -4379,6 +4401,392 @@ def phase_codec_protocol(workdir: pathlib.Path) -> dict:
     return out
 
 
+#: the aggregator-tree phase: the stage-1 aggregator that run b kills
+TREE_KILLED = "aggregator_0_0"
+#: run b's partial codec
+TREE_CODEC = "delta:int8:64"
+
+
+def tree_protocol_config(workdir: pathlib.Path, partial: str | None):
+    """Cell 6's baseline 1 (:func:`vgg_protocol_config` at
+    ``server-momentum: 0.9``: VGG16/CIFAR10 at full width, cut 7, batch
+    32, 2500 samples a client, int8 activations and gradients, every
+    kernel, the sharded fold) at ``clients: [4, 2]`` under the
+    aggregator tree (``aggregation.fan-in: 2``, ``levels: 2``), one
+    round; ``partial`` the ``transport.codec`` partial spec, or None
+    for raw float32 partials."""
+    cfg = vgg_protocol_config(workdir, 0.9)
+    codec = dict(cfg.transport.codec)
+    if partial is not None:
+        codec["partial"] = partial
+    return dataclasses.replace(
+        cfg, clients=[4, 2],
+        transport=dataclasses.replace(cfg.transport, codec=codec),
+        aggregation=dataclasses.replace(cfg.aggregation, fan_in=2,
+                                        levels=2)).validate()
+
+
+class _UpdateTap:
+    """The clients' transport that keeps every frame part a client
+    publishes on an aggregate queue (the round's chunked UPDATEs)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.parts: list = []
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def publish(self, queue, payload):
+        if queue.startswith("aggregate_queue"):
+            with self._lock:
+                self.parts.append(payload)
+        self.inner.publish(queue, payload)
+
+    def updates(self) -> dict:
+        """The UPDATEs the parts carried, by client id."""
+        from split_learning_torch.runtime import protocol as proto
+        asm, out = proto.FrameAssembler(), {}
+        for part in self.parts:
+            msg = asm.feed(part)
+            if isinstance(msg, proto.Update):
+                check(msg.client_id not in out,
+                      f"two UPDATEs from {msg.client_id}")
+                out[msg.client_id] = msg
+        return out
+
+
+class _FinishSpy:
+    """Records, while entered, each streaming fold's finish: the base it
+    was given (on the host) and its result."""
+
+    def __enter__(self):
+        from split_learning_torch.runtime import aggregate as agg
+        self.calls: list = []
+        self._agg, self._finish = agg, agg.StreamingFold.finish
+        finish, calls = self._finish, self.calls
+
+        def spy(fold, base=None, momentum=0.0, velocity=None, **kw):
+            host = None if base is None else _host_tree(base)
+            out = finish(fold, base=base, momentum=momentum,
+                         velocity=velocity, **kw)
+            calls.append((host, momentum, out))
+            return out
+        agg.StreamingFold.finish = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._agg.StreamingFold.finish = self._finish
+
+
+def _flat(tree) -> dict:
+    import numpy as np
+    from split_learning_torch.ops.fedavg import walk_items
+    return {p: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for p, v in walk_items(tree)}
+
+
+def _tree_oracle(updates: dict, groups: list, base: dict, m: float,
+                 codec: str | None, gen: int, dead: tuple = ()) -> dict:
+    """The host fold of the round's UPDATEs in the tree's canonical
+    (stage, group, client) order, as the tree computes it: within each
+    level-1 group ``nan_to_num(float32(leaf)) * max(1, samples)`` summed
+    in member order, each interior group its children's sums in key
+    order, each root group's sums divided once by its total weight and
+    put through FedAvgM against ``base`` (the plain versions of the
+    finalize and momentum kernels, on the host).  With ``codec`` each
+    partial an aggregator publishes goes through the partial codec's
+    encode and decode (the delta against ``base``), except the groups in
+    ``dead``, which the server's fallback drain publishes raw.  Returns
+    {"params", "stats", "scales"}: the flat results, and per root stage
+    and path the largest tile scale of each codec hop on its way up."""
+    import numpy as np
+    from split_learning_torch.ops.fedavg import unflatten_items, walk_items
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime.codec.partial import (
+        decode_partial_entry, encode_partial_entry,
+    )
+
+    by_key = {g.key: g for g in groups}
+    scales: dict = {}
+
+    def add(acc, items):
+        for p, c in items:
+            acc[p] = acc[p] + c if p in acc else c
+
+    def entry(g) -> dict:
+        acc, sacc, w_tot, sw_tot, hops = {}, {}, 0.0, 0.0, []
+        for key in g.members:
+            if g.level == 1:
+                u = updates[key]
+                w = max(1, u.num_samples)
+                w_tot += w
+                add(acc, ((p, np.nan_to_num(np.asarray(v, np.float32)) * w)
+                          for p, v in _flat(u.params).items()))
+                if u.batch_stats:
+                    sw_tot += w
+                    add(sacc, ((p, np.nan_to_num(
+                        np.asarray(v, np.float32)) * w)
+                        for p, v in _flat(u.batch_stats).items()))
+            else:
+                child = entry(by_key[key])
+                w_tot += child["weight"]
+                sw_tot += child["stat_weight"]
+                add(acc, ((p, np.nan_to_num(v))
+                          for p, v in child["flat"].items()))
+                add(sacc, ((p, np.nan_to_num(v))
+                           for p, v in child["stat_flat"].items()))
+                hops += child["hops"]
+        ent = {"flat": acc, "stat_flat": sacc, "weight": w_tot,
+               "stat_weight": sw_tot, "hops": hops}
+        if codec is None or g.key in dead:
+            return ent
+        enc, cs, cb = encode_partial_entry(
+            {"sums": unflatten_items(acc), "weight": w_tot,
+             "stat_sums": unflatten_items(sacc), "stat_weight": sw_tot},
+            codec, base=base, base_gen=gen)
+        dec = decode_partial_entry(enc, cs, codec_base=cb, base=base,
+                                   base_gen=gen)
+        hops = hops + [{p: float(np.max(q.scale))
+                        for p, q in walk_items(enc["sums"])}]
+        return {"flat": _flat(dec["sums"]),
+                "stat_flat": _flat(dec["stat_sums"]), "weight": w_tot,
+                "stat_weight": sw_tot, "hops": hops}
+
+    params, stats = {}, {}
+    base_flat = _flat(base)
+    for g in sorted((g for g in groups if g.parent is None),
+                    key=lambda g: (g.stage, g.key)):
+        ent = entry(g)
+        tw = 0.0 + ent["weight"]
+        for p, acc in ent["flat"].items():
+            out, _ = ku.momentum_reference(
+                torch.from_numpy(np.nan_to_num(acc)),
+                torch.from_numpy(base_flat[p]),
+                torch.zeros(acc.shape, dtype=torch.float32), tw, m,
+                torch.float32)
+            params[p] = out.numpy()
+            scales[p] = sum(h.get(p, 0.0) for h in ent["hops"])
+        stw = 0.0 + ent["stat_weight"]
+        for p, acc in ent["stat_flat"].items():
+            stats[p] = ku.finalize_reference(
+                torch.from_numpy(np.nan_to_num(acc)), stw,
+                torch.float32).numpy()
+    return {"params": params, "stats": stats, "scales": scales}
+
+
+def _bit_diffs(got: dict, want: dict) -> list:
+    """Paths where two flat trees differ in keys, dtype, shape or bits."""
+    out = sorted(map(str, set(got) ^ set(want)))
+    for p in sorted(set(got) & set(want), key=str):
+        a, b = got[p], want[p]
+        if not (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes()):
+            out.append(str(p))
+    return out
+
+
+def _run_tree(label: str, cfg, kill: str | None) -> dict:
+    """One tree round in process with every codec and stage-update launch
+    held bit for bit (:func:`_hold_on_path`), the clients' UPDATE frames
+    tapped (:class:`_UpdateTap`) and the fold's finish recorded
+    (:class:`_FinishSpy`); ``kill`` an aggregator that dies at its start
+    (``L1Aggregator.TEST_KILL``)."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime import aggregate as agg
+    from split_learning_torch.runtime.trace import default_fault_counters
+
+    tap: list = []
+
+    def client_bus(bus, cid):
+        if not tap:
+            tap.append(_UpdateTap(bus))
+        return tap[0]
+    held: dict = {}
+    seen: dict = {}
+    originals = _hold_on_path(kq, ku, held, seen)
+    if kill is not None:
+        agg.L1Aggregator.TEST_KILL.add(kill)
+    try:
+        with _FinishSpy() as spy:
+            faults0 = default_fault_counters.snapshot()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            _reset_launches()
+            t0 = time.perf_counter()
+            server, clients, bus, res = _run_inproc_with(
+                cfg, 600.0, client_bus, label)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        agg.L1Aggregator.TEST_KILL.discard(kill)
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
+    faults = _fault_delta(faults0)
+    rounds = _rounds(label, cfg, res, _expected_samples(cfg, protocol=True))
+    _check_held(label, 0.9, held, launches)
+    check(len(spy.calls) == 1, f"{label}: {len(spy.calls)} fold finishes")
+    base, _, fold = spy.calls[0]
+    recs = [r for r in _metrics(pathlib.Path(cfg.log_path))
+            if r.get("kind") == "agg"]
+    check(len(recs) == 1, f"{label}: {len(recs)} kind=agg records")
+    rec = recs[0]
+    samples = _expected_samples(cfg, protocol=True)
+    check(rec["partials"] == fold.partials == 2 and rec["folded"] == 2
+          and rec["fan_in"] == 2 and rec["levels"] == 2
+          and rec["n_samples"] == samples,
+          f"{label}: the root folded {rec} (expected 2 partials holding "
+          f"all 6 clients' {samples} stage-1 samples)")
+    batches = cfg.clients[0] * (cfg.distribution.num_samples
+                                // cfg.learning.batch_size)
+    n_params, n_stats = len(_flat(fold.params)), len(_flat(fold.stats))
+    for name, want in (("quantize", 2 * batches), ("dequantize",
+                                                   2 * batches),
+                       ("quantize_generic", 0), ("momentum", n_params),
+                       ("finalize", n_stats)):
+        check(launches[name] == want, f"{label}: {name} launched "
+              f"{launches[name]} times, expected {want}")
+    updates = tap[0].updates()
+    check(sorted(updates) == sorted(
+        f"client_{s}_{i}" for s, n in enumerate(cfg.clients, 1)
+        for i in range(n)) and all(u.round_idx == rec["gen"]
+                                   for u in updates.values()),
+          f"{label}: tapped UPDATEs {sorted(updates)}")
+    return {"cfg": cfg, "server": server, "bus": bus, "rounds": rounds,
+            "wall": wall, "faults": faults, "launches": launches,
+            "held": held, "seen": seen, "peak": peak, "base": base,
+            "fold": fold, "rec": rec, "updates": updates}
+
+
+def phase_tree_protocol(workdir: pathlib.Path) -> dict:
+    """Cell 6's baseline 1 at ``[4, 2]`` under the thread-mode aggregator
+    tree (:func:`tree_protocol_config`): groups g0 {client_1_0,
+    client_1_1}, g1 {client_1_2, client_1_3} and g2 {client_2_0,
+    client_2_1}, and g3 {g0, g1} at level 2, so the root folds 2
+    partials (g2's and g3's).  Every quantize, dequantize, finalize and
+    momentum launch is held bit for bit against its plain version
+    (:func:`_hold_on_path`), and the launches counted: one quantize and
+    one dequantize a frame, one momentum launch a parameter leaf and one
+    finalize a statistic at the root.
+
+    * Run a, raw float32 partials: the ``kind=agg`` record shows 2
+      partials and every stage-1 sample, and the root's parameters and
+      statistics equal, bit for bit, the host fold of the six tapped
+      UPDATEs in the tree's canonical order (:func:`_tree_oracle`).
+    * Run b, ``transport.codec: {partial: "delta:int8:64"}`` with
+      :data:`TREE_KILLED` dying at its start: the round completes through
+      the direct-to-root fallback (``agg_l1_fallbacks``); the root equals
+      bit for bit the same host fold of run b's own UPDATEs with each
+      published partial through the codec (g0's substitute raw); against
+      that fold without the codec every value is within the derived
+      bound: half the leaf's largest tile scale for each codec hop on its
+      way up (``round(x / scale)`` moves a value by at most half a step;
+      a lower hop's error reaches the parent's mean at its weight share,
+      at most 1), widened by 2**-16 for a tie that float32 division
+      rounds the other way, plus 2**-19 of the leaf's largest value (the
+      eight or so float32 roundings of the mean, base, weight and FedAvgM
+      chain at 2**-24 each); the root's partial bytes against run a's
+      (an int8 code a value and a float32 scale a 64 values: 1.0625 / 4
+      bytes, ≈ 0.27).
+      The two runs' parameters also differ by their training (the two
+      heads take batches as they arrive), printed, not held."""
+    import numpy as np
+    from split_learning_torch.runtime import aggregate as agg
+
+    out = {}
+    a = _run_tree("tree run a", tree_protocol_config(workdir / "tree_a",
+                                                     None), None)
+    active = [(cid, s) for cid, u in a["updates"].items()
+              for s in (u.stage,)]
+    groups = agg.plan_tree(active, 2, 2)
+    check([(g.idx, g.stage, g.level, g.parent) for g in groups] == [
+        (0, 1, 1, 3), (1, 1, 1, 3), (2, 2, 1, None), (3, 1, 2, None)],
+        f"tree plan {[g.as_dict() for g in groups]}")
+    t0 = time.perf_counter()
+    oracle = _tree_oracle(a["updates"], groups, a["base"], 0.9, None,
+                          a["rec"]["gen"])
+    diffs = (_bit_diffs(_flat(a["fold"].params), oracle["params"])
+             + _bit_diffs(_flat(a["fold"].stats), oracle["stats"]))
+    check(not diffs, f"tree run a: the root differs from the host fold "
+          f"at {diffs[:8]}")
+    oracle_s = time.perf_counter() - t0
+
+    b = _run_tree("tree run b", tree_protocol_config(workdir / "tree_b",
+                                                     TREE_CODEC),
+                  TREE_KILLED)
+    check(b["faults"].get("agg_l1_fallbacks", 0) >= 1
+          and not b["faults"].get("partial_codec_errors"),
+          f"tree run b: no counted fallback: {b['faults']}")
+    check(b["rec"]["partial_codec"] == "delta",
+          f"tree run b: {b['rec']}")
+    gen = b["rec"]["gen"]
+    codec = _tree_oracle(b["updates"], groups, b["base"], 0.9, TREE_CODEC,
+                         gen, dead=(agg.group_key(0),))
+    raw = _tree_oracle(b["updates"], groups, b["base"], 0.9, None, gen)
+    got = _flat(b["fold"].params)
+    diffs = (_bit_diffs(got, codec["params"])
+             + _bit_diffs(_flat(b["fold"].stats), codec["stats"]))
+    check(not diffs, f"tree run b: the root differs from the host fold "
+          f"through the codec at {diffs[:8]}")
+    worst = {"ratio": 0.0}
+    for p, want in raw["params"].items():
+        err = float(np.max(np.abs(got[p].astype(np.float64) - want)))
+        bound = (0.5 * codec["scales"][p] * (1 + 2.0 ** -16)
+                 + 2.0 ** -19 * float(np.max(np.abs(want))))
+        check(err <= bound, f"tree run b: {p} is {err:.3e} from the "
+              f"fold without the codec, bound {bound:.3e}")
+        if bound and err / bound > worst["ratio"]:
+            worst = {"path": str(p), "err": err, "bound": bound,
+                     "ratio": err / bound}
+    ratio = b["rec"]["root_ingress_bytes"] / a["rec"]["root_ingress_bytes"]
+    check(0.2 <= ratio <= 0.35, f"tree run b: root partial bytes "
+          f"{b['rec']['root_ingress_bytes']} are {ratio:.4f} of run a's "
+          f"{a['rec']['root_ingress_bytes']}")
+    pa = _flat(a["fold"].params)
+    vs_a = max(float(np.max(np.abs(got[p] - pa[p]))) for p in got)
+    for label, r in (("a", a), ("b", b)):
+        fam = _family_bytes(r["bus"])
+        out[label] = {
+            "rounds": r["rounds"], "run_wall_s": r["wall"],
+            "phases": r["server"].ctx.round_phases,
+            "bytes_by_family": fam,
+            "root_ingress_bytes": r["rec"]["root_ingress_bytes"],
+            "agg_record": {k: r["rec"][k] for k in (
+                "fan_in", "levels", "partials", "folded", "n_samples",
+                "partial_codec", "fold_s", "update_s")},
+            "faults": r["faults"], "launches": r["launches"],
+            "held": r["held"], "quantized_dtypes": r["seen"],
+            "update_samples": {c: u.num_samples
+                               for c, u in sorted(r["updates"].items())},
+            "max_memory_allocated_bytes": r["peak"]}
+        for rr in r["rounds"]:
+            print(f"  tree run {label}: wall {rr['wall_s']:.3f} s (run "
+                  f"{r['wall']:.3f} s), {rr['samples']} samples, "
+                  f"{rr['train_samples_per_s']:.1f} training samples/s, "
+                  f"val_loss {rr['val_loss']:.4f} val_acc "
+                  f"{rr['val_accuracy']:.4f}; phases "
+                  f"{r['server'].ctx.round_phases}; bytes by family {fam}; "
+                  f"root partial bytes {r['rec']['root_ingress_bytes']}; "
+                  f"agg {out[label]['agg_record']}; UPDATE samples "
+                  f"{out[label]['update_samples']}; faults {r['faults']}; "
+                  f"peak {r['peak'] / 2**30:.2f} GiB; launches "
+                  f"{r['launches']}")
+    out["oracle_s"] = oracle_s
+    out["root_partial_ratio"] = ratio
+    out["codec_worst"] = worst
+    out["max_abs_diff_b_vs_a"] = vs_a
+    print(f"  tree: run a's root equals the host fold of its 6 UPDATEs bit "
+          f"for bit (oracle {oracle_s:.2f} s); run b's equals the codec "
+          f"fold bit for bit, worst error against the fold without the "
+          f"codec {worst}; root partial bytes b / a {ratio:.4f}; "
+          f"largest parameter difference b - a {vs_a:.3e} (training)")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -4453,6 +4861,8 @@ def main() -> int:
         async_proto = phase_async_protocol(workdir, vgg_proto)
         mark("codec_protocol")
         codec_proto = phase_codec_protocol(workdir)
+        mark("tree_protocol")
+        tree_proto = phase_tree_protocol(workdir)
     mark("summary")
     entries = []
     for name, r in kernels.items():
@@ -4485,6 +4895,8 @@ def main() -> int:
             by_path[f"async_protocol_{run}"] = async_proto[run][
                 "launches"][name]
         by_path["codec_protocol"] = codec_proto["launches"][name]
+        by_path["tree_protocol"] = sum(tree_proto[run]["launches"][name]
+                                       for run in ("a", "b"))
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -4520,7 +4932,10 @@ def main() -> int:
                 "async_codec_launches_held_bitwise": sum(
                     r["held"].get(name, {}).get("launches", 0)
                     for r in (async_proto["a"], async_proto["b"],
-                              codec_proto))}
+                              codec_proto)),
+                "tree_protocol_launches_held_bitwise": sum(
+                    tree_proto[r]["held"].get(name, {}).get("launches", 0)
+                    for r in ("a", "b"))}
         else:
             main_path = "protocol"
             per_round = proto["launches_per_round"][name]
@@ -4562,7 +4977,8 @@ def main() -> int:
                       "bert_slice": bert_slice,
                       "bert_protocol": bert_proto,
                       "async_protocol": async_proto,
-                      "codec_protocol": codec_proto}))
+                      "codec_protocol": codec_proto,
+                      "tree_protocol": tree_proto}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Streaming aggregation plane.
 
-Port of the flat part of the JAX package's ``runtime/aggregate.py``:
+Port of the JAX package's ``runtime/aggregate.py`` (its thread-mode
+tree; the remote aggregator nodes wait for the telemetry plane):
 
 * :class:`StreamingFold` — an incremental per-stage weighted-sum
   accumulator.  Each Update folds into a running sum the moment the
@@ -24,10 +25,25 @@ Port of the flat part of the JAX package's ``runtime/aggregate.py``:
 * server-side optimizer (``aggregation.server-momentum``, FedAvgM):
   ``v = m·v + (base - avg); new = base - v`` inside the finish; with
   ``m = 0`` this is plain FedAvg.
+* the aggregator tree (``aggregation.fan-in``, ``aggregation.levels``):
+  :func:`plan_tree` groups the round's clients per stage into level-1
+  groups of at most ``fan-in`` members, and each higher level groups
+  ``fan-in`` child groups of one stage.  Clients publish their UPDATE to
+  their group's ``aggregate_queue``; an :class:`L1Aggregator` thread
+  folds its members in canonical order into one
+  :class:`~split_learning_torch.runtime.protocol.PartialAggregate`
+  (weighted float32 SUMS and their total weight, never divided) for its
+  parent: an interior group's queue, or the root's rpc queue.  The root
+  folds the partials at their groups' canonical positions and divides
+  once.  A group whose aggregator dies is drained by the server itself
+  (the direct-to-root fallback, counted ``agg_l1_fallbacks``).  The
+  tree changes the summation's shape (``(a+b)+(c+d)`` against the flat
+  ``((a+b)+c)+d``), so a tree round is deterministic but not bit for
+  bit the flat round; it is bit for bit the flat per-client fold in the
+  tree's own (stage, group, client) order.
 
-The aggregator tree (``L1Aggregator``, ``plan_tree``, partial
-aggregates) and the legacy per-leaf finish (``update-sharded: false``)
-wait for later slices.
+The legacy per-leaf finish (``update-sharded: false``) waits for a
+later slice.
 """
 
 from __future__ import annotations
@@ -46,7 +62,10 @@ from split_learning_torch.ops.fedavg import is_int_dtype as _torch_is_int
 from split_learning_torch.ops.fedavg import unflatten_items as _unflatten
 from split_learning_torch.ops.fedavg import walk_items as _flat_items
 from split_learning_torch.ops.kernels import update as kupd
-from split_learning_torch.runtime.protocol import Update, host_tensor
+from split_learning_torch.runtime.protocol import (
+    RPC_QUEUE, FrameAssembler, PartialAggregate, Update, aggregate_queue,
+    encode_parts, host_tensor,
+)
 
 #: strategies whose per-invocation aggregation consumes the WHOLE update
 #: list at once — the only shape a streaming fold can replace
@@ -69,6 +88,7 @@ class FoldResult:
     peak_tree_copies: float = 0.0  # window HWM in full-tree equivalents
     window_hwm: int = 0            # most simultaneous held contributions
     folded: int = 0                # contributions folded
+    partials: int = 0              # PartialAggregate contributions
     update_s: float = 0.0          # round-boundary update wall
     stage_update_ms: dict = dataclasses.field(default_factory=dict)
 
@@ -94,6 +114,13 @@ def _nbytes(leaf) -> int:
 
 def _tree_nbytes(tree) -> int:
     return sum(_nbytes(leaf) for _, leaf in _flat_items(tree))
+
+
+def _dtype_name(dtype) -> str:
+    """A leaf dtype's wire name (``float32``), numpy's or torch's."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(np.dtype(dtype))
 
 
 # --------------------------------------------------------------------------
@@ -137,11 +164,25 @@ class HostFoldBackend:
     def dtype_of(self, leaf):
         return np.asarray(leaf).dtype
 
+    def dtype_from(self, name: str):
+        return np.dtype(name)
+
     def contrib(self, leaf, w) -> np.ndarray:
         return np.nan_to_num(np.asarray(leaf, dtype=np.float32)) * w
 
+    def ingest(self, sums_leaf) -> np.ndarray:
+        """Adopt a PartialAggregate's float32 sum leaf as it is.
+        ``nan_to_num`` as :meth:`contrib` does: a partial's sums come
+        over the wire (an overflow at an aggregator) and are the one
+        fold input the contribution path never sanitized; a no-op on
+        finite values."""
+        return np.nan_to_num(np.asarray(sums_leaf, dtype=np.float32))
+
     def add(self, acc, t):
         return acc + t
+
+    def to_host(self, x) -> np.ndarray:
+        return np.asarray(x)
 
     def finalize(self, acc, total_w: float, dtype) -> np.ndarray:
         avg = acc / np.float32(total_w)
@@ -211,6 +252,9 @@ class CudaFoldBackend:
     def dtype_of(self, leaf):
         return _leaf_tensor(leaf).dtype
 
+    def dtype_from(self, name: str) -> torch.dtype:
+        return getattr(torch, name)
+
     def _put(self, leaf) -> torch.Tensor:
         return _leaf_tensor(leaf).to(self.device, torch.float32)
 
@@ -218,8 +262,16 @@ class CudaFoldBackend:
         t = _leaf_tensor(leaf).to(self.device)
         return torch.nan_to_num(t.to(torch.float32)) * w
 
+    def ingest(self, sums_leaf) -> torch.Tensor:
+        """A partial's float32 sums on the device as they are (a fresh
+        tensor: the running sum adds into it in place)."""
+        return torch.nan_to_num(self._put(sums_leaf))
+
     def add(self, acc, t):
         return acc.add_(t)
+
+    def to_host(self, x) -> np.ndarray:
+        return x.cpu().numpy()
 
     def _finish_leaf(self, acc, tw: float, dt, base=None, vel=None,
                      m: float = 0.0):
@@ -294,8 +346,9 @@ class StreamingFold:
     reorder window.
 
     ``expected`` maps stage -> the ordered list of contribution keys
-    (client ids).  Duplicate contributions for a key are dropped and
-    counted (``agg_dup_drops``).  Thread-safe."""
+    (client ids, or group keys at an aggregator-tree root).  Duplicate
+    contributions for a key are dropped and counted (``agg_dup_drops``).
+    Thread-safe."""
 
     def __init__(self, expected: dict, *, backend=None, faults=None):
         self.backend = backend if backend is not None else HostFoldBackend()
@@ -311,6 +364,7 @@ class StreamingFold:
         self.n_samples = 0
         self.fold_s = 0.0
         self.folded = 0
+        self.partials = 0
         self._held_bytes = 0
         self._held_hwm_bytes = 0
         self.window_hwm = 0
@@ -334,8 +388,28 @@ class StreamingFold:
             raise ValueError(
                 f"delta-encoded Update from {u.client_id} reached the "
                 "streaming fold un-reconstructed")
-        self._enqueue(int(u.stage), key or u.client_id, (u, scale),
+        self._enqueue(int(u.stage), key or u.client_id, ("u", u, scale),
                       0 if u.params is None else _tree_nbytes(u.params))
+
+    def add_partial(self, stage: int, key: str, sums, weight: float,
+                    dtypes, stat_sums=None, stat_weight: float = 0.0,
+                    stat_dtypes=None, n_samples: int = 0) -> None:
+        """Fold one aggregator's per-stage partial SUMS at the group's
+        canonical position."""
+        item = ("p", dict(sums=sums, weight=weight, dtypes=dtypes,
+                          stat_sums=stat_sums, stat_weight=stat_weight,
+                          stat_dtypes=stat_dtypes, n_samples=n_samples))
+        self._enqueue(int(stage), key, item,
+                      _tree_nbytes(sums) if sums else 0)
+
+    def has_key(self, stage: int, key) -> bool:
+        """True once the key is accounted for at this stage: folded,
+        held in the window, an extra, or declared gone."""
+        with self._lock:
+            st = self._stages.get(int(stage))
+            return st is not None and (
+                key in st.folded or key in st.pending
+                or key in st.extras or key in st.gone)
 
     def drop(self, stage: int, key: str) -> None:
         """The key will never contribute (client dropped at a barrier):
@@ -386,26 +460,59 @@ class StreamingFold:
 
     def _fold_item(self, st: _StageFold, key, item: tuple) -> None:
         t0 = time.perf_counter()
-        u, scale = item
-        if u.stage == 1:
-            self.n_samples += u.num_samples
-        if u.params is not None:
-            self._held_bytes -= _tree_nbytes(u.params)
-            # the INT weight keeps the float summation bit-identical to
-            # the barrier oracle; the staleness decay scales it only
-            # when it decays
-            w = max(1, u.num_samples)
-            if scale != 1.0:
-                w = w * float(scale)
-            st.total_w += w
-            self._fold_tree(st.acc, st.dtype, u.params, w)
-            if u.batch_stats:
-                st.stat_total_w += w
-                self._fold_tree(st.stat_acc, st.stat_dtype, u.batch_stats,
-                                w)
+        if item[0] == "u":
+            self._fold_update_item(st, item[1], item[2])
+        else:
+            self._fold_partial_item(st, item[1])
         st.folded.add(key)
         self.folded += 1
         self.fold_s += time.perf_counter() - t0
+
+    def _fold_update_item(self, st: _StageFold, u: Update,
+                          scale: float) -> None:
+        if u.stage == 1:
+            self.n_samples += u.num_samples
+        if u.params is None:
+            return
+        self._held_bytes -= _tree_nbytes(u.params)
+        # the INT weight keeps the float summation bit-identical to the
+        # barrier oracle; the staleness decay scales it only when it
+        # decays
+        w = max(1, u.num_samples)
+        if scale != 1.0:
+            w = w * float(scale)
+        st.total_w += w
+        self._fold_tree(st.acc, st.dtype, u.params, w)
+        if u.batch_stats:
+            st.stat_total_w += w
+            self._fold_tree(st.stat_acc, st.stat_dtype, u.batch_stats, w)
+
+    def _fold_partial_item(self, st: _StageFold, p: dict) -> None:
+        """A group's sums continue the running sum as they are; its
+        total weight adds to the stage's."""
+        self.partials += 1
+        self.n_samples += int(p.get("n_samples") or 0)
+        be = self.backend
+        for acc, dty, sums_key, dt_key, w_key in (
+                (st.acc, st.dtype, "sums", "dtypes", "weight"),
+                (st.stat_acc, st.stat_dtype, "stat_sums", "stat_dtypes",
+                 "stat_weight")):
+            sums = p.get(sums_key)
+            if not sums:
+                continue
+            if sums_key == "sums":
+                self._held_bytes -= _tree_nbytes(sums)
+                st.total_w += float(p[w_key])
+            else:
+                st.stat_total_w += float(p[w_key])
+            dtypes = dict(_flat_items(p.get(dt_key) or {}))
+            for path, leaf in _flat_items(sums):
+                t = be.ingest(leaf)
+                if path in acc:
+                    acc[path] = be.add(acc[path], t)
+                else:
+                    acc[path] = t
+                    dty[path] = be.dtype_from(dtypes.get(path, "float32"))
 
     def _fold_tree(self, acc: dict, dtypes: dict, tree, w) -> None:
         be = self.backend
@@ -425,6 +532,33 @@ class StreamingFold:
                 self._fold_item(st, k, st.extras.pop(k))
 
     # -- results -------------------------------------------------------------
+
+    def partial(self) -> tuple[dict, int]:
+        """An aggregator's flush: per-stage weighted SUMS (host arrays),
+        total weights and dtype names, never divided (the root continues
+        the fold), and the stage-1 samples folded.  Terminal."""
+        with self._lock:
+            self._drain_all()
+            out: dict = {}
+            be = self.backend
+            for s in sorted(self._stages):
+                st = self._stages[s]
+                if not st.acc and not st.stat_acc and not st.total_w:
+                    continue
+                out[s] = {
+                    "sums": _unflatten({p: be.to_host(a)
+                                        for p, a in st.acc.items()}),
+                    "weight": st.total_w,
+                    "dtypes": _unflatten({p: _dtype_name(d)
+                                          for p, d in st.dtype.items()}),
+                    "stat_sums": _unflatten(
+                        {p: be.to_host(a) for p, a in st.stat_acc.items()}),
+                    "stat_weight": st.stat_total_w,
+                    "stat_dtypes": _unflatten(
+                        {p: _dtype_name(d)
+                         for p, d in st.stat_dtype.items()}),
+                }
+            return out, self.n_samples
 
     def finish(self, base=None, momentum: float = 0.0,
                velocity: dict | None = None, *, fused: bool = True,
@@ -480,5 +614,341 @@ class StreamingFold:
                 fold_s=round(self.fold_s, 6),
                 peak_tree_copies=round(peak, 3),
                 window_hwm=self.window_hwm, folded=self.folded,
-                update_s=round(update_s, 6), stage_update_ms=stage_ms)
+                partials=self.partials, update_s=round(update_s, 6),
+                stage_update_ms=stage_ms)
             return self._finished
+
+
+# --------------------------------------------------------------------------
+# the aggregator tree's plan
+# --------------------------------------------------------------------------
+
+def plan_fanin_groups(active: list, fan_in: int) -> list:
+    """Partition the round's (client_id, stage) send set into level-1
+    groups of at most ``fan_in`` clients, per stage (a group never spans
+    stages: its partial covers one stage's slice), in canonical sorted
+    order.  Returns ``[AggGroup]``."""
+    by_stage: dict[int, list] = {}
+    for cid, s in active:
+        by_stage.setdefault(int(s), []).append(cid)
+    groups: list[AggGroup] = []
+    gi = 0
+    for s in sorted(by_stage):
+        cids = sorted(by_stage[s])
+        for i in range(0, len(cids), fan_in):
+            groups.append(AggGroup(idx=gi, stage=s,
+                                   members=cids[i:i + fan_in]))
+            gi += 1
+    return groups
+
+
+def plan_tree(active: list, fan_in: int, levels: int = 1) -> list:
+    """:func:`plan_fanin_groups` made recursive (``aggregation.levels``):
+    each level above the first folds at most ``fan_in`` child groups'
+    PARTIALS of one stage (sums of sums with the total weight carried,
+    so any depth still divides once, at the root).  Group indices are
+    unique across levels, so a group's input queue is
+    ``aggregate_queue(cluster, idx)`` whatever its level.  A stage whose
+    population at some level is already one group is not wrapped again
+    (a one-child node would add a hop for nothing): that group stays
+    parentless and publishes to the root.  Returns every group of every
+    level, canonical order within each level."""
+    groups = plan_fanin_groups(active, fan_in)
+    gi = len(groups)
+    tier = groups
+    for _ in range(2, levels + 1):
+        by_stage: dict[int, list] = {}
+        for g in tier:
+            by_stage.setdefault(g.stage, []).append(g)
+        nxt: list[AggGroup] = []
+        for s in sorted(by_stage):
+            kids = sorted(by_stage[s], key=lambda g: g.idx)
+            if len(kids) <= 1:
+                continue   # nothing to reduce at this stage
+            for i in range(0, len(kids), fan_in):
+                chunk = kids[i:i + fan_in]
+                parent = AggGroup(idx=gi, stage=s,
+                                  members=[c.key for c in chunk],
+                                  level=chunk[0].level + 1)
+                gi += 1
+                for c in chunk:
+                    c.parent = parent.idx
+                nxt.append(parent)
+        if not nxt:
+            break
+        groups += nxt
+        tier = nxt
+    return groups
+
+
+def root_groups(groups: list) -> list:
+    """The parentless groups, whose partials land at the root (in index
+    order)."""
+    return sorted((g for g in groups if g.parent is None),
+                  key=lambda g: g.idx)
+
+
+def group_key(idx: int) -> str:
+    """The fold key of group ``idx`` (zero-padded, so lexicographic
+    order is numeric order)."""
+    return f"g{idx:05d}"
+
+
+@dataclasses.dataclass
+class AggGroup:
+    idx: int
+    stage: int
+    members: list               # client ids (level 1) or child keys
+    level: int = 1
+    parent: int | None = None   # parent group idx; None = a root child
+
+    @property
+    def key(self) -> str:
+        return group_key(self.idx)
+
+    def as_dict(self) -> dict:
+        """Plain builtins (the remote nodes' assignment form)."""
+        return {"idx": self.idx, "stage": self.stage,
+                "members": list(self.members), "level": self.level,
+                "parent": self.parent}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "AggGroup":
+        return cls(idx=int(d["idx"]), stage=int(d["stage"]),
+                   members=list(d.get("members") or []),
+                   level=int(d.get("level", 1)),
+                   parent=d.get("parent"))
+
+
+# --------------------------------------------------------------------------
+# the aggregator
+# --------------------------------------------------------------------------
+
+class L1Aggregator(threading.Thread):
+    """One aggregator-tree node, at any level: drains its group's
+    ``aggregate_queue``, folds its members in canonical member order, and
+    publishes one PartialAggregate to ``out_queue`` (the root's rpc queue
+    for a parentless group, else the parent group's aggregate queue).  A
+    level-1 node folds client Updates; a higher one its children's
+    partials (sums of sums, total weight carried).  Frames of another
+    generation are dropped (``agg_stale_drops``), a second copy of a
+    member's (``agg_dup_drops``).
+
+    ``codec`` (a ``transport.codec: partial`` spec) compresses the
+    published sums (``runtime/codec/partial.py``); ``base``/``base_gen``
+    are the stage's START shard for the delta mode, which an interior
+    node also uses to decode its children's codec'd partials.
+
+    Flushes when every expected member has folded, on
+    :meth:`request_flush` (the server gave up on stragglers), or at
+    ``deadline``.  ``TEST_KILL`` (a set of aggregator names) makes the
+    thread die silently mid-round: the failure the direct-to-root
+    fallback recovers from.  The fold runs on the host (numpy), as the
+    JAX package's aggregators do."""
+
+    TEST_KILL: set = set()
+
+    def __init__(self, bus, *, cluster: int, group: AggGroup,
+                 members: list, gen: int, deadline: float,
+                 log=None, faults=None, chunk_bytes: int | None = None,
+                 owns_bus: bool = False, out_queue: str = RPC_QUEUE,
+                 codec=None, base=None, base_gen: int | None = None):
+        self.agg_id = f"aggregator_{cluster}_{group.idx}"
+        super().__init__(daemon=True, name=self.agg_id)
+        self.bus = bus
+        self.cluster = cluster
+        self.group = group
+        self.members = list(members)
+        self.gen = gen
+        self.deadline = deadline
+        self.log = log
+        if faults is None:
+            from split_learning_torch.runtime.trace import (
+                default_fault_counters,
+            )
+            faults = default_fault_counters
+        self.faults = faults
+        self.chunk_bytes = chunk_bytes
+        self.owns_bus = owns_bus
+        self.out_queue = out_queue
+        self.codec = codec
+        self.base = base
+        self.base_gen = base_gen
+        self.flushed = False
+        self._flush = threading.Event()
+        self.fold = StreamingFold({self.group.stage: self.members},
+                                  faults=self.faults)
+        self.asm = FrameAssembler(faults=self.faults)
+        self.meta: list[dict] = []
+        self.seen: set = set()
+
+    def request_flush(self) -> None:
+        self._flush.set()
+
+    @property
+    def complete(self) -> bool:
+        return self.seen >= set(self.members)
+
+    @property
+    def queue(self) -> str:
+        return aggregate_queue(self.cluster, self.group.idx)
+
+    def run(self) -> None:
+        try:
+            while True:
+                if self.agg_id in L1Aggregator.TEST_KILL:
+                    return   # died mid-round: the server's fallback
+                    # drains the queue direct-to-root
+                raw = self.bus.get(self.queue, timeout=0.2)
+                if raw is not None:
+                    self.feed_raw(raw)
+                if self.complete or self._flush.is_set() \
+                        or time.monotonic() >= self.deadline:
+                    self.publish()
+                    return
+        finally:
+            if self.owns_bus:
+                try:
+                    self.bus.close()
+                except Exception:  # noqa: BLE001 — teardown best-effort
+                    pass
+
+    def feed_raw(self, raw: bytes) -> None:
+        try:
+            msg = self.asm.feed(raw)
+        except Exception as e:  # noqa: BLE001 — one corrupt frame costs
+            # one message, not the aggregator
+            self.faults.inc("corrupt_rejected")
+            if self.log is not None:
+                self.log.warning(f"{self.agg_id}: dropping undecodable "
+                                 f"frame: {e}")
+            return
+        if msg is None:
+            return
+        if isinstance(msg, Update) and self.group.level == 1:
+            self._feed_update(msg)
+        elif isinstance(msg, PartialAggregate) and self.group.level > 1:
+            self._feed_partial(msg)
+
+    def _feed_update(self, msg: Update) -> None:
+        if msg.round_idx != self.gen:
+            self.faults.inc("agg_stale_drops")
+            return
+        if msg.client_id in self.seen:
+            self.faults.inc("agg_dup_drops")
+            return
+        self.seen.add(msg.client_id)
+        self.fold.add_update(msg)
+        self.meta.append(
+            {"client_id": msg.client_id, "stage": msg.stage,
+             "num_samples": msg.num_samples, "ok": msg.ok,
+             "telemetry": msg.telemetry})
+        if self.log is not None:
+            self.log.received(f"UPDATE {msg.client_id} (L1 fold)")
+
+    def _feed_partial(self, msg: PartialAggregate) -> None:
+        """One child group's partial, dedup'd on its key as a member
+        Update is: at-least-once delivery must not double-weight a whole
+        group either."""
+        if msg.round_idx != self.gen:
+            self.faults.inc("agg_stale_drops")
+            return
+        key = group_key(msg.group)
+        if key in self.seen:
+            self.faults.inc("agg_dup_drops")
+            return
+        if msg.codec or msg.members_z:
+            from split_learning_torch.runtime.codec.partial import (
+                PartialCodecError, decode_partial_msg,
+            )
+            try:
+                decode_partial_msg(msg, bases={msg.stage: self.base},
+                                   base_gen=self.base_gen)
+            except PartialCodecError as e:
+                self.faults.inc("partial_codec_errors")
+                if self.log is not None:
+                    self.log.warning(f"{self.agg_id}: dropping "
+                                     f"undecodable partial: {e}")
+                return
+        self.seen.add(key)
+        self.fold.add_partial(msg.stage, key, msg.sums, msg.weight,
+                              msg.dtypes, stat_sums=msg.stat_sums,
+                              stat_weight=msg.stat_weight,
+                              stat_dtypes=msg.stat_dtypes,
+                              n_samples=msg.n_samples)
+        self.meta.extend(msg.members or [])
+        if self.log is not None:
+            self.log.received(f"PARTIALAGGREGATE {msg.aggregator_id} "
+                              f"(L{self.group.level} fold)")
+
+    def publish(self) -> int:
+        """Flush: one PartialAggregate (codec'd when configured) to
+        ``out_queue``; returns the wire bytes published.  A second call
+        publishes nothing (0 bytes)."""
+        if self.flushed:
+            return 0
+        stages, n_samples = self.fold.partial()
+        ent = stages.get(self.group.stage, {})
+        codec_s = codec_base = members_z = None
+        members = self.meta
+        if self.codec is not None:
+            from split_learning_torch.runtime.codec.partial import (
+                encode_partial_entry,
+            )
+            from split_learning_torch.runtime.protocol import pack_members
+            if ent.get("sums"):
+                ent, codec_s, codec_base = encode_partial_entry(
+                    ent, self.codec, base=self.base,
+                    base_gen=self.base_gen, faults=self.faults)
+            # the member metadata is the other O(clients) term of a
+            # root partial's bytes: packed with the sums
+            members_z = pack_members(members)
+            if members_z is not None:
+                members = None
+        msg = PartialAggregate(
+            aggregator_id=self.agg_id, cluster=self.cluster,
+            group=self.group.idx, stage=self.group.stage,
+            round_idx=self.gen, sums=ent.get("sums"),
+            weight=float(ent.get("weight") or 0.0),
+            dtypes=ent.get("dtypes"), stat_sums=ent.get("stat_sums"),
+            stat_weight=float(ent.get("stat_weight") or 0.0),
+            stat_dtypes=ent.get("stat_dtypes"), n_samples=n_samples,
+            members=members, level=self.group.level, codec=codec_s,
+            codec_base=codec_base, members_z=members_z)
+        nbytes = 0
+        for part in encode_parts(msg, self.chunk_bytes):
+            self.bus.publish(self.out_queue, part)
+            nbytes += len(part)
+        self.flushed = True
+        if self.log is not None:
+            self.log.sent(f"PARTIALAGGREGATE members={len(self.meta)}/"
+                          f"{len(self.members)}")
+        return nbytes
+
+
+def drain_group_queue(bus, cluster: int, group_idx: int, gen: int,
+                      assembler: FrameAssembler, faults,
+                      log=None) -> list:
+    """The direct-to-root fallback's drain: what a dead (or flushed)
+    aggregator's queue holds now, as the current generation's messages
+    (member Updates for a level-1 group, child PartialAggregates for an
+    interior one); other generations are dropped and counted."""
+    out: list = []
+    q = aggregate_queue(cluster, group_idx)
+    while True:
+        raw = bus.get(q, timeout=0.0)
+        if raw is None:
+            return out
+        try:
+            msg = assembler.feed(raw)
+        except Exception as e:  # noqa: BLE001 — count and go on
+            faults.inc("corrupt_rejected")
+            if log is not None:
+                log.warning(f"fallback drain: undecodable frame: {e}")
+            continue
+        if msg is None or not isinstance(msg, (Update, PartialAggregate)):
+            continue
+        if msg.round_idx != gen:
+            faults.inc("agg_stale_drops")
+            continue
+        out.append(msg)

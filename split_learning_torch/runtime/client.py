@@ -77,6 +77,10 @@ read back at start-up with ``checkpoint.load``.  The legacy per-tensor
 int8 wire dtype (``transport.wire-dtype: int8``) quantizes every
 data-plane payload on the host.
 
+Under the aggregator tree (``aggregation.fan-in``) the START names the
+client's group (``agg_group``) and the UPDATE goes to that group's
+``aggregate_queue`` instead of ``rpc_queue``.
+
 Left out (raises ``NotImplementedError`` when its config asks for it):
 sync-overlap ticks (and their speculative forwards across a hold START).
 Heartbeats, tracing spans and scheduler knobs are not emitted.
@@ -111,8 +115,8 @@ from split_learning_torch.runtime.log import Logger
 from split_learning_torch.runtime.protocol import (
     RPC_QUEUE, Activation, EpochEnd, FrameAssembler, Float0, Gradient,
     Notify, Pause, QuantLeaf, Ready, Register, SparseLeaf, Start, Stop,
-    Syn, Update, encode, encode_parts, gradient_queue, host_tensor,
-    intermediate_queue, reply_queue,
+    Syn, Update, aggregate_queue, encode, encode_parts, gradient_queue,
+    host_tensor, intermediate_queue, reply_queue,
 )
 from split_learning_torch.runtime.validation import (
     dataset_for_model, dataset_kwargs_for_model,
@@ -509,6 +513,7 @@ class ProtocolClient:
         # goes out only when the two agree (else the full frame)
         self._delta_base = None
         self._delta_advert = None
+        self._agg_group = None   # aggregator-tree group (aggregation.fan-in)
         # async mode: the client-local aux head, its optimizer, the
         # boundary shape signature that resets them, and the key
         # (layers, batch shapes) the signature was taken at
@@ -702,6 +707,11 @@ class ProtocolClient:
         # the delta codec's version chain: the shadow version the server
         # holds for this client
         self._delta_advert = extra.get("delta_base_version")
+        # aggregator tree: the round UPDATE goes to this group's
+        # aggregate queue instead of rpc_queue (None: straight to the
+        # root; re-read every START).  Tree rounds advertise no delta
+        # base, so the full frame follows
+        self._agg_group = extra.get("agg_group")
         if msg.params is None:
             self._hold(msg)
             return
@@ -848,8 +858,10 @@ class ProtocolClient:
             # the generation these weights were seeded from: the
             # server's staleness window reads it
             version=self.fence)
+        dest = (RPC_QUEUE if self._agg_group is None
+                else aggregate_queue(self.cluster, self._agg_group))
         self._publish_parts(
-            RPC_QUEUE, lambda: encode_parts(msg, self._chunk_bytes))
+            dest, lambda: encode_parts(msg, self._chunk_bytes))
         if self.cfg.checkpoint.save and self.codecs:
             # error-feedback residuals are durable client state
             self._save_ef_state()

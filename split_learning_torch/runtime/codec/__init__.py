@@ -15,7 +15,9 @@ The data-plane codecs share the JAX package's two-phase encoder:
 ``prepare(tree, key)`` runs on the training thread (device ops and any
 residual update, so state order is publish order) and
 ``encode(prepared)`` builds the host wire leaves.  The ``partial``
-family (the aggregator tree's sums) is not ported.
+family (the aggregator tree's sums) builds its kind's codec here as the
+JAX package does; the tree encodes its partials through
+:mod:`.partial`.
 """
 
 from __future__ import annotations
@@ -36,12 +38,6 @@ __all__ = [
     "parse_codec_map", "parse_spec", "make_codecs", "wire_raw_nbytes",
 ]
 
-#: codec families not ported yet -> the slice that ports them
-_LATER = {
-    "partial": "the aggregator-tree slice (compressed partial sums)",
-}
-
-
 def make_codecs(cfg, faults=None) -> dict:
     """{family: codec instance} for one participant, from
     ``cfg.transport.codec``.  Families without a spec are absent —
@@ -56,10 +52,6 @@ def make_codecs(cfg, faults=None) -> dict:
         kplane.configure(kcfg)
     out: dict = {}
     for family, spec in specs.items():
-        if family in _LATER:
-            raise NotImplementedError(
-                f"transport.codec {family}: {spec.kind} is not ported "
-                f"yet; it comes with {_LATER[family]}")
         if spec.kind == "topk":
             from split_learning_torch.runtime.codec.sparse import TopKCodec
             out[family] = TopKCodec(spec, faults=faults)

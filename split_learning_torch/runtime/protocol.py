@@ -3,8 +3,9 @@
 Port of the part of the JAX package's ``runtime/protocol.py`` that a
 FedAvg round runs: the queue names, the round's messages (REGISTER,
 READY, NOTIFY, UPDATE, START, SYN, PAUSE, STOP, the ACTIVATION/GRADIENT
-data plane, EPOCHEND, the quantized :class:`QuantLeaf` and the top-k
-:class:`SparseLeaf`), and the three frame families with the same
+data plane, EPOCHEND, the quantized :class:`QuantLeaf`, the top-k
+:class:`SparseLeaf` and the aggregator tree's
+:class:`PartialAggregate`), and the three frame families with the same
 bytes:
 
 * ``SLT1`` — pickled frame ``MAGIC | crc32(body) | pickle(body)`` for
@@ -29,11 +30,13 @@ Queue naming (the reference's topology):
 * ``intermediate_queue_{stage}_{cluster}``   stage k -> k+1 activations
   (``..._p{pair}``: a 2LS pair's or one DCSL device's own queue)
 * ``gradient_queue_{stage}_{client_id}``     stage k+1 -> one stage-k client
+* ``aggregate_queue_{cluster}_{group}``      a tree group's members -> its
+  aggregator (``aggregation.fan-in``)
 
-Left out here (raising where a config asks for them): the aggregator
-tree, stage-host, digest, blackbox and heartbeat messages and the
-trace-context sidecar's span plumbing (the context bytes
-still ride the frames unchanged).
+Left out here (raising where a config asks for them): the remote
+aggregator nodes' AGGHELLO/AGGASSIGN/AGGFLUSH, stage-host, digest,
+blackbox and heartbeat messages and the trace-context sidecar's span
+plumbing (the context bytes still ride the frames unchanged).
 """
 
 from __future__ import annotations
@@ -73,6 +76,16 @@ def intermediate_queue(stage: int, cluster: int,
 
 def gradient_queue(stage: int, client_id: str) -> str:
     return f"gradient_queue_{stage}_{client_id}"
+
+
+def aggregate_queue(cluster: int, group: int) -> str:
+    """Aggregator-tree upload queue (``aggregation.fan-in``): the clients
+    of level-1 group ``group`` publish their round UPDATE here instead of
+    ``rpc_queue``, and an interior group's children their
+    :class:`PartialAggregate`; the group's
+    :class:`~split_learning_torch.runtime.aggregate.L1Aggregator` folds
+    them into one partial for its parent."""
+    return f"aggregate_queue_{cluster}_{group}"
 
 
 # --------------------------------------------------------------------------
@@ -200,6 +213,43 @@ class EpochEnd:
 
 
 @dataclasses.dataclass
+class PartialAggregate:
+    """Aggregator -> its parent (``rpc_queue`` at the root, the parent
+    group's aggregate queue below it): one aggregator-tree group's folded
+    contribution (``aggregation.fan-in`` / ``aggregation.levels``).
+
+    ``sums`` are the group's per-path weighted float32 SUMS, not divided:
+    every level continues the running fold and the root divides once.
+    ``members`` is the per-client metadata the root books (client_id,
+    stage, num_samples, ok, telemetry); an interior node concatenates its
+    children's lists.  ``round_idx`` carries the invocation generation,
+    the same fence as UPDATE's.  ``codec``/``codec_base`` describe a
+    compressed payload (``transport.codec: {partial: ...}``,
+    ``runtime/codec/partial.py``): ``sums`` then holds tiled int8
+    :class:`QuantLeaf` codes of the group mean (delta'd against the
+    generation ``codec_base`` START shard both ends hold), and
+    ``members_z`` the packed member list (:func:`pack_members`).  None =
+    raw float32 sums, the bit-parity leg."""
+    aggregator_id: str
+    cluster: int
+    group: int                      # group index (canonical position)
+    stage: int                      # the one stage this group covers
+    round_idx: int = 0
+    sums: Any = None                # tree of float32 weighted sums
+    weight: float = 0.0             # total fold weight behind the sums
+    dtypes: Any = None              # tree of the leaves' dtype names
+    stat_sums: Any = None           # batch-statistics sums (BN models)
+    stat_weight: float = 0.0
+    stat_dtypes: Any = None
+    n_samples: int = 0              # stage-1 samples folded (0 otherwise)
+    members: list | None = None     # per-client {client_id, stage, ...}
+    level: int = 1                  # tree level that produced this
+    codec: str | None = None        # partial codec spec, None = raw f32
+    codec_base: int | None = None   # delta base generation, None = plain
+    members_z: bytes | None = None  # packed members (codec path only)
+
+
+@dataclasses.dataclass
 class QuantLeaf:
     """One tiled absmax-quantized float tensor on the data-plane wire:
     ``x ≈ q * scale``.  ``q`` is the FLAT padded code array (int8, or
@@ -235,10 +285,11 @@ class _TensorRef:
     idx: int
 
 
-CONTROL_TYPES = (Register, Ready, Notify, Update, Start, Syn, Pause, Stop)
+CONTROL_TYPES = (Register, Ready, Notify, Update, Start, Syn, Pause, Stop,
+                 PartialAggregate)
 DATA_TYPES = (Activation, Gradient, EpochEnd)
 #: messages whose array payloads ride the TENSOR framing
-TENSOR_TYPES = (Activation, Gradient, Update)
+TENSOR_TYPES = (Activation, Gradient, Update, PartialAggregate)
 _TYPE_BY_NAME = {t.__name__: t for t in CONTROL_TYPES + DATA_TYPES}
 #: nested wire-format helpers (never valid as a top-level message)
 _WIRE_HELPERS = {"QuantLeaf": QuantLeaf, "SparseLeaf": SparseLeaf,
@@ -304,6 +355,34 @@ class _SafeUnpickler(pickle.Unpickler):
             return super().find_class(module, name)
         raise pickle.UnpicklingError(
             f"disallowed class in protocol message: {module}.{name}")
+
+
+def pack_members(members: list | None) -> bytes | None:
+    """crc32-prefixed zlib'd pickle of a :class:`PartialAggregate`'s
+    member list (the codec'd wire form, ``members_z``): at fleet scale
+    the per-client member dicts dominate a root partial's bytes."""
+    if not members:
+        return None
+    body = zlib.compress(
+        pickle.dumps(members, protocol=pickle.HIGHEST_PROTOCOL), 6)
+    return struct.pack(">I", zlib.crc32(body)) + body
+
+
+def unpack_members(blob: bytes) -> list:
+    """Inverse of :func:`pack_members`: the blob's own crc is checked
+    before anything is decompressed or unpickled, and the restricted
+    unpickler reads it (member dicts are plain builtins)."""
+    if len(blob) < 4:
+        raise CorruptFrame("packed member list truncated")
+    (want,) = struct.unpack_from(">I", blob, 0)
+    body = blob[4:]
+    if zlib.crc32(body) != want:
+        raise CorruptFrame("packed member list checksum mismatch")
+    out = _SafeUnpickler(io.BytesIO(zlib.decompress(body))).load()
+    if not isinstance(out, list):
+        raise CorruptFrame(
+            f"packed member list decoded to {type(out).__name__}")
+    return out
 
 
 def encode_pickled(msg) -> bytes:

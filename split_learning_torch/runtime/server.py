@@ -49,9 +49,24 @@ streaming fold; a full frame is counted (``delta_full_frames``), and a
 delta against an unknown base drops its weights and re-seeds the client
 with a full START next round.
 
+The aggregator tree (``aggregation.fan-in``, ``aggregation.levels``):
+the round's clients are planned into groups (``runtime/aggregate.py``
+``plan_tree``), each START names the client's level-1 group, and after
+the READY barrier one ``L1Aggregator`` thread a group (any level) folds
+its responsive members into one PartialAggregate for its parent.  The
+root folds the parentless groups' partials at their canonical
+positions, decoding the ``partial`` codec first (``transport.codec:
+{partial: ...}``; the delta mode against this generation's START
+shards).  An aggregator that dies mid-round is replaced by the server's
+own drain of its queue (counted ``agg_l1_fallbacks``): parentless
+groups fold straight into the root, others publish a substitute partial
+into their parent's queue; members whose frames the dead aggregator had
+consumed are abandoned after a grace period (``agg_fallback_abandons``)
+rather than stalling the UPDATE barrier.
+
 Left out (each raises ``NotImplementedError`` when its config asks for
-it): the aggregator tree and remote aggregator nodes, stage hosts, the
-scheduler, elastic re-planning, the per-leaf legacy fold finish
+it): the remote aggregator nodes, stage hosts, the scheduler, elastic
+re-planning, the per-leaf legacy fold finish
 (``aggregation.update-sharded: false``).  The telemetry exporter,
 liveness monitor, blackbox and tracing spans are not run.
 """
@@ -84,8 +99,9 @@ from split_learning_torch.runtime.plan import (
     ClusterPlan, Registration, plan_clusters,
 )
 from split_learning_torch.runtime.protocol import (
-    RPC_QUEUE, FrameAssembler, Notify, Pause, Ready, Register, Start, Stop,
-    Syn, Update, encode, encode_parts, host_tensor, reply_queue,
+    RPC_QUEUE, FrameAssembler, Notify, PartialAggregate, Pause, Ready,
+    Register, Start, Stop, Syn, Update, encode, encode_parts, host_tensor,
+    reply_queue,
 )
 
 
@@ -116,17 +132,20 @@ def _stage_flag(flag: bool | dict, stage: int) -> bool:
 def _refuse_unported(cfg: Config) -> None:
     agg, topo = cfg.aggregation, cfg.topology
     later = [
-        (agg.fan_in, "aggregation.fan-in (the aggregator tree)"),
-        (agg.remote, "aggregation.remote (aggregator nodes)"),
-        (cfg.pipeline.remote, "pipeline.remote (stage hosts)"),
+        (agg.remote, "aggregation.remote (aggregator nodes)",
+         "the telemetry plane's slice (their heartbeats and liveness)"),
+        (cfg.pipeline.remote, "pipeline.remote (stage hosts)",
+         "the fleet planes' slice"),
         (cfg.scheduler.enabled, "scheduler.enabled (the closed-loop "
-                                "scheduler)"),
-        (topo.elastic_join, "topology.elastic-join (elastic re-planning)"),
+                                "scheduler)", "the fleet planes' slice"),
+        (topo.elastic_join, "topology.elastic-join (elastic re-planning)",
+         "the fleet planes' slice"),
     ]
-    for on, what in later:
+    for on, what, when in later:
         if on:
             raise NotImplementedError(
-                f"{what} is not ported yet; the flat protocol round is "
+                f"{what} is not ported yet; it comes with {when}; the "
+                "protocol round and its thread-mode aggregator tree are "
                 "(see ROADMAP.md)")
 
 
@@ -182,6 +201,30 @@ class ProtocolContext(TorchContext):
         self._fold_backend = (agg_plane.make_fold_backend(cfg, self.device)
                               if self._streaming else None)
         self._fold: agg_plane.StreamingFold | None = None
+        # the aggregator tree of the current invocation: each level-1
+        # client's group, the aggregator threads, the fallback drains of
+        # dead ones (group idx -> state), every group by idx, the
+        # parentless ones, and each group's responsive members
+        self._group_of: dict = {}
+        self._l1: list = []
+        self._l1_fallback: dict = {}
+        self._tree_groups: dict = {}
+        self._tree_roots: list = []
+        self._tree_narrowed: dict = {}
+        # members of a dead aggregator's group whose UPDATE frames it
+        # consumed before dying: unrecoverable, so the UPDATE barrier
+        # stops waiting for them (counted agg_fallback_abandons)
+        self._agg_gone: set = set()
+        # rpc-wire bytes of the partials that landed at this root
+        self._agg_ingress_bytes = 0
+        # the partial-sum codec (transport.codec: partial) and, in its
+        # delta mode, this generation's per-stage START shards (both
+        # ends of every tree edge hold them)
+        from split_learning_torch.runtime.codec import parse_codec_map
+        self._partial_codec = parse_codec_map(
+            getattr(cfg.transport, "codec", None)).get("partial")
+        self._partial_bases: dict = {}
+        self._partial_base_gen: int | None = None
         # FedAvgM velocity, keyed cluster_id -> {path: velocity}: each
         # cluster's fold is its own optimizer stream (on the card with
         # the CUDA fold backend, between rounds too)
@@ -261,6 +304,15 @@ class ProtocolContext(TorchContext):
                 self.log.received(f"NOTIFY {msg.client_id}")
         elif isinstance(msg, Update):
             self._admit_update(msg)
+        elif isinstance(msg, PartialAggregate):
+            # one aggregator's folded group landing at the root
+            if msg.round_idx != self._cur_gen:
+                self.faults.inc("agg_stale_drops")
+                self.log.warning(
+                    f"stale PARTIALAGGREGATE {msg.aggregator_id} "
+                    f"gen={msg.round_idx} (dropped)")
+            else:
+                self._fold_partial(msg, nbytes=self._assembler.last_bytes)
         else:
             self.log.warning(f"unexpected rpc message "
                              f"{type(msg).__name__}")
@@ -348,15 +400,332 @@ class ProtocolContext(TorchContext):
             msg.params = full
         msg.delta_base = None   # downstream sees a plain (full) update
 
+    # -- the aggregator tree ---------------------------------------------------
+
+    def _decode_partial(self, msg: PartialAggregate, where: str) -> bool:
+        """Restore a codec'd partial to float32 sums and a plain member
+        list in place; False (counted ``partial_codec_errors``) when it
+        cannot be, e.g. a delta against a base this root does not hold:
+        the fallback machinery, not a silently wrong fold, owns that
+        group's fate."""
+        if not (msg.codec or msg.members_z):
+            return True
+        from split_learning_torch.runtime.codec.partial import (
+            PartialCodecError, decode_partial_msg,
+        )
+        try:
+            decode_partial_msg(msg, bases=self._partial_bases,
+                               base_gen=self._partial_base_gen)
+        except PartialCodecError as e:
+            self.faults.inc("partial_codec_errors")
+            self.log.warning(f"{where}: undecodable partial from "
+                             f"{msg.aggregator_id} ({e}); dropped")
+            return False
+        return True
+
+    def _book_members(self, msg: PartialAggregate) -> None:
+        """A weight-less Update record for each client behind a partial:
+        they count for the UPDATE barrier one by one.  ``num_samples``
+        0: the group's stage-1 samples rode the partial's
+        ``n_samples``."""
+        for m in msg.members or []:
+            cid = m.get("client_id")
+            if cid is not None:
+                self._updates.append(Update(
+                    client_id=cid, stage=int(m.get("stage", msg.stage)),
+                    cluster=msg.cluster, params=None, num_samples=0,
+                    ok=bool(m.get("ok", True)), round_idx=msg.round_idx))
+
+    def _fold_partial(self, msg: PartialAggregate, nbytes: int = 0) -> None:
+        """Fold one PartialAggregate at its group's canonical position in
+        the root fold and book its members."""
+        if self._fold is None:
+            self.log.warning(
+                f"PARTIALAGGREGATE {msg.aggregator_id} outside a "
+                "streaming invocation (dropped)")
+            return
+        self._agg_ingress_bytes += int(nbytes)
+        if not self._decode_partial(msg, "PARTIALAGGREGATE"):
+            return
+        # generation-fenced by the pump; tree members are never
+        # stale-admitted
+        self._fold.add_partial(
+            msg.stage, agg_plane.group_key(msg.group), msg.sums,
+            msg.weight, msg.dtypes, stat_sums=msg.stat_sums,
+            stat_weight=msg.stat_weight, stat_dtypes=msg.stat_dtypes,
+            n_samples=msg.n_samples)
+        self._book_members(msg)
+        self.log.received(
+            f"PARTIALAGGREGATE {msg.aggregator_id} "
+            f"members={len(msg.members or [])} weight={msg.weight:g}")
+
+    def _spawn_l1_threads(self, plan: ClusterPlan, groups: list,
+                          narrowed: dict) -> None:
+        """One L1Aggregator thread a group, at every level.  Over TCP each
+        gets its own transport stack (a blocked get holds a connection's
+        socket); in one process they share the server's bus."""
+        deadline = time.monotonic() + self.client_timeout
+        for g in groups:
+            agg_id = f"aggregator_{plan.cluster_id}_{g.idx}"
+            bus, owns = self.bus, False
+            if self.cfg.transport.kind == "tcp":
+                from split_learning_torch.runtime.chaos import (
+                    make_runtime_transport,
+                )
+                bus = make_runtime_transport(self.cfg, agg_id,
+                                             faults=self.faults)
+                owns = True
+            out_q = (RPC_QUEUE if g.parent is None
+                     else agg_plane.aggregate_queue(plan.cluster_id,
+                                                    g.parent))
+            t = agg_plane.L1Aggregator(
+                bus, cluster=plan.cluster_id, group=g,
+                members=narrowed[g.idx], gen=self._cur_gen,
+                deadline=deadline, log=self.log, faults=self.faults,
+                chunk_bytes=self.cfg.transport.chunk_mb << 20,
+                owns_bus=owns, out_queue=out_q, codec=self._partial_codec,
+                base=self._partial_bases.get(g.stage),
+                base_gen=self._partial_base_gen)
+            t.start()
+            self._l1.append(t)
+
+    #: liveness grace of a fallback drain: a dead aggregator may have
+    #: consumed a member's UPDATE frames, which that member never resends.
+    #: The clock restarts on every recovered frame, so only a drained and
+    #: silent queue abandons its missing members.
+    L1_FALLBACK_GRACE_S = 30.0
+
+    def _poll_l1(self) -> None:
+        """The tree's health check, run at every UPDATE-barrier pump: an
+        aggregator thread that is no longer alive (and never flushed)
+        degrades its group to the direct-to-root drain, so the group
+        still folds at its canonical position."""
+        for t in self._l1:
+            if t.flushed:
+                continue
+            fb = self._l1_fallback.get(t.group.idx)
+            if fb is None:
+                if t.is_alive():
+                    continue
+                self.faults.inc("agg_l1_fallbacks")
+                self.log.warning(
+                    f"aggregator {t.agg_id} died mid-round; draining "
+                    f"group {t.group.idx} direct-to-root")
+                fb = self._start_fallback(t.group, t.cluster,
+                                          set(t.members))
+            self._step_fallback(fb)
+
+    def _start_fallback(self, group, cluster: int, members: set) -> dict:
+        fb = self._l1_fallback[group.idx] = {
+            "group": group, "cluster": cluster, "members": set(members),
+            "fold": agg_plane.StreamingFold(
+                {group.stage: sorted(members)}, faults=self.faults),
+            "asm": FrameAssembler(faults=self.faults),
+            "seen": set(), "meta": [],
+            # a parentless group books its members and sums straight
+            # into the root fold; one under an interior parent publishes
+            # a substitute partial into the parent's queue instead (the
+            # parent's dedup absorbs the race where the aggregator had
+            # flushed before it was declared dead): booking both ways
+            # would count the members twice
+            "book_direct": group.parent is None,
+            "deadline": time.monotonic() + self.L1_FALLBACK_GRACE_S,
+            "flushed": False}
+        return fb
+
+    def _children_draining(self, group) -> bool:
+        """True while a child group of ``group`` has an unflushed
+        fallback of its own: its drain will publish a substitute partial
+        into this group's queue, so closing this group now would strand
+        members the child is recovering."""
+        if group.level == 1:
+            return False
+        return any(f["group"].parent == group.idx and not f["flushed"]
+                   for f in self._l1_fallback.values())
+
+    def _step_fallback(self, fb: dict) -> None:
+        if not fb["flushed"]:
+            self._drain_fallback(fb)
+        if not fb["flushed"] and time.monotonic() >= fb["deadline"]:
+            if self._children_draining(fb["group"]):
+                fb["deadline"] = (time.monotonic()
+                                  + self.L1_FALLBACK_GRACE_S)
+                return
+            gone_keys = fb["members"] - fb["seen"]
+            gone = self._member_clients(fb["group"], gone_keys)
+            if gone:
+                self.faults.inc("agg_fallback_abandons", len(gone))
+            if gone_keys:
+                self.log.warning(
+                    f"fallback group {fb['group'].idx}: abandoning "
+                    f"{sorted(gone_keys)} (the dead aggregator consumed "
+                    f"their frames; folding {len(fb['seen'])}/"
+                    f"{len(fb['members'])} members)")
+            self._agg_gone |= gone
+            self._flush_fallback(fb)
+
+    def _member_clients(self, group, keys) -> set:
+        """The client ids behind a set of member keys: the keys
+        themselves at level 1, the responsive clients of the named child
+        groups above it."""
+        if group.level == 1:
+            return set(keys)
+        out: set = set()
+        by_key = {g.key: g for g in self._tree_groups.values()}
+        for key in keys:
+            child = by_key.get(key)
+            if child is not None:
+                out |= self._member_clients(
+                    child, self._tree_narrowed.get(child.idx,
+                                                   child.members))
+        return out
+
+    def _drain_fallback(self, fb: dict) -> None:
+        g = fb["group"]
+        for m in agg_plane.drain_group_queue(
+                self.bus, fb["cluster"], g.idx, self._cur_gen, fb["asm"],
+                self.faults, log=self.log):
+            if isinstance(m, Update):
+                self._drain_fallback_update(fb, g, m)
+            else:
+                self._drain_fallback_partial(fb, g, m)
+        if not fb["flushed"] and fb["seen"] >= fb["members"]:
+            self._flush_fallback(fb)
+
+    def _drain_fallback_update(self, fb: dict, g, u: Update) -> None:
+        if g.level != 1 or u.client_id in fb["seen"]:
+            self.faults.inc("agg_dup_drops")
+            return
+        fb["seen"].add(u.client_id)
+        fb["deadline"] = time.monotonic() + self.L1_FALLBACK_GRACE_S
+        self._fold_update(u)   # a delta rebuilt, as the pump does
+        # drain_group_queue generation-fenced it already
+        fb["fold"].add_update(copy.copy(u))
+        fb["meta"].append({"client_id": u.client_id, "stage": u.stage,
+                           "num_samples": u.num_samples, "ok": u.ok,
+                           "telemetry": u.telemetry})
+        u.params = None
+        u.batch_stats = None
+        if fb["book_direct"]:
+            self._updates.append(u)
+        self.log.received(f"UPDATE {u.client_id} (fallback drain)")
+
+    def _drain_fallback_partial(self, fb: dict, g,
+                                m: PartialAggregate) -> None:
+        """A dead interior group's queue holds its children's partials:
+        folded into the fallback's own fold, keyed and dedup'd as the
+        dead aggregator would have."""
+        key = agg_plane.group_key(m.group)
+        if g.level == 1 or key in fb["seen"]:
+            self.faults.inc("agg_dup_drops")
+            return
+        if not self._decode_partial(m, "fallback drain"):
+            return
+        fb["seen"].add(key)
+        fb["deadline"] = time.monotonic() + self.L1_FALLBACK_GRACE_S
+        fb["fold"].add_partial(
+            m.stage, key, m.sums, m.weight, m.dtypes,
+            stat_sums=m.stat_sums, stat_weight=m.stat_weight,
+            stat_dtypes=m.stat_dtypes, n_samples=m.n_samples)
+        fb["meta"].extend(m.members or [])
+        if fb["book_direct"]:
+            self._book_members(m)
+        self.log.received(
+            f"PARTIALAGGREGATE {m.aggregator_id} (fallback drain)")
+
+    def _flush_fallback(self, fb: dict) -> None:
+        """Close a fallback group: its fold's partial sums land where the
+        dead aggregator's would have: in the root fold at the group's
+        canonical position when parentless, else as a substitute (raw
+        float32) partial in the parent's queue."""
+        g = fb["group"]
+        stages, n = fb["fold"].partial()
+        ent = stages.get(g.stage)
+        if fb["book_direct"]:
+            if ent:
+                self._fold.add_partial(
+                    g.stage, g.key, ent["sums"], ent["weight"],
+                    ent["dtypes"], stat_sums=ent["stat_sums"],
+                    stat_weight=ent["stat_weight"],
+                    stat_dtypes=ent["stat_dtypes"], n_samples=n)
+            else:
+                self._fold.drop(g.stage, g.key)
+        else:
+            ent = ent or {}
+            msg = PartialAggregate(
+                aggregator_id=f"aggregator_{fb['cluster']}_{g.idx}",
+                cluster=fb["cluster"], group=g.idx, stage=g.stage,
+                round_idx=self._cur_gen, sums=ent.get("sums"),
+                weight=float(ent.get("weight") or 0.0),
+                dtypes=ent.get("dtypes"), stat_sums=ent.get("stat_sums"),
+                stat_weight=float(ent.get("stat_weight") or 0.0),
+                stat_dtypes=ent.get("stat_dtypes"), n_samples=n,
+                members=fb["meta"], level=g.level)
+            q = agg_plane.aggregate_queue(fb["cluster"], g.parent)
+            for part in encode_parts(msg, self.cfg.transport.chunk_mb << 20):
+                self.bus.publish(q, part)
+            self.log.sent(f"PARTIALAGGREGATE (fallback substitute for "
+                          f"group {g.idx} -> group {g.parent})")
+        fb["flushed"] = True
+
+    def _finish_l1(self) -> None:
+        """After the UPDATE barrier, level by level upwards: live
+        unflushed aggregators are told to flush (the server gave up on
+        their stragglers), so an interior group still folds what the
+        level below just produced; dead ones fall back to the drain;
+        then every root partial is awaited and every fallback closed.
+        Bounded: an aggregator that neither flushes nor dies within the
+        deadlines is abandoned (its group key drops out at finish)."""
+        for lv in sorted({t.group.level for t in self._l1}):
+            level_ts = [t for t in self._l1 if t.group.level == lv]
+            for t in level_ts:
+                if t.is_alive() and not t.flushed:
+                    t.request_flush()
+
+            def lv_done(ts=level_ts) -> bool:
+                self._poll_l1()
+                return all(t.flushed or self._l1_fallback.get(
+                    t.group.idx, {}).get("flushed") for t in ts)
+            deadline = time.monotonic() + 15.0
+            while not lv_done() and time.monotonic() < deadline:
+                self._pump_one(timeout=0.05)
+        want = [(g.stage, g.key) for g in self._tree_roots]
+
+        def landed() -> bool:
+            self._poll_l1()
+            return all(self._fold.has_key(s, k) for s, k in want)
+        if not landed():
+            self._pump_until(landed, "aggregator flushes",
+                             deadline=time.monotonic() + 30.0)
+        # forced close, level by level upwards: a child's flush publishes
+        # its substitute into the parent's queue, so the parent (drained
+        # right after) still folds it
+        for fb in sorted(self._l1_fallback.values(),
+                         key=lambda f: (f["group"].level,
+                                        f["group"].idx)):
+            if not fb["flushed"]:
+                self._flush_fallback(fb)
+            parent = self._l1_fallback.get(fb["group"].parent)
+            if parent is not None and not parent["flushed"]:
+                self._drain_fallback(parent)
+        for t in self._l1:
+            t.join(timeout=5.0)
+
     def _pump_until(self, pred: Callable[[], bool],
                     what: str | Callable[[], str],
-                    deadline: float | None = None) -> bool:
+                    deadline: float | None = None,
+                    poll: Callable[[], None] | None = None) -> bool:
         """Drain rpc_queue until ``pred()``; False if the deadline
         passes (``what`` may be a callable naming who is missing AT the
-        deadline)."""
+        deadline).  ``poll`` runs before each check (the aggregator
+        tree's health check and fallback drains)."""
         deadline = (time.monotonic() + self.client_timeout
                     if deadline is None else deadline)
-        while not pred():
+        while True:
+            if poll is not None:
+                poll()
+            if pred():
+                return True
             remain = deadline - time.monotonic()
             if remain <= 0:
                 w = what() if callable(what) else what
@@ -364,7 +733,6 @@ class ProtocolContext(TorchContext):
                 self.log.warning(f"timeout waiting for {w}")
                 return False
             self._pump_one(timeout=min(remain, 0.25))
-        return True
 
     # -- registration barrier ------------------------------------------------
 
@@ -492,15 +860,49 @@ class ProtocolContext(TorchContext):
             (c, v) for c, v in self._folded_versions
             if self._cur_gen - v <= self.cfg.learning.max_staleness + 1}
 
-        # streaming fold for this invocation, in canonical per-stage
-        # sorted client-id order; built BEFORE the START fan-out so the
-        # first UPDATE to land has somewhere to fold
+        # streaming fold for this invocation, in canonical per-stage key
+        # order: sorted client ids, or the root groups' keys when the
+        # aggregator tree (aggregation.fan-in) is interposed.  Built
+        # BEFORE the START fan-out so the first UPDATE to land has
+        # somewhere to fold
+        groups = None
+        self._group_of = {}
+        self._l1 = []
+        self._l1_fallback = {}
+        self._tree_groups = {}
+        self._tree_roots = []
+        self._tree_narrowed = {}
+        self._agg_gone = set()
+        self._agg_ingress_bytes = 0
         if self._streaming:
+            fan_in = self._agg.fan_in
             expected: dict[int, list] = {}
-            for cid, s in sorted(active):
-                expected.setdefault(s, []).append(cid)
+            if fan_in and len(active) > fan_in:
+                groups = agg_plane.plan_tree(active, fan_in,
+                                             self._agg.levels)
+                self._tree_groups = {g.idx: g for g in groups}
+                self._tree_roots = agg_plane.root_groups(groups)
+                self._group_of = {cid: g for g in groups
+                                  if g.level == 1 for cid in g.members}
+                for g in self._tree_roots:
+                    expected.setdefault(g.stage, []).append(g.key)
+            else:
+                for cid, s in sorted(active):
+                    expected.setdefault(s, []).append(cid)
             self._fold = agg_plane.StreamingFold(
                 expected, backend=self._fold_backend, faults=self.faults)
+            # the partial codec's delta mode: this generation's per-stage
+            # START shards, against which the tree encodes (group mean -
+            # base) and every receiver adds the base back
+            self._partial_bases = {}
+            self._partial_base_gen = None
+            if groups is not None and self._partial_codec is not None \
+                    and self._partial_codec.kind == "delta":
+                for s in range(1, plan.n_stages + 1):
+                    a, b = ranges[s - 1]
+                    self._partial_bases[s] = _np_tree(
+                        shard_params(params, self.specs, a, b))
+                self._partial_base_gen = self._cur_gen
 
         # stage-ascending START fan-out: stage-1 feeders start streaming
         # while later stages' STARTs are still encoding.  Shard trees of
@@ -530,10 +932,16 @@ class ProtocolContext(TorchContext):
                 shard = (None, None)
             # delta codec: a versioned shadow of exactly what this START
             # carries, and the version held advertised (a weight-less
-            # START advertises the standing shadow)
+            # START advertises the standing shadow).  A tree member gets
+            # none: its aggregator holds no shadow to rebuild a delta
+            # against, so tree rounds send full frames (and the standing
+            # shadow, which could never be used again, is dropped)
             delta_ver = None
+            group = self._group_of.get(cid)
             if self._delta_shadow is not None:
-                if sp:
+                if group is not None:
+                    self._delta_shadow.clear(cid)
+                elif sp:
                     self._delta_shadow.note_sent(cid, self._cur_gen,
                                                  shard[0])
                     delta_ver = self._cur_gen
@@ -571,6 +979,10 @@ class ProtocolContext(TorchContext):
                                          else None),
                            "refresh": self.cfg.distribution.refresh,
                            "delta_base_version": delta_ver,
+                           # aggregator tree: UPDATE to this group's
+                           # aggregate queue instead of rpc_queue
+                           "agg_group": (None if group is None
+                                         else group.idx),
                            "gen": self._cur_gen}),
                     self.cfg.transport.chunk_mb << 20):
                 self.bus.publish(reply_queue(cid), part)
@@ -594,12 +1006,27 @@ class ProtocolContext(TorchContext):
                 lambda: f"READY from {ids - self._ready}",
                 deadline=time.monotonic() + self.ready_timeout):
             ids &= self._ready   # drop unresponsive clients mid-round
-        if self._fold is not None:
+        if self._fold is not None and groups is None:
             # stop the reorder window waiting for clients dropped at the
             # READY barrier
             for cid, s in active:
                 if cid not in ids:
                     self._fold.drop(s, cid)
+        if groups is not None:
+            # the tree's aggregators start now, with level-1 membership
+            # narrowed to the responsive clients (one dropped at READY
+            # never publishes; its aggregator must not hold the group's
+            # flush for it).  Interior groups keep every child key: child
+            # aggregators always publish, an empty group at once
+            narrowed = {g.idx: ([m for m in g.members if m in ids]
+                                if g.level == 1 else list(g.members))
+                        for g in groups}
+            self._tree_narrowed = narrowed
+            self._spawn_l1_threads(plan, groups, narrowed)
+            self.log.info(
+                f"aggregator tree: {len(groups)} group(s), fan-in "
+                f"{self._agg.fan_in}, levels {self._agg.levels} "
+                "(threads)", "cyan")
         lap("ready_s")   # clients decode their START and build shards
         # strict SDA under client loss: a previous-stage client dropped
         # at the READY barrier never sends its fence copies, and a
@@ -650,6 +1077,10 @@ class ProtocolContext(TorchContext):
             return {u.client_id for u in self._updates
                     if (u.version if u.version is not None
                         else u.round_idx) == self._cur_gen}
+        # _agg_gone: members whose UPDATE a dead aggregator consumed;
+        # they can never arrive, so the barrier stops counting them
+        # (the tree's health check runs at each pump, when a tree runs)
+        tree = {"poll": self._poll_l1} if self._l1 else {}
         if quorum_n:
             # bounded-staleness version cut at async-quorum fresh
             # contributions
@@ -660,9 +1091,12 @@ class ProtocolContext(TorchContext):
                          f"{sorted(ids - fresh_ids())})"))
         else:
             self._pump_until(
-                lambda: fresh_ids() >= ids,
-                lambda: "UPDATE from " + str(ids - fresh_ids()))
+                lambda: (fresh_ids() | self._agg_gone) >= ids,
+                lambda: "UPDATE from " + str(
+                    ids - fresh_ids() - self._agg_gone), **tree)
         self._syn_live = False
+        if self._l1:
+            self._finish_l1()
         lap("upload_s")   # PAUSE -> every UPDATE decoded and folded
         updates = list(self._updates)
         self._updates = []
@@ -685,15 +1119,23 @@ class ProtocolContext(TorchContext):
             self.log.metric(
                 kind="agg", gen=self._cur_gen, round_idx=round_idx,
                 cluster=plan.cluster_id, backend=self._fold_backend.name,
+                fan_in=(self._agg.fan_in if groups is not None else 0),
+                levels=(self._agg.levels if groups is not None else 0),
+                # rpc-wire bytes of the partials that landed at the root
+                root_ingress_bytes=self._agg_ingress_bytes,
+                partial_codec=(None if self._partial_codec is None
+                               else self._partial_codec.kind),
                 fold_s=result.fold_s, folded=result.folded,
-                window_hwm=result.window_hwm,
+                partials=result.partials, window_hwm=result.window_hwm,
                 peak_tree_copies=result.peak_tree_copies,
                 n_samples=result.n_samples, update_s=result.update_s,
                 stage_update_ms=result.stage_update_ms)
             self.log.info(
                 f"streamed aggregate: folded={result.folded} "
-                f"fold={result.fold_s:.3f}s update={result.update_s:.3f}s",
-                "cyan")
+                f"(partials={result.partials}) fold={result.fold_s:.3f}s "
+                f"update={result.update_s:.3f}s", "cyan")
+            self._l1 = []
+            self._l1_fallback = {}
         # wire audit: CUMULATIVE transport-wide publish bytes by queue
         # family (reply = server down; rpc = clients up; data = the
         # intermediate and gradient plane); on the shared in-process bus

@@ -3,8 +3,10 @@
 Port of the part of the JAX package's ``runtime/trace.py`` that the
 protocol slice calls: :class:`FaultCounters` and the process-wide
 :data:`default_fault_counters` (the codec counts ``quant_nonfinite``
-there, the streaming fold ``agg_dup_drops``, frame decoding
-``corrupt_rejected`` and ``oversize_frames``).  Wire counters, latency
+there, the streaming fold ``agg_dup_drops``, the aggregator tree
+``agg_stale_drops``, ``agg_l1_fallbacks``, ``agg_fallback_abandons`` and
+``partial_codec_errors``, frame decoding ``corrupt_rejected`` and
+``oversize_frames``).  Wire counters, latency
 histograms, the step timer and the profiler hooks wait for the
 observability slice.
 """

@@ -274,17 +274,20 @@ def test_max_frame_gb_refuses_a_longer_frame():
         line = proc.stdout.readline()
         port = int(line.split("python broker on ")[1].split()[0]
                    .rsplit(":", 1)[1])
+        # every wait on the broker process is generous: under a loaded
+        # host a subprocess can be off the CPU for seconds, longer than
+        # the stats request's 2 s default
         t = tbus.TcpTransport("127.0.0.1", port)
         t.publish("q", b"x" * (64 * 1024))   # at the cap: kept
-        assert bytes(t.get("q", timeout=5)) == b"x" * (64 * 1024)
+        assert bytes(t.get("q", timeout=60)) == b"x" * (64 * 1024)
         t.close()
         s = socket.create_connection(("127.0.0.1", port))
         s.sendall(b"P" + struct.pack(">I", 1) + b"q"
                   + struct.pack(">Q", 64 * 1024 + 1))
-        s.settimeout(10)
+        s.settimeout(60)
         assert s.recv(1) == b""   # the broker dropped the connection
         s.close()
-        stats = tbus.broker_stats("127.0.0.1", port)
+        stats = tbus.broker_stats("127.0.0.1", port, timeout=60)
         assert stats["oversize_frames"] == 1 and stats["published"] == 1
     finally:
         proc.send_signal(signal.SIGTERM)

@@ -313,8 +313,11 @@ def test_a_crashed_client_process_exits_as_the_jax_packages_does(
         # broker (each package decodes only its own frames)
         from split_learning_torch.runtime.bus import TcpTransport
         from split_learning_torch.runtime.protocol import Register, decode
+        # a generous wait: under a loaded host the broker thread may be
+        # off the CPU for seconds before it reads the exited clients'
+        # frames
         t = TcpTransport("127.0.0.1", broker.port)
-        got = [bytes(t.get("rpc_queue", timeout=5)) for _ in range(2)]
+        got = [bytes(t.get("rpc_queue", timeout=60)) for _ in range(2)]
         assert t.get("rpc_queue", timeout=0.1) is None
         t.close()
         mine = []

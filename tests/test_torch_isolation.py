@@ -482,3 +482,51 @@ def test_async_round_with_topk_and_delta_runs_with_jax_blocked(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "async codecs ok" in proc.stdout
+
+
+def test_aggregator_tree_round_runs_with_jax_blocked(tmp_path):
+    """The aggregator tree over the protocol round (``[4, 2]``, fan-in 2,
+    2 levels, the ``delta:int8:64`` partial codec) trains in a process
+    where JAX and the JAX package cannot be imported, also with one
+    aggregator killed (the direct-to-root fallback)."""
+    kwt = {"model": "KWT", "dataset": "SPEECHCOMMANDS", "clients": [4, 2],
+           "synthetic-size": 48, "val-max-batches": 1, "val-batch-size": 8,
+           "compute-dtype": "float32",
+           "model-kwargs": {"embed_dim": 8, "num_heads": 2, "mlp_dim": 16},
+           "topology": {"cut-layers": [2]},
+           "distribution": {"num-samples": 8},
+           "transport": {"codec": {"partial": "delta:int8:64"}},
+           "aggregation": {"strategy": "fedavg", "fan-in": 2, "levels": 2},
+           "learning": {"batch-size": 4, "control-count": 1,
+                        "optimizer": "sgd"},
+           "checkpoint": {"save": False}, "log-path": str(tmp_path)}
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "import split_learning_torch.runtime.codec.partial",
+        "from split_learning_torch.config import from_dict",
+        "from split_learning_torch.runtime import aggregate",
+        "from split_learning_torch.runtime.server import run_inproc",
+        "from split_learning_torch.runtime.trace import"
+        " default_fault_counters as faults",
+        f"cfg = from_dict({kwt!r})",
+        "for kill in (False, True):",
+        "    if kill:",
+        "        aggregate.L1Aggregator.TEST_KILL.add('aggregator_0_1')",
+        "    run = run_inproc(cfg, device='cpu', client_timeout=300)",
+        "    assert [(r.ok, r.num_samples) for r in run.result.history]"
+        " == [(True, 32)], run.result.history",
+        "    fold = run.server.ctx.last_fold",
+        "    assert fold.partials == 2 and fold.folded == 2, fold",
+        "    assert run.bus.bytes_out_snapshot().get('aggregate_queue_0_3')",
+        "assert faults.snapshot().get('agg_l1_fallbacks') == 1",
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}"
+        " and sys.modules[m] is not None]",
+        "assert not bad, bad",
+        "print('aggregator tree ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "aggregator tree ok" in proc.stdout
