@@ -4,7 +4,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure.  Phases 1-3 run first, alone, so that
+the kernels are timed with nothing else on the card; phases 4-30 then
+run in four groups at once, each group a process of its own on the card
+running its phases in order (:data:`PHASE_GROUPS`: TinyLlama and BERT;
+VGG16's baseline 1; baselines 2-4; KWT-1's variants and chaos), so their
+walls, idle shares and profiles are taken beside the other groups' work:
 
 1. device — requires CUDA; prints the card's name and power limit
    (``nvidia-smi``) and sets both TF32 switches explicitly (off);
@@ -59,7 +64,8 @@ Phases, each fatal on failure:
    traced by ``torch.profiler`` (not counted) and summed by name from the
    trace's kineto events: round wall, the device's busy and idle share,
    and the kernels that take the most device time;
-6. protocol — the protocol round at the same width: ``ProtocolServer``
+6. protocol — the protocol round at the same width (11 of the 22
+   blocks, cut ``[1, 6, 9]``, for the script's time): ``ProtocolServer``
    in this thread and one ``ProtocolClient`` thread per client over a
    shared ``InProcTransport``, ``clients: [2, 1, 1, 1]``, an int8 codec
    on both cut directions, the sharded (CUDA) fold with
@@ -68,7 +74,7 @@ Phases, each fatal on failure:
    flag on — then one more round with ``server-momentum: 0``, because
    with momentum every TinyLlama leaf takes the momentum kernel and only
    a plain FedAvg round finalizes.  Counts zeroed before and read after
-   (each tensor-core backward kernel 176 launches a round, the vec
+   (each tensor-core backward kernel 88 launches a round, the vec
    quantizer and the dequantizer 48, the CUDA-core kernels and the
    generic quantizer 0);
 7. protocol_tcp — the first of those rounds in the deployment shape
@@ -91,7 +97,7 @@ Phases, each fatal on failure:
    statistics within stated tolerances of the CPU's;
 9. vgg_slice — the default round in process (``run_local``) on
    ``config.yaml`` (1 round, ``[1, 1]``) and on
-   ``configs/baseline1.yaml`` (2 of its 5 rounds, ``[2, 2]``: two
+   ``configs/baseline1.yaml`` (1 of its 5 rounds, ``[2, 2]``: two
    lockstep columns) as written otherwise, bf16, with every launch
    counter 0 (every ``kernels:`` flag is off); samples, validation,
    the checkpoint's parameters and statistics checked; then
@@ -115,7 +121,7 @@ Phases, each fatal on failure:
    throughput-balance cut from the card's profile (printed beside the
    even split);
 13. baseline2_slice — BASELINE config 2 in process (``run_local``) as
-   written but for its rounds (2 of 5): 4 stage-1 clients at 2500
+   written but for its rounds (1 of 5): 4 stage-1 clients at 2500
    samples clustered by KMeans into 2, selection on, the even cut,
    every launch counter 0; then 1 round with the card's profile
    registered for every client (the auto cut from the card's times);
@@ -132,7 +138,7 @@ Phases, each fatal on failure:
    256 samples a client, each held to its own contract (samples,
    validated rounds, finite losses, FedAsync's per-merge checkpoints);
 16. baseline3_slice — BASELINE config 3 in process (``run_local``) as
-   written but for its depth (2 of its 5 rounds):
+   written but for its depth (1 of its 5 rounds):
    ResNet-50/CIFAR-100, ``[2, 2, 2]``, cuts ``[3, 6]``, batch 64, bf16,
    every launch counter 0, the 17 layers of (nested) BatchNorm
    statistics in the checkpoint; then one round once more, warm and
@@ -143,12 +149,12 @@ Phases, each fatal on failure:
    0.9 then 0; every quantize, dequantize, momentum and finalize launch
    held bit for bit against its plain version;
 18. baseline4_slice — BASELINE config 4 in process as written but for
-   its depth (2 of its 5 rounds): ViT-S/16 on CIFAR-10, ``[2,
+   its depth (1 of its 5 rounds): ViT-S/16 on CIFAR-10, ``[2,
    1]``, cut ``[10]``, AdamW with weight decay 0.05, dropout 0.1, bf16;
    then one round warm and traced;
 19. kwt_slice — KWT-1 on SpeechCommands in process
    (``configs/kwt1_speechcommands.yaml``: its published width, ``[2,
-   2]``, cut 2, AdamW 1e-3, batch 32, bf16), 2 of its 3 rounds, every
+   2]``, cut 2, AdamW 1e-3, batch 32, bf16), 1 of its 3 rounds, every
    launch counter 0; then one round warm and traced;
 20. variants — the eight ``examples/variants/*.yaml`` in process as
    written (KWT in relay, cluster relay, SDA, strict SDA in two and
@@ -231,7 +237,21 @@ Phases, each fatal on failure:
    the same fold through the codec and within its derived bound of the
    fold without it, its root partial bytes against run a's; every
    quantize, dequantize, finalize and momentum launch held bit for bit;
-30. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+30. trace_protocol — cell 6's round (baseline 1, int8 on both data
+   planes, every kernel flag, the sharded fold at momentum 0.9) with
+   each feeder paired to its own head, run a traced at ``sample-rate:
+   1.0`` and run b untraced: a bit for bit b, the same launches, every
+   one held bit for bit; one schema-v1 journal a participant on the
+   server's trace id; every consume span parented to a publish span of
+   its sender, as many client consumes as dequantize launches and
+   data-queue publishes as quantize launches; the latency histograms and
+   the wire counters against the spans and the bus, a's data bytes 32 a
+   part above b's; ``phases`` in ``kind=round``; ``tools/sl_trace.py``'s
+   critical-path components summing to the round's wall within 1 ms.
+   Phases 9, 11 and 23 read their own runs' journals again: the loop's
+   spans and phases in process, one trace and complete edges across the
+   TCP processes, ``transport_rtt`` under chaos;
+31. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
@@ -239,9 +259,13 @@ Phases, each fatal on failure:
    ``baseline3_shapes`` and at the BERT round's in ``bert_shapes``),
    then the last line ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --participant MODULE ARG...`` is phase 7's
-participant runner: it runs ``MODULE.main(ARG...)`` and prints that
-process's launch counts and peak memory.
+``python3 chip_smoke.py --group NAME WORKDIR OUT`` runs one group of
+phases (:func:`run_group`).  ``python3 chip_smoke.py --participant
+MODULE ARG...`` is the TCP phases' participant runner: it runs
+``MODULE.main(ARG...)`` and prints that process's launch counts and
+peak memory.  ``python3 chip_smoke.py
+--trace-cost [PAIRS]`` measures the round tracer's cost on phase 30's
+round, traced and untraced in turns (:func:`measure_trace_cost`).
 
 It imports nothing of JAX.  It exits non-zero, printing no result, when
 there is no CUDA device or when the port's package is not beside it.
@@ -1495,10 +1519,19 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
     return {**simt, **codec}
 
 
+#: the protocol rounds' TinyLlama depth: 11 of its 22 blocks at full
+#: width, cut in the YAML's proportions (its rounds move every weight as
+#: float32 START and UPDATE frames, so their walls follow the depth)
+PROTOCOL_BLOCKS = 11
+PROTOCOL_CUTS = (1, 6, 9)
+
+
 def protocol_config(workdir: pathlib.Path, momentum: float, rounds: int):
     """``configs/baseline5.yaml`` as the protocol slice runs it:
-    use_flash, ``clients: [2, 1, 1, 1]``, an int8 codec on both cut
-    directions, every kernel flag on, the sharded fold with
+    use_flash, :data:`PROTOCOL_BLOCKS` of its 22 blocks cut at
+    :data:`PROTOCOL_CUTS` (the YAML's ``[1, 12, 18]`` at half depth, for
+    the script's time), ``clients: [2, 1, 1, 1]``, an int8 codec on both
+    cut directions, every kernel flag on, the sharded fold with
     ``server-momentum`` = ``momentum``; 32 samples (4 steps of 8) per
     edge client per round, 2 validation batches of 8."""
     from split_learning_torch.config import from_yaml
@@ -1506,8 +1539,11 @@ def protocol_config(workdir: pathlib.Path, momentum: float, rounds: int):
     cfg = from_yaml(HERE / "configs" / "baseline5.yaml")
     mk = dict(cfg.model_kwargs or {})
     mk["use_flash"] = True
+    mk["n_block"] = PROTOCOL_BLOCKS
     return dataclasses.replace(
         cfg, model_kwargs=mk, clients=(2, 1, 1, 1), global_rounds=rounds,
+        topology=dataclasses.replace(cfg.topology,
+                                     cut_layers=PROTOCOL_CUTS),
         val_max_batches=2, val_batch_size=8,
         distribution=dataclasses.replace(cfg.distribution, num_samples=32),
         transport=dataclasses.replace(
@@ -2237,10 +2273,10 @@ def phase_step_check() -> dict:
 VGG_PATH_KERNELS = ("quantize", "quantize_generic", "dequantize",
                     "finalize", "momentum")
 #: the in-process VGG runs: (label, YAML, rounds; None: the YAML's).
-#: Baseline 1 runs 2 of its 5 rounds, so that the script keeps to about
+#: Baseline 1 runs 1 of its 5 rounds, so that the script keeps to about
 #: ten minutes with configs 3 and 4 beside it
 VGG_SLICES = (("config", "config.yaml", None),
-              ("baseline1", "configs/baseline1.yaml", 2))
+              ("baseline1", "configs/baseline1.yaml", 1))
 
 
 def _run_slice(label: str, cfg) -> dict:
@@ -2309,16 +2345,18 @@ def _run_slice(label: str, cfg) -> dict:
 def phase_vgg_slice(workdir: pathlib.Path) -> dict:
     """``run_local`` on ``config.yaml`` (1 round, ``clients: [1, 1]``)
     and on ``configs/baseline1.yaml`` (``[2, 2]``: two lockstep
-    columns; 2 of its 5 rounds), each as written otherwise:
+    columns; 1 of its 5 rounds), each as written otherwise:
     VGG16/CIFAR10 in bfloat16 compute, cut at layer 7, SGD with
     momentum, FedAvg, validation on the 2000 synthetic test images, a
-    checkpoint (:func:`_run_slice`)."""
+    checkpoint (:func:`_run_slice`).  Each run's loop-owned span journal
+    and ``kind=round`` phases are read again (:func:`check_loop_trace`)."""
     out = {}
     for label, path, rounds in VGG_SLICES:
         cfg = yaml_config(workdir / f"vgg_{label}", path)
         if rounds is not None:
             cfg = dataclasses.replace(cfg, global_rounds=rounds)
         out[label] = _run_slice(label, cfg)
+        check_loop_trace(label, cfg.log_path, cfg.global_rounds)
     return out
 
 
@@ -2545,7 +2583,9 @@ def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
     shape (:func:`_run_tcp`: broker, server and two clients as
     processes), one round, against the same configuration run as the
     protocol round in one process: the samples must be equal, and no
-    kernel runs in either (every flag off)."""
+    kernel runs in either (every flag off).  The processes' span journals
+    share the server's trace id, and every consume span finds its publish
+    parent in another process's journal (:func:`check_journal_edges`)."""
     cfg_in = yaml_config(workdir / "vgg_inproc", "config.yaml")
     _reset_launches()
     t0 = time.perf_counter()
@@ -2573,6 +2613,10 @@ def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
     check(len(rounds) == 1 and rounds[0]["ok"]
           and math.isfinite(rounds[0]["val_loss"]),
           f"VGG TCP round failed: {rounds}")
+    # the processes' journals: one trace, every edge across processes
+    trace = check_journal_edges("config.yaml over TCP", cfg.log_path)
+    check(len(trace["participants"]) == 1 + sum(cfg.clients),
+          f"journals of {trace['participants']}")
     check(rounds[0]["num_samples"] == rec_in.num_samples,
           f"VGG TCP round: {rounds[0]['num_samples']} samples, in process "
           f"{rec_in.num_samples}")
@@ -2593,7 +2637,7 @@ def phase_vgg_tcp(workdir: pathlib.Path, timeout: float = 600.0) -> dict:
            "processes": {n: {k: r[k] for k in (
                "wall_s", "max_memory_allocated_bytes")}
                for n, r in reports.items()},
-           "card_memory_used_peak_mib": card_peak_mib}
+           "card_memory_used_peak_mib": card_peak_mib, "trace": trace}
     print(f"  config.yaml over TCP: round wall {out['round_wall_s']:.3f} s "
           f"(in process {rec_in.wall_s:.3f} s), {out['samples']} samples, "
           f"{out['train_samples_per_s']:.1f} training samples/s (in "
@@ -2725,7 +2769,7 @@ def _rounds_summary(label: str, result) -> list:
 
 def phase_baseline2_slice(workdir: pathlib.Path, profile: dict) -> dict:
     """BASELINE config 2 in process (``run_local``) as written but for
-    its rounds (2 of 5, for the script's time): 4 stage-1 clients at
+    its rounds (1 of 5, for the script's time): 4 stage-1 clients at
     2500 samples each clustered by KMeans into 2,
     selection on (equal speeds: nobody rejected), the even cut without
     profiles; every ``kernels:`` flag off, so no kernel may launch.
@@ -2737,7 +2781,7 @@ def phase_baseline2_slice(workdir: pathlib.Path, profile: dict) -> dict:
     out = {}
     profiles = {f"client_{s}_{i}": profile
                 for s, n in ((1, 4), (2, 2)) for i in range(n)}
-    for label, profs, rounds in (("even_cut", None, 2),
+    for label, profs, rounds in (("even_cut", None, 1),
                                  ("profiled_cut", profiles, 1)):
         changes = {} if rounds is None else {"global_rounds": rounds}
         cfg = baseline2_config(workdir / f"b2_{label}", **changes)
@@ -3038,14 +3082,14 @@ def baseline3_protocol_config(workdir: pathlib.Path, momentum: float):
 
 def phase_baseline3_slice(workdir: pathlib.Path) -> dict:
     """BASELINE config 3 in process (``run_local``) as written but for
-    its depth (2 of its 5 rounds, for the script's time):
+    its depth (1 of its 5 rounds, for the script's time):
     ResNet-50/CIFAR-100, ``[2, 2, 2]`` (two lockstep columns through
     three stages, cuts ``[3, 6]``), batch 64, control-count 4, 2500
     samples a client, SGD with momentum, bf16; the nested statistics of
     all 17 layers in the checkpoint (:func:`_run_slice`).  Then one
     round once more, warm and traced (:func:`phase_profile`)."""
     cfg = dataclasses.replace(yaml_config(workdir / "b3_slice", BASELINE3),
-                              global_rounds=2)
+                              global_rounds=1)
     out = _run_slice("baseline 3", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
@@ -3067,14 +3111,14 @@ def phase_baseline3_protocol(workdir: pathlib.Path) -> dict:
 
 def phase_baseline4_slice(workdir: pathlib.Path) -> dict:
     """BASELINE config 4 in process (``run_local``) as written but for
-    its depth (2 of its 5 rounds, for the script's time): ViT-S/16 on
+    its depth (1 of its 5 rounds, for the script's time): ViT-S/16 on
     CIFAR-10 (12 blocks, dropout 0.1), ``[2, 1]`` (one shared stage-2
     client: the columns' stage-2 gradients averaged every step), cut
     ``[10]``, batch 64, AdamW with weight decay 0.05, bf16
     (:func:`_run_slice`; no statistics).  Then one round once more, warm
     and traced."""
     cfg = dataclasses.replace(yaml_config(workdir / "b4_slice", BASELINE4),
-                              global_rounds=2)
+                              global_rounds=1)
     out = _run_slice("baseline 4", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
@@ -3097,11 +3141,11 @@ def phase_kwt_slice(workdir: pathlib.Path) -> dict:
     """KWT-1 on SpeechCommands in process (``run_local``) at its
     published width (``configs/kwt1_speechcommands.yaml``: embed 64, 1
     head, MLP 256, 12 blocks, 40 x 98 MFCCs, 10 classes), ``[2, 2]``, cut
-    2, AdamW at 1e-3, batch 32, bf16, the synthetic set, 2 of its 3
+    2, AdamW at 1e-3, batch 32, bf16, the synthetic set, 1 of its 3
     rounds, for the script's time (:func:`_run_slice`); then one round
     once more, warm and traced."""
     cfg = dataclasses.replace(yaml_config(workdir / "kwt_slice", KWT1),
-                              global_rounds=2)
+                              global_rounds=1)
     out = _run_slice("KWT-1", cfg)
     out["profile"] = phase_profile(dataclasses.replace(cfg,
                                                        global_rounds=1))
@@ -3639,8 +3683,16 @@ def phase_chaos_protocol(workdir: pathlib.Path) -> dict:
     over that bus.  The chaos run must end bit for bit at the fault-free
     parameters, with the fault-free runs' samples and launches (a
     redelivery resends bytes, it never encodes again), the counters of
-    :data:`CHAOS_MOVED` above 0, and no reliable daemon left running."""
-    from split_learning_torch.runtime.trace import default_fault_counters
+    :data:`CHAOS_MOVED` above 0, ``transport_rtt`` observed (one
+    observation an envelope's arrival), and no reliable daemon left
+    running."""
+    from split_learning_torch.runtime.trace import (
+        default_fault_counters, default_histograms,
+    )
+
+    def rtt_count() -> int:
+        return default_histograms.snapshot().get(
+            "transport_rtt", {}).get("count", 0)
     name = "dcsl_strict"
     out, params = {}, {}
     for label, chaos in (("fault_free_a", False), ("fault_free_b", False),
@@ -3653,12 +3705,14 @@ def phase_chaos_protocol(workdir: pathlib.Path) -> dict:
             box["result"] = result
             return server, bus, result
 
-        before = default_fault_counters.snapshot()
+        before, rtt0 = default_fault_counters.snapshot(), rtt_count()
         out[label] = _run_variant(f"{name} {label}", cfg, run)
         out[label]["faults"] = _fault_delta(before)
+        out[label]["transport_rtt"] = rtt_count() - rtt0
         _check_variant_launches(name, out[label]["launches"])
         params[label] = _host_tree(box["result"].params)
-        print(f"  {label}: faults {out[label]['faults']}")
+        print(f"  {label}: faults {out[label]['faults']}; transport_rtt "
+              f"observations {out[label]['transport_rtt']}")
     differ = _differing_leaves(params["fault_free_a"],
                                params["fault_free_b"])
     check(not differ, f"the two fault-free runs differ at {differ[:8]} "
@@ -3676,6 +3730,9 @@ def phase_chaos_protocol(workdir: pathlib.Path) -> dict:
     for k in CHAOS_MOVED:
         check(chaos["faults"].get(k, 0) > 0,
               f"the chaos run moved no {k}: {chaos['faults']}")
+    # the reliable receiver times every envelope's arrival
+    check(chaos["transport_rtt"] > 0, "the chaos run observed no "
+          "transport_rtt")
     for label in ("fault_free_a", "fault_free_b"):
         check(not any(out[label]["faults"].get(k) for k in CHAOS_MOVED),
               f"{label} counted faults: {out[label]['faults']}")
@@ -4787,8 +4844,541 @@ def phase_tree_protocol(workdir: pathlib.Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 30. round tracing: the traced VGG16 protocol round
+# --------------------------------------------------------------------------
+
+#: the critical-path components of ``tools/sl_trace.py``, in its order
+TRACE_COMPONENTS = ("compute", "compile", "wire", "queue_wait",
+                    "aggregate", "control")
+#: the latency histograms a traced protocol round must fill
+TRACE_HISTS = ("frame_rtt", "encode", "decode", "step", "queue_wait",
+               "agg_fold")
+DATA_QUEUES = ("intermediate_queue", "gradient_queue")
+TRACE_KERNELS = ("quantize", "dequantize", "finalize", "momentum")
+
+
+def trace_protocol_config(workdir: pathlib.Path, traced: bool):
+    """Cell 6's round at ``server-momentum: 0.9``
+    (:func:`vgg_protocol_config`: baseline 1, int8 on both data planes,
+    every kernel flag on, the sharded fold), made deterministic so that
+    two runs can be held bit for bit: each feeder paired to its own head
+    (``topology.in-clusters: 2``; on the shared queue the two heads take
+    batches as they arrive) and lockstep feeders (``control-count: 1``;
+    with 4 batches in flight a forward runs before or after an earlier
+    batch's update as the gradients happen to arrive).
+    ``observability`` as the YAML leaves it (on) at ``sample-rate:
+    1.0``, or off."""
+    cfg = vgg_protocol_config(workdir, 0.9)
+    return dataclasses.replace(
+        cfg, topology=dataclasses.replace(cfg.topology, in_clusters=2),
+        learning=dataclasses.replace(cfg.learning, control_count=1),
+        observability=dataclasses.replace(
+            cfg.observability, enabled=traced, sample_rate=1.0)).validate()
+
+
+def _span_records(log_path) -> list:
+    """Every span record the participants journaled under ``log_path``
+    (the run directories' journals, not their compat links)."""
+    return [json.loads(line)
+            for f in sorted(pathlib.Path(log_path).glob(
+                "artifacts/runs/*/spans-*.jsonl"))
+            for line in f.read_text().splitlines() if line.strip()]
+
+
+def _flow_edges(recs: list) -> tuple:
+    """The consume spans whose parent is a publish span of another
+    participant (the frame edges), and those whose parent is not."""
+    by_id = {r["span"]: r for r in recs}
+    good, bad = [], []
+    for r in recs:
+        if r["name"] != "consume":
+            continue
+        pub = by_id.get(r.get("parent"))
+        ok = (pub is not None and pub["name"] == "publish"
+              and pub["part"] != r["part"])
+        (good if ok else bad).append(r)
+    return good, bad
+
+
+def _sl_trace(directory: pathlib.Path, out: pathlib.Path) -> list:
+    """``tools/sl_trace.py DIR --json -o OUT`` as a subprocess: the
+    per-round critical-path reports."""
+    proc = subprocess.run(
+        [sys.executable, str(HERE / "tools" / "sl_trace.py"),
+         str(directory), "--json", "-o", str(out)],
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"tools/sl_trace.py exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout[proc.stdout.index("["):])
+
+
+def _latest_latency(records: list) -> dict:
+    """Each participant's last ``kind=latency`` record (cumulative)."""
+    out = {}
+    for r in records:
+        if r.get("kind") == "latency":
+            out[r["participant"]] = r
+    return out
+
+
+def _run_traced(label: str, cfg) -> dict:
+    """One run of :func:`trace_protocol_config` in one process with its
+    codec and stage-update launches held bit for bit
+    (:func:`_hold_on_path`), counted, and the data-plane parts the bus
+    carried tallied (chunk parts and chunked frames apart)."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+    from split_learning_torch.runtime import bus as tbus
+    from split_learning_torch.runtime.protocol import CHUNK_MAGIC
+    from split_learning_torch.runtime.trace import default_wire_counters
+
+    held, seen = {}, {}
+    parts = {"parts": 0, "chunk_parts": 0, "chunked_frames": 0}
+    publish = tbus.InProcTransport.publish
+
+    def tap(bus, queue, payload):
+        if queue.startswith(DATA_QUEUES):
+            parts["parts"] += 1
+            if payload[:4] == CHUNK_MAGIC:
+                parts["chunk_parts"] += 1
+                # chunk index 0: magic | crc | message id | idx | total
+                parts["chunked_frames"] += payload[24:28] == b"\0" * 4
+        return publish(bus, queue, payload)
+
+    originals = _hold_on_path(kq, ku, held, seen)
+    tbus.InProcTransport.publish = tap
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _reset_launches()
+        w0 = default_wire_counters.snapshot()
+        t0 = time.perf_counter()
+        server, clients, bus, res = run_protocol(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        w1 = default_wire_counters.snapshot()
+    finally:
+        tbus.InProcTransport.publish = publish
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
+    rec = res.history[0]
+    check(len(res.history) == 1 and rec.ok and math.isfinite(rec.val_loss),
+          f"trace run {label} failed: {res.history}")
+    want = _expected_samples(cfg, protocol=True)
+    check(rec.num_samples == want, f"trace run {label}: "
+          f"{rec.num_samples} samples, expected {want}")
+    check(server.ctx.last_fold.folded == sum(cfg.clients),
+          f"trace run {label}: folded {server.ctx.last_fold.folded}")
+    _check_stats_checkpoint(cfg, res, 1)
+    _check_held(f"trace run {label}", 0.9, held, launches)
+    for name in OFF_PATH_KERNELS:
+        check(launches[name] == 0, f"trace run {label}: {name} ran "
+              f"{launches[name]} times")
+    for name in TRACE_KERNELS:
+        check(launches[name] > 0, f"trace run {label}: kernel {name} "
+              "was not launched")
+    # in one process every participant counts in the process-wide wire
+    # registry (the bus they share carries none of its own)
+    check(all(p.wire is default_wire_counters
+              for p in (server.ctx, *clients)), "a participant counts its "
+          "wire traffic outside the process-wide registry")
+    data_bus = sum(n for q, n in bus.bytes_out_snapshot().items()
+                   if q.startswith(DATA_QUEUES))
+    return {"cfg": cfg, "server": server, "clients": clients, "res": res,
+            "wall": wall, "launches": launches, "held": held,
+            "peak": torch.cuda.max_memory_allocated(),
+            "wire": {k: w1[k] - w0[k] for k in w1
+                     if isinstance(w1[k], (int, float))},
+            "data_bus_bytes": data_bus, "parts": parts,
+            "fam": _family_bytes(bus)}
+
+
+def phase_trace_protocol(workdir: pathlib.Path) -> dict:
+    """Cell 26: :func:`trace_protocol_config` as the protocol round in one
+    process, run a traced (the default ``observability`` block,
+    ``sample-rate: 1.0``) and run b with tracing off, from the same seed
+    (:func:`_run_traced`).  Fails unless:
+
+    1. a's parameters and BatchNorm statistics are bit for bit b's;
+    2. a's quantize, dequantize, finalize and momentum launches equal
+       b's, every one held bit for bit against its plain version;
+    3. there is one schema-v1 journal per participant, every record of
+       the server's trace id (the clients adopt it from START);
+    4. every consume span's parent is a publish span in the sending
+       participant's journal: the clients' consumes as many as the
+       dequantize launches, their data-queue publishes as many as the
+       quantize launches, the server's consumes its UPDATEs;
+    5. the clients' ``kind=latency`` records count ``frame_rtt`` once a
+       client consume, the server's once an UPDATE folded, and
+       ``encode``, ``decode``, ``step``, ``queue_wait`` and ``agg_fold``
+       are filled;
+    6. the wire counters' data-plane bytes are the bytes the bus carried
+       on the data queues, and a's exceed b's by exactly 32 bytes a part
+       (and 32 more a chunked frame, whose inner frame carries the
+       context too);
+    7. ``kind=round`` carries ``phases`` with train, validate and
+       checkpoint;
+    8. ``tools/sl_trace.py`` on a's journals (``trace.json`` beside
+       them): the round's six components sum to its wall within 1 ms,
+       over as many frame edges as check 4 found.
+
+    Prints both walls and their ratio (the tracer's cost), the
+    histograms, the critical-path split and its slowest edges, and the
+    journals' sizes."""
+    runs = {label: _run_traced(label, trace_protocol_config(
+        workdir / f"trace_{label}", traced))
+        for label, traced in (("a", True), ("b", False))}
+    a, b = runs["a"], runs["b"]
+    log_a = pathlib.Path(a["cfg"].log_path)
+    # 1-2. tracing changes nothing the round computes or launches
+    for what in ("params", "stats"):
+        differ = _differing_leaves(_host_tree(getattr(a["res"], what)),
+                                   _host_tree(getattr(b["res"], what)))
+        check(not differ, f"traced and untraced {what} differ at "
+              f"{differ[:8]} ({len(differ)} leaves)")
+    for name in TRACE_KERNELS:
+        check(a["launches"][name] == b["launches"][name],
+              f"{name}: {a['launches'][name]} launches traced, "
+              f"{b['launches'][name]} untraced")
+    check(not _span_records(b["cfg"].log_path),
+          "the untraced run journaled spans")
+    # 3. one journal a participant, one trace
+    journals = sorted(log_a.glob("artifacts/runs/*/spans-*.jsonl"))
+    names = sorted(j.name for j in journals)
+    ids = ["server"] + [c.client_id for c in a["clients"]]
+    check(names == sorted(f"spans-{p}.jsonl" for p in ids),
+          f"journals {names}")
+    recs = _span_records(log_a)
+    trace_id = a["server"].ctx.tracer.trace_id
+    check(all(r["v"] == 1 for r in recs), "a record is not schema v1")
+    check({r["trace"] for r in recs} == {trace_id},
+          f"trace ids {sorted({r['trace'] for r in recs})}, server "
+          f"{trace_id}")
+    # 4. the flow edges
+    edges, orphans = _flow_edges(recs)
+    check(not orphans, f"{len(orphans)} consume spans without a publish "
+          f"parent in the sender's journal: {orphans[:3]}")
+    consumes = [e for e in edges if e["part"] != "server"]
+    updates = [e for e in edges if e["part"] == "server"]
+    publishes = [r for r in recs if r["name"] == "publish"
+                 and r.get("queue", "").startswith(DATA_QUEUES)]
+    quantized = a["launches"]["quantize"] + a["launches"]["quantize_generic"]
+    check(len(consumes) == a["launches"]["dequantize"],
+          f"{len(consumes)} client consume spans, "
+          f"{a['launches']['dequantize']} dequantize launches")
+    check(len(publishes) == quantized, f"{len(publishes)} data-queue "
+          f"publish spans, {quantized} quantize launches")
+    check(len(updates) == a["server"].ctx.last_fold.folded
+          and all(e["kind"] == "Update" for e in updates),
+          f"server consumes {[e['kind'] for e in updates]}")
+    print(f"  trace run a: {len(consumes)} client consume spans = "
+          f"{a['launches']['dequantize']} dequantize launches; "
+          f"{len(publishes)} data-queue publish spans = {quantized} "
+          f"quantize launches; {len(updates)} UPDATE consumes at the "
+          f"server; {len(edges)} frame edges, 0 orphans")
+    # 5. the latency histograms
+    records = _metrics(log_a)
+    lat = _latest_latency(records)
+    check(set(lat) == set(ids), f"latency records from {sorted(lat)}")
+    rtt_clients = sum(lat[c]["frame_rtt"]["count"] for c in ids[1:])
+    check(rtt_clients == len(consumes), f"client frame_rtt count "
+          f"{rtt_clients}, client consume spans {len(consumes)}")
+    check(lat["server"]["frame_rtt"]["count"] == len(updates),
+          f"server frame_rtt count {lat['server']['frame_rtt']}, "
+          f"{len(updates)} UPDATEs folded")
+    hists = {}
+    for name in TRACE_HISTS:
+        per = {p: {k: r[name][k] for k in ("count", "p50_ms", "p95_ms",
+                                            "p99_ms", "max_ms")}
+               for p, r in lat.items() if name in r}
+        check(per and all(h["count"] > 0 for h in per.values()),
+              f"histogram {name} missing or empty: {per}")
+        hists[name] = per
+        print(f"  histogram {name}: " + "; ".join(
+            f"{p} {h['count']} p50 {h['p50_ms']} p95 {h['p95_ms']} p99 "
+            f"{h['p99_ms']} max {h['max_ms']} ms" for p, h in per.items()))
+    # 6. the wire counters against the bus, and the context's bytes
+    for label, r in runs.items():
+        check(r["wire"]["data_bytes_out"] == r["data_bus_bytes"],
+              f"run {label}: wire counters' data bytes "
+              f"{r['wire']['data_bytes_out']}, the bus "
+              f"{r['data_bus_bytes']}")
+    check(a["parts"] == b["parts"], f"data-plane parts {a['parts']} "
+          f"traced, {b['parts']} untraced")
+    extra = 32 * (a["parts"]["parts"] + a["parts"]["chunked_frames"])
+    check(a["data_bus_bytes"] - b["data_bus_bytes"] == extra,
+          f"data bytes {a['data_bus_bytes']} traced, "
+          f"{b['data_bus_bytes']} untraced: not {extra} apart")
+    # 7. the loop's phase timer
+    rounds = [r for r in records if r.get("kind") == "round"]
+    check(len(rounds) == 1 and {"train", "validate", "checkpoint"}
+          <= set(rounds[0].get("phases", {})),
+          f"kind=round phases {[r.get('phases') for r in rounds]}")
+    # 8. the critical path
+    report = _sl_trace(log_a, log_a / "trace.json")
+    check(len(report) == 1, f"{len(report)} critical-path reports")
+    cp = report[0]
+    check(abs(cp["components_sum_s"] - cp["wall_s"]) <= 1e-3,
+          f"components sum {cp['components_sum_s']} s, wall "
+          f"{cp['wall_s']} s")
+    check(cp["frame_edges"] == len(edges), f"sl_trace counts "
+          f"{cp['frame_edges']} frame edges, the journals {len(edges)}")
+    comp = cp["components_s"]
+    print("  critical path of the traced round: wall "
+          f"{cp['wall_s']:.6f} s = " + " + ".join(
+              f"{k} {comp[k]:.6f} s ({comp[k] / cp['wall_s']:.2%})"
+              for k in TRACE_COMPONENTS)
+          + f" (sum {cp['components_sum_s']:.6f}); {cp['path_spans']} "
+          f"spans on the path; slowest edges " + "; ".join(
+              f"{e['kind']} {e['from']} -> {e['to']} on {e['queue']} "
+              f"{e['rtt_ms']} ms" for e in cp["slowest_edges"][:3]))
+    journal_bytes = {j.name: j.stat().st_size for j in journals}
+    walls = {k: r["res"].history[0].wall_s for k, r in runs.items()}
+    out = {"launches": {k: a["launches"][k] + b["launches"][k]
+                        for k in a["launches"]},
+           "critical_path": cp, "histograms": hists,
+           "frame_edges": len(edges), "client_consumes": len(consumes),
+           "data_publishes": len(publishes), "spans": len(recs),
+           "journal_bytes": journal_bytes,
+           "traced_vs_untraced_round_wall": walls["a"] / walls["b"]}
+    for label, r in runs.items():
+        rec = r["res"].history[0]
+        out[label] = {
+            "round_wall_s": rec.wall_s, "run_wall_s": r["wall"],
+            "samples": rec.num_samples,
+            "train_samples_per_s": rec.num_samples / rec.wall_s,
+            "val_loss": rec.val_loss, "val_accuracy": rec.val_accuracy,
+            "phases": r["server"].ctx.round_phases,
+            "bytes_by_family": r["fam"], "data_parts": r["parts"],
+            "wire": r["wire"], "launches": r["launches"],
+            "held": r["held"], "max_memory_allocated_bytes": r["peak"]}
+        print(f"  trace run {label}: round wall {rec.wall_s:.3f} s (run "
+              f"{r['wall']:.3f} s), {rec.num_samples} samples, "
+              f"{rec.num_samples / rec.wall_s:.1f} training samples/s, "
+              f"val_loss {rec.val_loss:.4f} val_acc "
+              f"{rec.val_accuracy:.4f}; phases "
+              f"{r['server'].ctx.round_phases}; data parts {r['parts']}; "
+              f"bytes by family {r['fam']}; peak "
+              f"{r['peak'] / 2**30:.2f} GiB; launches {r['launches']}")
+    print(f"  traced / untraced round wall {walls['a']:.3f} / "
+          f"{walls['b']:.3f} s = {out['traced_vs_untraced_round_wall']:.4f};"
+          f" {len(recs)} spans, journals {journal_bytes} B; parameters "
+          f"and statistics bit for bit equal; data bytes +{extra} B "
+          f"traced")
+    return out
+
+
+def check_journal_edges(label: str, log_path) -> dict:
+    """An earlier phase's journals, read again: every participant's
+    records share one trace id and every consume span finds its publish
+    parent in another participant's journal (no new run)."""
+    recs = _span_records(log_path)
+    parts = sorted({r["part"] for r in recs})
+    traces = {r["trace"] for r in recs}
+    edges, orphans = _flow_edges(recs)
+    check(recs and len(traces) == 1, f"{label}: {len(recs)} spans over "
+          f"trace ids {sorted(traces)}")
+    check(edges and not orphans, f"{label}: {len(edges)} frame edges, "
+          f"{len(orphans)} consume spans without a publish parent")
+    print(f"  {label}: journals of {parts} share one trace; {len(edges)} "
+          f"frame edges across participants, 0 orphans")
+    return {"participants": parts, "spans": len(recs),
+            "frame_edges": len(edges)}
+
+
+def check_loop_trace(label: str, log_path, rounds: int) -> None:
+    """An in-process run's loop-owned journal and records, read again:
+    ``round``, ``train``, ``validate`` and ``checkpoint`` spans a round,
+    and ``phases`` with those three in every ``kind=round`` record."""
+    recs = _span_records(log_path)
+    counts = {n: sum(r["name"] == n for r in recs)
+              for n in ("round", "train", "validate", "checkpoint")}
+    check(all(n == rounds for n in counts.values())
+          and {r["part"] for r in recs} == {"server"},
+          f"{label}: loop spans {counts} over {rounds} rounds")
+    phases = [r.get("phases", {}) for r in _metrics(pathlib.Path(log_path))
+              if r.get("kind") == "round"]
+    check(len(phases) == rounds and all(
+        {"train", "validate", "checkpoint"} <= set(p) for p in phases),
+        f"{label}: kind=round phases {phases}")
+    print(f"  {label}: loop spans {counts}; phases "
+          f"{[{k: v['total_s'] for k, v in p.items()} for p in phases]}")
+
+
+def measure_trace_cost(pairs: int) -> dict:
+    """``python3 chip_smoke.py --trace-cost PAIRS``: the round tracer's
+    cost on the card, in turns.  After the build and one untraced warm-up
+    round (the process's first VGG16 round pays cuDNN's set-up), cell
+    26's round (:func:`trace_protocol_config`) runs traced and untraced
+    ``pairs`` times, alternating which goes first (a b, b a, ...), and
+    one JSON line gives every run's round and phase walls, each pair's
+    traced / untraced ratio and the medians.  A measurement, not a check:
+    it fails only where a phase fails."""
+    phase_device()
+    phase_build()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="slt_trace_cost_"))
+    run_protocol(trace_protocol_config(work / "warm", False))
+    runs = []
+    for i in range(pairs):
+        for traced in ((True, False) if i % 2 == 0 else (False, True)):
+            cfg = trace_protocol_config(
+                work / f"{'a' if traced else 'b'}{i}", traced)
+            server, _, _, res = run_protocol(cfg)
+            runs.append({"pair": i, "traced": traced,
+                         "round_wall_s": res.history[0].wall_s,
+                         "phases": server.ctx.round_phases[0]})
+    walls = {t: [r["round_wall_s"] for r in runs if r["traced"] is t]
+             for t in (True, False)}
+    ratios = [a / b for a, b in zip(walls[True], walls[False])]
+    out = {"card": torch.cuda.get_device_name(0), "runs": runs,
+           "pair_ratios": ratios,
+           "median_traced_s": statistics.median(walls[True]),
+           "median_untraced_s": statistics.median(walls[False]),
+           "median_ratio": statistics.median(ratios)}
+    print(json.dumps(out))
+    return out
+
+
+#: phases 4-30, in groups that run at once, each in a process of its own
+#: on the card (``--group NAME``, :func:`run_group`): a group runs its
+#: phases in order, and a phase that reads an earlier phase's result
+#: (``r``) is in that phase's group.  The groups are balanced by the
+#: phases' walls on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6):
+#: 234-269 s each, one after another.  Each entry is (the phase's key in
+#: the result line, the phase as a function of the shared working
+#: directory and the group's results so far).
+PHASE_GROUPS = {
+    "tinyllama": (
+        ("slice", lambda w, r: phase_slice(slice_config(w))),
+        ("profile", lambda w, r: phase_profile(slice_config(w))),
+        ("protocol", lambda w, r: phase_protocol(w)),
+        ("protocol_tcp", lambda w, r: phase_protocol_tcp(w, r["protocol"])),
+        ("step_check", lambda w, r: phase_step_check()),
+        ("bert_slice", lambda w, r: phase_bert_slice(w)),
+        ("bert_protocol", lambda w, r: phase_bert_protocol(w))),
+    "vgg": (
+        ("vgg_slice", lambda w, r: phase_vgg_slice(w)),
+        ("vgg_profile", lambda w, r: phase_profile(
+            yaml_config(w / "vgg_profile", "config.yaml"))),
+        ("vgg_protocol", lambda w, r: phase_vgg_protocol(w)),
+        ("vgg_tcp", lambda w, r: phase_vgg_tcp(w)),
+        ("async_protocol",
+         lambda w, r: phase_async_protocol(w, r["vgg_protocol"])),
+        ("codec_protocol", lambda w, r: phase_codec_protocol(w)),
+        ("tree_protocol", lambda w, r: phase_tree_protocol(w)),
+        ("trace_protocol", lambda w, r: phase_trace_protocol(w))),
+    "baselines": (
+        ("profiler", lambda w, r: phase_profiler(w)),
+        ("baseline2_slice", lambda w, r: phase_baseline2_slice(
+            w, r["profiler"]["profile"])),
+        ("baseline2_protocol", lambda w, r: phase_baseline2_protocol(
+            w, r["profiler"]["profile"])),
+        ("strategies", lambda w, r: phase_strategies(w)),
+        ("baseline3_slice", lambda w, r: phase_baseline3_slice(w)),
+        ("baseline3_protocol", lambda w, r: phase_baseline3_protocol(w)),
+        ("baseline4_slice", lambda w, r: phase_baseline4_slice(w))),
+    "kwt": (
+        ("kwt_slice", lambda w, r: phase_kwt_slice(w)),
+        ("variants", lambda w, r: phase_variants(w)),
+        ("variants_protocol", lambda w, r: phase_variants_protocol(w)),
+        ("variants_tcp",
+         lambda w, r: phase_variants_tcp(w, r["variants_protocol"])),
+        ("chaos_protocol", lambda w, r: phase_chaos_protocol(w)),
+        ("chaos_tcp", lambda w, r: phase_chaos_tcp(w, r["chaos_protocol"]))),
+}
+#: seconds from the script's start by which every group must have ended:
+#: the script then fails with the groups' logs, inside the 1200 s that
+#: a run of it is given
+GROUPS_DEADLINE_S = 1140.0
+
+
+def _stop_on_term(signum, frame):
+    raise SmokeFailure(f"stopped by signal {signum}")
+
+
+def run_group(name: str, workdir: pathlib.Path, out: pathlib.Path) -> int:
+    """``chip_smoke.py --group NAME WORKDIR OUT``: the phases of
+    ``PHASE_GROUPS[NAME]`` in order, in this process, with the kernels
+    the script built loaded from ``build/``; writes their results to
+    ``OUT`` as one JSON object.  SIGTERM raises :class:`SmokeFailure`,
+    so that a phase's own clean-up (its TCP processes) runs."""
+    signal.signal(signal.SIGTERM, _stop_on_term)
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    results: dict = {}
+    for key, fn in PHASE_GROUPS[name]:
+        print(f"[{key}] at {time.perf_counter() - t0:.1f} s", flush=True)
+        results[key] = fn(workdir, results)
+    print(f"[{name} done] at {time.perf_counter() - t0:.1f} s", flush=True)
+    out.write_text(json.dumps(results))
+    return 0
+
+
+def run_groups(workdir: pathlib.Path, t_start: float) -> dict:
+    """Every group of :data:`PHASE_GROUPS` at once, one process each
+    (its own session, stopped by SIGTERM and then SIGKILL on any failure
+    or at :data:`GROUPS_DEADLINE_S`); prints each group's log in order
+    once all have ended, and returns their results merged."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()   # the kernel phases' cache, for the groups
+    procs: dict = {}
+    failed = None
+    try:
+        for name in PHASE_GROUPS:
+            log = workdir / f"group_{name}.log"
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--group",
+                 name, str(workdir), str(workdir / f"group_{name}.json")],
+                cwd=HERE, stdout=log.open("w"), stderr=subprocess.STDOUT,
+                env={**os.environ, "PYTHONUNBUFFERED": "1"},
+                start_new_session=True), log, time.perf_counter())
+        walls: dict = {}
+        while failed is None and len(walls) < len(procs):
+            for name, (p, _, t0) in procs.items():
+                rc = p.poll()
+                if rc is not None and name not in walls:
+                    walls[name] = time.perf_counter() - t0
+                    print(f"group {name} ended {rc} after "
+                          f"{walls[name]:.1f} s", flush=True)
+                    if rc != 0:
+                        failed = f"group {name} exited {rc}"
+            if time.perf_counter() - t_start > GROUPS_DEADLINE_S:
+                failed = (f"groups {sorted(set(procs) - set(walls))} still "
+                          f"running at {GROUPS_DEADLINE_S:.0f} s")
+            time.sleep(0.5)
+    finally:
+        live = [p for p, _, _ in procs.values() if p.poll() is None]
+        for p in live:
+            p.terminate()
+        for p in live:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                pass
+        for p, _, _ in procs.values():
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait(timeout=30)
+    for name, (_, log, _) in procs.items():
+        print(f"===== group {name} =====")
+        print(log.read_text(), end="", flush=True)
+    check(failed is None, failed)
+    results: dict = {}
+    for name in PHASE_GROUPS:
+        results.update(json.loads(
+            (workdir / f"group_{name}.json").read_text()))
+    return results
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    signal.signal(signal.SIGTERM, _stop_on_term)   # the groups stop too
 
     def mark(name: str) -> None:
         print(f"[{name}] at {time.perf_counter() - t_start:.1f} s",
@@ -4807,63 +5397,24 @@ def main() -> int:
         workdir = pathlib.Path(tmp)
         mark("protocol_check")
         tiny = phase_protocol_check(workdir)
-        mark("slice")
-        cfg = slice_config(workdir)
-        sl = phase_slice(cfg)
-        mark("profile")
-        prof = phase_profile(cfg)
-        mark("protocol")
-        proto = phase_protocol(workdir)
-        mark("protocol_tcp")
-        tcp = phase_protocol_tcp(workdir, proto)
-        mark("step_check")
-        step = phase_step_check()
-        mark("vgg_slice")
-        vgg_sl = phase_vgg_slice(workdir)
-        mark("vgg_profile")
-        vgg_prof = phase_profile(yaml_config(workdir / "vgg_profile",
-                                             "config.yaml"))
-        mark("vgg_protocol")
-        vgg_proto = phase_vgg_protocol(workdir)
-        mark("vgg_tcp")
-        vgg_tcp = phase_vgg_tcp(workdir)
-        mark("profiler")
-        prof_b2 = phase_profiler(workdir)
-        mark("baseline2_slice")
-        b2_slice = phase_baseline2_slice(workdir, prof_b2["profile"])
-        mark("baseline2_protocol")
-        b2_proto = phase_baseline2_protocol(workdir, prof_b2["profile"])
-        mark("strategies")
-        strategies = phase_strategies(workdir)
-        mark("baseline3_slice")
-        b3_slice = phase_baseline3_slice(workdir)
-        mark("baseline3_protocol")
-        b3_proto = phase_baseline3_protocol(workdir)
-        mark("baseline4_slice")
-        b4_slice = phase_baseline4_slice(workdir)
-        mark("kwt_slice")
-        kwt_slice = phase_kwt_slice(workdir)
-        mark("variants")
-        variants = phase_variants(workdir)
-        mark("variants_protocol")
-        variants_proto = phase_variants_protocol(workdir)
-        mark("variants_tcp")
-        variants_tcp = phase_variants_tcp(workdir, variants_proto)
-        mark("chaos_protocol")
-        chaos_proto = phase_chaos_protocol(workdir)
-        mark("chaos_tcp")
-        chaos_tcp = phase_chaos_tcp(workdir, chaos_proto)
-        mark("bert_slice")
-        bert_slice = phase_bert_slice(workdir)
-        mark("bert_protocol")
-        bert_proto = phase_bert_protocol(workdir)
-        mark("async_protocol")
-        async_proto = phase_async_protocol(workdir, vgg_proto)
-        mark("codec_protocol")
-        codec_proto = phase_codec_protocol(workdir)
-        mark("tree_protocol")
-        tree_proto = phase_tree_protocol(workdir)
+        mark("groups")
+        results = run_groups(workdir, t_start)
     mark("summary")
+    sl, proto, tcp = (results[k] for k in ("slice", "protocol",
+                                            "protocol_tcp"))
+    vgg_sl, vgg_proto, vgg_tcp = (results[k] for k in (
+        "vgg_slice", "vgg_protocol", "vgg_tcp"))
+    b2_proto, b3_slice, b3_proto, b4_slice, kwt_slice = (
+        results[k] for k in ("baseline2_protocol", "baseline3_slice",
+                             "baseline3_protocol", "baseline4_slice",
+                             "kwt_slice"))
+    bert_slice, bert_proto = results["bert_slice"], results["bert_protocol"]
+    variants_proto, variants_tcp = (results["variants_protocol"],
+                                    results["variants_tcp"])
+    chaos_proto, chaos_tcp = results["chaos_protocol"], results["chaos_tcp"]
+    async_proto, codec_proto, tree_proto, trace_proto = (
+        results[k] for k in ("async_protocol", "codec_protocol",
+                             "tree_protocol", "trace_protocol"))
     entries = []
     for name, r in kernels.items():
         source, replaces = KERNELS[name]
@@ -4897,6 +5448,7 @@ def main() -> int:
         by_path["codec_protocol"] = codec_proto["launches"][name]
         by_path["tree_protocol"] = sum(tree_proto[run]["launches"][name]
                                        for run in ("a", "b"))
+        by_path["trace_protocol"] = trace_proto["launches"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -4958,27 +5510,8 @@ def main() -> int:
             # profiler device times beside the events' ms
             "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"], **extra})
-    print(json.dumps({"slice": sl, "profile": prof, "protocol": proto,
-                      "protocol_tcp": tcp, "step_check": step,
-                      "vgg_slice": vgg_sl, "vgg_profile": vgg_prof,
-                      "vgg_protocol": vgg_proto,
-                      "vgg_tcp": vgg_tcp, "profiler": prof_b2,
-                      "baseline2_slice": b2_slice,
-                      "baseline2_protocol": b2_proto,
-                      "strategies": strategies,
-                      "baseline3_slice": b3_slice,
-                      "baseline3_protocol": b3_proto,
-                      "baseline4_slice": b4_slice,
-                      "kwt_slice": kwt_slice, "variants": variants,
-                      "variants_protocol": variants_proto,
-                      "variants_tcp": variants_tcp,
-                      "chaos_protocol": chaos_proto,
-                      "chaos_tcp": chaos_tcp,
-                      "bert_slice": bert_slice,
-                      "bert_protocol": bert_proto,
-                      "async_protocol": async_proto,
-                      "codec_protocol": codec_proto,
-                      "tree_protocol": tree_proto}))
+    print(json.dumps({k: results[k] for group in PHASE_GROUPS.values()
+                      for k, _ in group}))
     print(json.dumps({"kernels": entries}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -4991,6 +5524,12 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--participant"]:
             sys.exit(participant_main(sys.argv[2:]))
+        if sys.argv[1:2] == ["--group"]:
+            sys.exit(run_group(sys.argv[2], pathlib.Path(sys.argv[3]),
+                               pathlib.Path(sys.argv[4])))
+        if sys.argv[1:2] == ["--trace-cost"]:
+            measure_trace_cost(int((sys.argv[2:3] or ["3"])[0]))
+            sys.exit(0)
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -348,9 +348,11 @@ class StreamingFold:
     ``expected`` maps stage -> the ordered list of contribution keys
     (client ids, or group keys at an aggregator-tree root).  Duplicate
     contributions for a key are dropped and counted (``agg_dup_drops``).
-    Thread-safe."""
+    With ``hists`` each fold of an Update or a partial into the running
+    sum is observed as ``agg_fold``.  Thread-safe."""
 
-    def __init__(self, expected: dict, *, backend=None, faults=None):
+    def __init__(self, expected: dict, *, backend=None, faults=None,
+                 hists=None):
         self.backend = backend if backend is not None else HostFoldBackend()
         if faults is None:
             from split_learning_torch.runtime.trace import (
@@ -358,6 +360,7 @@ class StreamingFold:
             )
             faults = default_fault_counters
         self.faults = faults
+        self.hists = hists
         self._lock = threading.Lock()
         self._stages = {int(s): _StageFold(keys)
                         for s, keys in expected.items()}
@@ -466,7 +469,10 @@ class StreamingFold:
             self._fold_partial_item(st, item[1])
         st.folded.add(key)
         self.folded += 1
-        self.fold_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.fold_s += dt
+        if self.hists is not None:
+            self.hists.observe("agg_fold", dt)
 
     def _fold_update_item(self, st: _StageFold, u: Update,
                           scale: float) -> None:

@@ -35,10 +35,17 @@ round's two shapes run it:
 Blocking ``get`` waits on a condition variable or a socket, never by
 polling.
 
-Not ported: the native C++ broker, the broker's span journal and
-flight-recorder queue (``__broker__.blackbox``), and the receiver's
-``transport_rtt`` histogram (the data envelope carries its send time
-all the same, so either package's receiver parses the port's frames).
+Latency clocks (``runtime/trace.py``): the in-process bus and the
+broker observe each frame's queue residency as ``queue_wait``, the
+reliable receiver each data envelope's age on arrival as
+``transport_rtt`` (both into the process-wide ``default_histograms``,
+outside every lock of the bus), and the async sender its thunks as
+``encode`` into the participant's own ``HistogramSet``, beside its
+``WireCounters`` (bytes and frames out and in per queue, encode
+seconds, the send queue's high-water mark).
+
+Not ported: the native C++ broker, and the broker's span journal and
+flight-recorder queue (``__broker__.blackbox``).
 """
 
 from __future__ import annotations
@@ -102,7 +109,10 @@ class Transport:
 
 
 class InProcTransport(Transport):
-    """Thread-safe in-process queues."""
+    """Thread-safe in-process queues.  Entries are ``(t_enqueue,
+    payload)``: the dequeue observes the queue wait into the
+    process-wide ``queue_wait`` histogram (``runtime/trace.py``), the one
+    hop the frame's own trace context cannot time from either end."""
 
     def __init__(self):
         super().__init__()
@@ -111,13 +121,15 @@ class InProcTransport(Transport):
         self._queues: dict[str, collections.deque] = \
             collections.defaultdict(collections.deque)
         self._closed = False
+        from split_learning_torch.runtime.trace import default_histograms
+        self._hists = default_histograms
 
     def publish(self, queue: str, payload: bytes) -> None:
         self._count(queue, payload)
         with self._cond:
             if self._closed:
                 raise QueueClosed(queue)
-            self._queues[queue].append(payload)
+            self._queues[queue].append((time.perf_counter(), payload))
             self._cond.notify_all()
 
     def get(self, queue: str, timeout: float | None = None) -> bytes | None:
@@ -128,7 +140,10 @@ class InProcTransport(Transport):
                 raise QueueClosed(queue)
             if not ok:
                 return None
-            return self._queues[queue].popleft()
+            t_enq, payload = self._queues[queue].popleft()
+        # the histogram has its own lock: observe outside the condition
+        self._hists.observe("queue_wait", time.perf_counter() - t_enq)
+        return payload
 
     def purge(self, queues: Iterable[str] | None = None) -> None:
         with self._cond:
@@ -328,6 +343,8 @@ class Broker:
         # payload bytes published / delivered, by queue family
         self._fam_in = collections.Counter()
         self._fam_out = collections.Counter()
+        from split_learning_torch.runtime.trace import default_histograms
+        self._hists = default_histograms
         self._running = True
         self._closed = threading.Event()
         self._thread = threading.Thread(
@@ -476,12 +493,15 @@ class Broker:
             if pg.done or pg.conn.closed:
                 continue
             pg.done = True
+            # a parked consumer waited no time in the broker; observing
+            # 0 keeps the queue_wait population covering every delivery
+            self._hists.observe("queue_wait", 0.0)
             self._deliver(pg.conn, queue, payload)
             return
         q = self._queues.get(queue)
         if q is None:
             q = self._queues[queue] = collections.deque()
-        q.append(payload)
+        q.append((time.perf_counter(), payload))
         self._depth += 1
         self._depth_hwm = max(self._depth_hwm, self._depth)
         self._stored_bytes += len(payload)
@@ -493,11 +513,12 @@ class Broker:
             return
         q = self._queues.get(queue)
         if q:
-            payload = q.popleft()
+            t_enq, payload = q.popleft()
             if not q:
                 del self._queues[queue]
             self._depth -= 1
             self._stored_bytes -= len(payload)
+            self._hists.observe("queue_wait", time.perf_counter() - t_enq)
             self._deliver(conn, queue, payload)
             return
         deadline = None if ms == 0 else time.monotonic() + ms / 1000.0
@@ -541,7 +562,7 @@ class Broker:
                 gone = self._queues.pop(q, None)
                 if gone:
                     self._depth -= len(gone)
-                    self._stored_bytes -= sum(len(p) for p in gone)
+                    self._stored_bytes -= sum(len(p) for _, p in gone)
 
     # -- buffered writes -----------------------------------------------------
 
@@ -1116,6 +1137,8 @@ class ReliableTransport(Transport):
             )
             faults = default_fault_counters
         self.faults = faults
+        from split_learning_torch.runtime.trace import default_histograms
+        self._hists = default_histograms
         self._lock = threading.Lock()
         self._seq: dict[str, int] = {}
         # (queue, seq) -> [frame, next due, attempts]
@@ -1276,9 +1299,14 @@ class ReliableTransport(Transport):
                 # dropped unacked, and the sender's redelivery repairs it
                 self.faults.inc("corrupt_rejected")
                 continue
-            kind, token, seq, payload, _ = parsed
+            kind, token, seq, payload, t_send = parsed
             if kind != _ENV_DATA:
                 continue              # a stray ack on a data queue
+            if t_send is not None:
+                # observed per arrival, duplicates included: this times
+                # the channel, not the dedup policy above it
+                self._hists.observe("transport_rtt",
+                                    max(0.0, time.time() - t_send))
             self._send_ack(token, queue, seq)
             key = (queue, token)
             with self._lock:
@@ -1366,7 +1394,11 @@ class AsyncTransport(Transport):
       sender thread's publishes interleave with the wait.
 
     A sender-thread failure is re-raised on the next ``publish`` or
-    ``get``.  Counters, cumulative: :attr:`send_hwm`, the deepest the
+    ``get``.  :attr:`wire` and :attr:`hists` are the participant's
+    :class:`~split_learning_torch.runtime.trace.WireCounters` and
+    :class:`~split_learning_torch.runtime.trace.HistogramSet` (fresh
+    unless given), and :attr:`tracer` its span tracer, which the protocol
+    roles take from here.  Counters, cumulative: :attr:`send_hwm`, the deepest the
     send FIFO has been; :attr:`publish_wait_s`, the seconds ``publish``
     callers waited for room in it; :attr:`thunk_s`, the sender's seconds
     in thunks; :attr:`send_s`, its seconds in the inner transport's
@@ -1379,13 +1411,26 @@ class AsyncTransport(Transport):
 
     def __init__(self, inner: Transport, send_depth: int = 8,
                  prefetch_depth: int = 2, recv_factory=None,
-                 slice_gets: bool = False, faults=None):
+                 slice_gets: bool = False, faults=None, wire=None,
+                 hists=None, tracer=None):
         super().__init__()
         self.inner = inner
         self._send_depth = max(1, send_depth)
         self._prefetch_depth = max(1, prefetch_depth)
         self._recv_factory = recv_factory
         self._slice_gets = slice_gets
+        from split_learning_torch.runtime.trace import (
+            HistogramSet, WireCounters,
+        )
+        # fresh per instance, not the process-wide defaults: one
+        # process's participants each have a stack of their own, and a
+        # shared registry would count every client's bytes in each
+        # client's record
+        self.wire = wire if wire is not None else WireCounters()
+        self.hists = hists if hists is not None else HistogramSet()
+        # the participant's tracer rides the outermost layer, where the
+        # protocol roles (handed a built stack) find it
+        self.tracer = tracer
         if faults is None:
             from split_learning_torch.runtime.trace import (
                 default_fault_counters,
@@ -1424,6 +1469,7 @@ class AsyncTransport(Transport):
                 raise QueueClosed(queue)
             self._sendq.append((queue, payload))
             self.send_hwm = max(self.send_hwm, len(self._sendq))
+            self.wire.note_send_depth(len(self._sendq))
             self._cv.notify_all()
 
     def _send_loop(self) -> None:
@@ -1440,11 +1486,15 @@ class AsyncTransport(Transport):
                 t0 = time.perf_counter()
                 if callable(payload):
                     payload = payload()
+                    dt = time.perf_counter() - t0
+                    self.wire.add_encode(dt)
+                    self.hists.observe("encode", dt)
                 t1 = time.perf_counter()
                 parts = (payload if isinstance(payload, (list, tuple))
                          else (payload,))
                 for part in parts:
                     self.inner.publish(queue, part)
+                    self.wire.count_out(queue, len(part))
                 self.thunk_s += t1 - t0
                 self.send_s += time.perf_counter() - t1
             except BaseException as e:  # noqa: BLE001 — surfaced to the
@@ -1488,7 +1538,7 @@ class AsyncTransport(Transport):
                 pf = _Prefetcher(queue, src,
                                  own_src=self._recv_factory is not None,
                                  depth=self._prefetch_depth,
-                                 faults=self.faults)
+                                 wire=self.wire, faults=self.faults)
                 self._prefetchers[queue] = pf
             return pf
 
@@ -1497,19 +1547,23 @@ class AsyncTransport(Transport):
         if self._match(queue):
             return self._prefetcher(queue).pop(timeout)
         if not self._slice_gets or (timeout is not None and timeout <= 0.1):
-            return self.inner.get(queue, timeout)
-        # lock-serialised inner (one TCP socket): bounded slices let the
-        # sender thread's publishes interleave with this wait
-        deadline = None if timeout is None else time.monotonic() + timeout
-        raw = None
-        while raw is None:
-            self._check_error()
-            remain = (None if deadline is None
-                      else deadline - time.monotonic())
-            if remain is not None and remain <= 0:
-                break
-            raw = self.inner.get(
-                queue, 0.1 if remain is None else min(remain, 0.1))
+            raw = self.inner.get(queue, timeout)
+        else:
+            # lock-serialised inner (one TCP socket): bounded slices let
+            # the sender thread's publishes interleave with this wait
+            deadline = (None if timeout is None
+                        else time.monotonic() + timeout)
+            raw = None
+            while raw is None:
+                self._check_error()
+                remain = (None if deadline is None
+                          else deadline - time.monotonic())
+                if remain is not None and remain <= 0:
+                    break
+                raw = self.inner.get(
+                    queue, 0.1 if remain is None else min(remain, 0.1))
+        if raw is not None:
+            self.wire.count_in(queue, len(raw))
         return raw
 
     # -- plumbing ----------------------------------------------------------
@@ -1555,11 +1609,12 @@ class _Prefetcher:
     """One queue's bounded look-ahead buffer + puller thread."""
 
     def __init__(self, queue: str, src: Transport, own_src: bool,
-                 depth: int, faults):
+                 depth: int, wire, faults):
         self.queue = queue
         self.src = src
         self._own_src = own_src
         self._depth = depth
+        self._wire = wire
         self._faults = faults
         self._buf: collections.deque = collections.deque()
         self._cond = threading.Condition()
@@ -1592,6 +1647,7 @@ class _Prefetcher:
             if raw is not None:
                 with self._cond:
                     self._buf.append(raw)
+                    self._wire.count_in(self.queue, len(raw))
                     self._cond.notify_all()
 
     def pop(self, timeout: float | None) -> bytes | None:

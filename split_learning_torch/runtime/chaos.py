@@ -255,7 +255,9 @@ def make_runtime_transport(cfg: Config, name: str, faults=None,
     redelivered frames roll fresh faults.  With the reliable layer the
     async prefetchers share the stack (its dedup and resequencing state
     must live on one instance per queue); without it each gets its own
-    connection."""
+    connection.  The participant's span tracer rides the async layer
+    (``stack.tracer``), where the protocol roles find it; the layers below
+    move the trace context inside each frame untouched."""
     tcp = cfg.transport.kind == "tcp"
     shards = cfg.broker.shards if tcp else 1
 
@@ -281,10 +283,12 @@ def make_runtime_transport(cfg: Config, name: str, faults=None,
             side=side, redeliver_s=cfg.transport.redeliver_s,
             max_redeliver=cfg.transport.max_redeliver, faults=faults)
     if cfg.transport.async_send:
+        from split_learning_torch.runtime.spans import make_tracer
         recv_factory = (mk if tcp and not cfg.transport.reliable
                         else None)
         stack = AsyncTransport(
             stack, send_depth=cfg.transport.send_depth,
             prefetch_depth=cfg.transport.prefetch_depth,
-            recv_factory=recv_factory, slice_gets=tcp, faults=faults)
+            recv_factory=recv_factory, slice_gets=tcp, faults=faults,
+            tracer=make_tracer(cfg, name))
     return stack

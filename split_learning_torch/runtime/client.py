@@ -81,13 +81,30 @@ Under the aggregator tree (``aggregation.fan-in``) the START names the
 client's group (``agg_group``) and the UPDATE goes to that group's
 ``aggregate_queue`` instead of ``rpc_queue``.
 
+Round tracing (``observability``): the client's span tracer, wire
+counters and latency histograms are its transport stack's when the stack
+has them (``bus.tracer``, ``bus.wire``, ``bus.hists``), else its own
+tracer, the process-wide :data:`~split_learning_torch.runtime.trace.
+default_wire_counters` and a fresh histogram set.  It adopts the
+server's trace id from START, journals a ``client_round`` span a round
+with the hot loops' ``fwd``, ``bwd``, ``sda_step`` and ``aux_step`` spans
+inside it (the ``step`` histogram times each), a ``publish`` span per
+data frame and UPDATE whose id and send time ride the frame as its
+32-byte wire context, and a ``consume`` span per received frame that
+carries one, parented to the sender's ``publish`` (the ``frame_rtt``
+histogram reads its send time).  Each UPDATE is followed by cumulative
+``kind=wire_client`` and ``kind=latency`` records when they changed.
+The ``step`` clock stops when the step's launches return, not when the
+card has run them, as the JAX package's stops at dispatch.
+
 Left out (raises ``NotImplementedError`` when its config asks for it):
 sync-overlap ticks (and their speculative forwards across a hold START).
-Heartbeats, tracing spans and scheduler knobs are not emitted.
+Heartbeats, the perf plane's records and scheduler knobs are not emitted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import uuid
@@ -118,6 +135,7 @@ from split_learning_torch.runtime.protocol import (
     Syn, Update, aggregate_queue, encode, encode_parts, gradient_queue,
     host_tensor, intermediate_queue, reply_queue,
 )
+from split_learning_torch.runtime.spans import make_tracer, unpack_ctx
 from split_learning_torch.runtime.validation import (
     dataset_for_model, dataset_kwargs_for_model,
 )
@@ -472,9 +490,22 @@ class ProtocolClient:
             )
             transport = make_runtime_transport(cfg, client_id)
         self.bus = transport
-        from split_learning_torch.runtime.trace import default_fault_counters
+        from split_learning_torch.runtime.trace import (
+            HistogramSet, default_fault_counters, default_wire_counters,
+        )
         self.faults = default_fault_counters
         self._fault_base: dict | None = None
+        # round tracing: the stack's tracer, wire counters and
+        # histograms when make_runtime_transport built them, else this
+        # client's own (the wire counters the process-wide ones)
+        self.wire = getattr(self.bus, "wire", None) \
+            or default_wire_counters
+        self.tracer = getattr(self.bus, "tracer", None) \
+            or make_tracer(cfg, client_id)
+        self.hists = getattr(self.bus, "hists", None) or HistogramSet()
+        self._wire_base: dict | None = None
+        self._hist_base: dict | None = None
+        self.round_idx: int | None = None   # the START's round
         # chunked-frame reassembly is per consumer thread; the client is
         # single-threaded over its queues
         self._assembler = FrameAssembler()
@@ -535,19 +566,45 @@ class ProtocolClient:
     def _decode(self, raw: bytes, queue: str | None = None):
         """Tolerant decode: a frame that fails a checksum (or any guard
         inside decode) is dropped and counted, never fatal.  Returns None
-        for dropped frames and for a chunk of a still-partial message."""
+        for dropped frames and for a chunk of a still-partial message.
+
+        A decoded message that carries a wire trace context becomes a
+        *consume* span parented to the sender's publish span (the
+        cross-participant edge), and its send time feeds ``frame_rtt``."""
+        t_wall = time.time()
+        t0 = time.perf_counter()
         try:
-            return self._assembler.feed(raw)
+            msg = self._assembler.feed(raw)
         except Exception as e:  # noqa: BLE001 — see docstring
             self.faults.inc("corrupt_rejected")
             self.log.warning(f"dropping undecodable frame on {queue}: {e}")
+            self.wire.add_decode(time.perf_counter() - t0)
             return None
+        dt = time.perf_counter() - t0
+        self.wire.add_decode(dt)
+        self.hists.observe("decode", dt)
+        if msg is not None:
+            ctx = unpack_ctx(getattr(msg, "_ctx", None))
+            if ctx is not None:
+                _, sender_span, t_send = ctx
+                rtt = max(0.0, t_wall - t_send)
+                self.hists.observe("frame_rtt", rtt)
+                self.tracer.record(
+                    "consume", t_wall, t_wall + dt, parent=sender_span,
+                    queue=queue, kind=type(msg).__name__,
+                    nbytes=len(raw), rtt_ms=round(rtt * 1e3, 3),
+                    round=getattr(msg, "round_idx", None))
+        return msg
 
-    def _publish_parts(self, queue: str, build) -> None:
-        """Data-plane publish: ``build()`` produces the frame part list.
-        On a deferred bus the thunk is enqueued and runs on the sender
-        thread, so batch k's codec, fetch and encode overlap batch k+1's
-        compute; on a plain bus it runs inline.
+    def _publish_parts(self, queue: str, build,
+                       kind: str | None = None) -> None:
+        """Data-plane publish: ``build(ctx)`` produces the frame part
+        list carrying the wire trace context ``ctx``.  On a deferred bus
+        the thunk is enqueued and runs on the sender thread, so batch k's
+        codec, fetch and encode overlap batch k+1's compute; on a plain
+        bus it runs inline.  The *publish* span opens here (its queue
+        time included) and closes when the frame's bytes exist; its id
+        rides ``ctx`` to the receiver's consume span.
 
         The thunk holds a reference to every tensor it reads, so the
         caching allocator cannot hand that memory on, and those tensors
@@ -556,17 +613,30 @@ class ProtocolClient:
         the stream that was current here at publish time, so its
         kernels and its copy are ordered after the ones that produced
         its inputs."""
+        span = self.tracer.start("publish", always=False, queue=queue,
+                                 kind=kind, round=self.round_idx)
+        ctx = self.tracer.wire_context(span)
         if not getattr(self.bus, "deferred", False):
-            for part in build():
+            t0 = time.perf_counter()
+            parts = build(ctx)
+            dt = time.perf_counter() - t0
+            self.wire.add_encode(dt)
+            self.hists.observe("encode", dt)
+            span.end(nbytes=sum(len(p) for p in parts))
+            for part in parts:
                 self.bus.publish(queue, part)
+                self.wire.count_out(queue, len(part))
             return
-        if self.device.type == "cuda":
-            stream, inner = torch.cuda.current_stream(self.device), build
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
 
-            def build():
-                with torch.cuda.stream(stream):
-                    return inner()
-        self.bus.publish(queue, build)
+        def thunk():
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                parts = build(ctx)
+            span.end(nbytes=sum(len(p) for p in parts))
+            return parts
+        self.bus.publish(queue, thunk)
 
     # -- wire codec plumbing -----------------------------------------------
 
@@ -575,9 +645,9 @@ class ProtocolClient:
         payload (on the training thread), so the compression ratio is
         measured."""
         if family in self.codecs:
-            self.raw_bytes_out[queue] = (self.raw_bytes_out.get(queue, 0)
-                                         + wire_raw_nbytes(
-                                             tree, self.wire_dtype))
+            n = wire_raw_nbytes(tree, self.wire_dtype)
+            self.raw_bytes_out[queue] = self.raw_bytes_out.get(queue, 0) + n
+            self.wire.count_raw(queue, n)
 
     def _wire_payload(self, tree, family: str, queue: str):
         """Device tree -> wire payload tree: codec ``prepare`` (the
@@ -602,9 +672,9 @@ class ProtocolClient:
                 or base[0] != self._delta_advert):
             return params_h, None   # the server counts the full frame
         ver, base_tree = base
-        self.raw_bytes_out[RPC_QUEUE] = (self.raw_bytes_out.get(RPC_QUEUE, 0)
-                                         + wire_raw_nbytes(params_h,
-                                                           torch.float32))
+        n = wire_raw_nbytes(params_h, torch.float32)
+        self.raw_bytes_out[RPC_QUEUE] = self.raw_bytes_out.get(RPC_QUEUE, 0) + n
+        self.wire.count_raw(RPC_QUEUE, n)
         return rpc.encode_update(params_h, base_tree), ver
 
     def _ef_stateful_codecs(self):
@@ -641,12 +711,14 @@ class ProtocolClient:
     def run(self):
         """Blocking lifecycle loop; returns on STOP.  However it ends
         (STOP, a closed bus, a scripted crash), a transport stack the
-        client built itself is closed, every layer of it."""
+        client built itself is closed, every layer of it, and the span
+        journal is flushed and closed."""
         try:
             self._run()
         finally:
             if self._own_bus:
                 self.bus.close()
+            self.tracer.close()
 
     def _run(self):
         """Until the first START arrives, REGISTER is re-sent every few
@@ -693,6 +765,11 @@ class ProtocolClient:
                       f"{msg.end_layer}] cluster={msg.cluster}")
         self.cluster = msg.cluster
         extra = msg.extra or {}
+        # join the server's run-scoped trace: every span this client
+        # journals and every wire context it sends carries its id
+        if extra.get("trace_id"):
+            self.tracer.adopt_trace_id(extra["trace_id"])
+        self.round_idx = msg.round_idx
         self.epochs = int(extra.get("epochs", 1))
         # server-assigned per-invocation generation: stamps every message
         # this client sends so strays from an abandoned invocation drop
@@ -814,23 +891,31 @@ class ProtocolClient:
         # overlap-tick samples survive only a hold START (the kept shard
         # is what this round's UPDATE uploads); a re-seed zeroed them
         self.num_samples, self._overlap_samples = self._overlap_samples, 0
-        if self._async_mode:
-            pause = (self._train_first_async() if self.stage == 1
-                     else self._train_last_async()
-                     if self.stage == self.n_stages
-                     else self._train_middle_async())
-        elif self.stage == 1:
-            pause = self._train_first()
-        elif self.stage == self.n_stages:
-            pause = self._train_last()
-        else:
-            pause = self._train_middle()
-        if isinstance(pause, _AbortPause):
-            return   # round abandoned: the server stopped counting us
-        self._send_update(with_weights=pause.send_weights)
+        # the round's root span on this participant: hot-loop and
+        # publish spans parent under it
+        with self.tracer.span("client_round", round=msg.round_idx,
+                              stage=self.stage):
+            if self._async_mode:
+                pause = (self._train_first_async() if self.stage == 1
+                         else self._train_last_async()
+                         if self.stage == self.n_stages
+                         else self._train_middle_async())
+            elif self.stage == 1:
+                pause = self._train_first()
+            elif self.stage == self.n_stages:
+                pause = self._train_last()
+            else:
+                pause = self._train_middle()
+            if isinstance(pause, _AbortPause):
+                self.tracer.flush()
+                return   # round abandoned: the server stopped counting us
+            self._send_update(with_weights=pause.send_weights)
         # pipelined async rounds: keep ticking while the server folds,
         # validates and fans the next START out
         self._overlap_ticks()
+        # a finished round's spans are durable even if the process dies
+        # while idle between rounds
+        self.tracer.flush()
 
     def _send_update(self, with_weights: bool):
         # the round's ONE host sync of the NaN sentinel
@@ -861,7 +946,8 @@ class ProtocolClient:
         dest = (RPC_QUEUE if self._agg_group is None
                 else aggregate_queue(self.cluster, self._agg_group))
         self._publish_parts(
-            dest, lambda: encode_parts(msg, self._chunk_bytes))
+            dest, lambda ctx: encode_parts(msg, self._chunk_bytes, ctx=ctx),
+            kind="Update")
         if self.cfg.checkpoint.save and self.codecs:
             # error-feedback residuals are durable client state
             self._save_ef_state()
@@ -885,6 +971,18 @@ class ProtocolClient:
                 f"{k}={v}" for k, v in sorted(snap.items())))
             self.log.metric(kind="faults", client=self.client_id,
                             round_idx=self.fence, **snap)
+        # the wire counters and the latency percentiles follow the same
+        # contract: cumulative, written when they changed
+        wsnap = {k: v for k, v in self.wire.snapshot().items() if v}
+        if wsnap and wsnap != self._wire_base:
+            self._wire_base = wsnap
+            self.log.metric(kind="wire_client", client=self.client_id,
+                            round_idx=self.round_idx, **wsnap)
+        hsnap = self.hists.snapshot()
+        if hsnap and hsnap != self._hist_base:
+            self._hist_base = hsnap
+            self.log.metric(kind="latency", client=self.client_id,
+                            round_idx=self.round_idx, **hsnap)
 
     def _redeliver(self, msg) -> Pause:
         """A STOP or a fresh START arriving mid-training: requeue it for
@@ -937,9 +1035,13 @@ class ProtocolClient:
 
     def _backward(self, ent: _Inflight, g: Gradient):
         """Recompute + backprop one received gradient, step, count."""
+        sp = self.tracer.start("bwd", always=False, round=self.round_idx)
+        t_sp = time.perf_counter()
         gx = self.runner.bwd(ent.x, _from_wire_tree(g.data, self.device),
                              ent.rng)
         self.runner.apply_update()
+        sp.end()
+        self.hists.observe("step", time.perf_counter() - t_sp)
         # counted here, not at dispatch: a mid-loop PAUSE abandons
         # in-flight forwards, and the FedAvg weight must only cover
         # samples whose update was applied
@@ -951,18 +1053,19 @@ class ProtocolClient:
         q = gradient_queue(self.stage - 1, origin)
         self._count_raw(gx, "gradient", q)
         trace, fence = list(trace)[:-1], self.fence
-        self._publish_parts(q, lambda: encode_parts(Gradient(
+        self._publish_parts(q, lambda ctx: encode_parts(Gradient(
             data_id=data_id, data=self._wire_payload(gx, "gradient", q),
-            trace=trace, round_idx=fence), self._chunk_bytes))
+            trace=trace, round_idx=fence), self._chunk_bytes, ctx=ctx),
+            kind="Gradient")
 
     def _send_activation(self, out, q: str, data_id: str, labels,
                          trace: list) -> None:
         self._count_raw(out, "intermediate", q)
         cluster, fence = self.cluster, self.fence
-        self._publish_parts(q, lambda: encode_parts(Activation(
+        self._publish_parts(q, lambda ctx: encode_parts(Activation(
             data_id=data_id, data=self._wire_payload(out, "intermediate", q),
             labels=labels, trace=trace, cluster=cluster, round_idx=fence),
-            self._chunk_bytes))
+            self._chunk_bytes, ctx=ctx), kind="Activation")
 
     def _train_first(self) -> Pause:
         """Bounded-in-flight 1F1B streaming (``src/train/VGG16.py:61-136``)
@@ -1021,7 +1124,10 @@ class ProtocolClient:
                 next_item = next(data_iter, None)
                 x = torch.from_numpy(np.asarray(x)).to(self.device)
                 data_id = uuid.uuid4().hex
+                sp = self.tracer.start("fwd", always=False,
+                                       round=self.round_idx, spliced=False)
                 out, rng = r.fwd(x)
+                sp.end()
                 inflight[data_id] = _Inflight(x=x, trace=[self.client_id],
                                               n=len(labels), rng=rng)
                 self._send_activation(out, out_qs[n_fwd % len(out_qs)],
@@ -1095,7 +1201,9 @@ class ProtocolClient:
                         self.bus.publish(q, raw)
                 continue
             x = _from_wire_tree(act.data, self.device)
+            sp = self.tracer.start("fwd", always=False, round=self.round_idx)
             out, rng = r.fwd(x)
+            sp.end()
             inflight[act.data_id] = _Inflight(x=x, trace=list(act.trace),
                                               n=len(act.labels), rng=rng)
             self._send_activation(out, out_qs[n_fwd % len(out_qs)],
@@ -1215,6 +1323,9 @@ class ProtocolClient:
         its own) to that batch's previous hop."""
         r = self.runner
         sizes = [len(a.labels) for a in window]
+        sp = self.tracer.start("sda_step", always=False,
+                               round=self.round_idx, window=len(window))
+        t_sp = time.perf_counter()
         x = _concat([a.data for a in window])
         labels = torch.from_numpy(np.concatenate(
             [np.asarray(a.labels, np.int32) for a in window])).to(
@@ -1224,6 +1335,8 @@ class ProtocolClient:
         # synced once per round in _send_update
         self._ok_dev = self._ok_dev & torch.isfinite(loss)
         r.apply_update()
+        sp.end()
+        self.hists.observe("step", time.perf_counter() - t_sp)
         self.num_samples += sum(sizes)
         off = 0
         for act, n in zip(window, sizes):
@@ -1287,6 +1400,8 @@ class ProtocolClient:
         the head's steps.  Returns the boundary output."""
         r = self.runner
         self._ensure_aux(x)
+        sp = self.tracer.start("aux_step", always=False, round=self.round_idx)
+        t_sp = time.perf_counter()
         loss, out = r.aux_step(x, labels, self.aux_head)
         self._ok_dev = self._ok_dev & torch.isfinite(loss)
         r.apply_update()
@@ -1295,6 +1410,8 @@ class ProtocolClient:
             clip_by_global_norm(params, r.learning.clip_grad_norm)
         self.aux_optimizer.step()
         self.aux_optimizer.zero_grad(set_to_none=True)
+        sp.end()
+        self.hists.observe("step", time.perf_counter() - t_sp)
         self.num_samples += n
         return out
 
@@ -1444,9 +1561,14 @@ class ProtocolClient:
                 return
             labels = host_tensor(np.asarray(act.labels, np.int32)).to(
                 self.device)
-            loss, _ = r.last_step(_from_wire_tree(act.data, self.device),
-                                  labels, input_grad=False)
+            x = _from_wire_tree(act.data, self.device)
+            sp = self.tracer.start("sda_step", always=False,
+                                   round=self.round_idx, window=1)
+            t_sp = time.perf_counter()
+            loss, _ = r.last_step(x, labels, input_grad=False)
             self._ok_dev = self._ok_dev & torch.isfinite(loss)
             r.apply_update()
+            sp.end()
+            self.hists.observe("step", time.perf_counter() - t_sp)
             self.num_samples += len(act.labels)
         return self._async_consume(step)

@@ -64,11 +64,24 @@ into their parent's queue; members whose frames the dead aggregator had
 consumed are abandoned after a grace period (``agg_fallback_abandons``)
 rather than stalling the UPDATE barrier.
 
+Round tracing (``observability``): the server's tracer, wire counters
+and latency histograms are its transport stack's when it has them, else
+its own.  Its trace id rides every START (``extra["trace_id"]``), which
+the clients adopt; each invocation journals ``start_fanout``,
+``ready_wait``, ``syn_fanout``, ``notify_wait``, ``pause_fanout``,
+``update_wait`` and the fold's ``aggregate`` (one ``update_stage``
+record a stage) under the round loop's ``train`` span, and a
+``consume`` span per UPDATE, parented to the client's ``publish``.  The
+``kind=wire`` record carries the wire counters' fields, and a
+``kind=latency`` record (this participant's histograms merged with the
+process-wide ``queue_wait`` and ``transport_rtt``) follows when they
+changed.
+
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): the remote aggregator nodes, stage hosts, the scheduler, elastic
 re-planning, the per-leaf legacy fold finish
 (``aggregation.update-sharded: false``).  The telemetry exporter,
-liveness monitor, blackbox and tracing spans are not run.
+liveness monitor and blackbox are not run.
 """
 
 from __future__ import annotations
@@ -103,6 +116,7 @@ from split_learning_torch.runtime.protocol import (
     Register, Start, Stop, Syn, Update, encode, encode_parts, host_tensor,
     reply_queue,
 )
+from split_learning_torch.runtime.spans import make_tracer, unpack_ctx
 
 
 class RoundTimeout(RuntimeError):
@@ -166,9 +180,17 @@ class ProtocolContext(TorchContext):
         _refuse_unported(cfg)
         super().__init__(cfg, device=device)
         self.bus = transport
-        from split_learning_torch.runtime.trace import default_fault_counters
+        from split_learning_torch.runtime.trace import (
+            HistogramSet, default_fault_counters, default_wire_counters,
+        )
         self.faults = default_fault_counters
         self._fault_base: dict | None = None
+        self.wire = getattr(transport, "wire", None) \
+            or default_wire_counters
+        self.tracer = getattr(transport, "tracer", None) \
+            or make_tracer(cfg, "server")
+        self.hists = getattr(transport, "hists", None) or HistogramSet()
+        self._hist_base: dict | None = None
         self._assembler = FrameAssembler()   # chunked UPDATE reassembly
         self.log = logger or Logger.for_run(cfg, "server", console=False)
         self.client_timeout = client_timeout
@@ -259,15 +281,33 @@ class ProtocolContext(TorchContext):
         raw = self.bus.get(RPC_QUEUE, timeout=timeout)
         if raw is None:
             return False
+        t_wall = time.time()
+        t0 = time.perf_counter()
         try:
             msg = self._assembler.feed(raw)
         except Exception as e:  # noqa: BLE001 — corrupt frame: a flipped
             # bit on rpc_queue must cost one message, not the server
             self.faults.inc("corrupt_rejected")
             self.log.warning(f"dropping undecodable rpc frame: {e}")
+            self.wire.add_decode(time.perf_counter() - t0)
             return True
+        dt = time.perf_counter() - t0
+        self.wire.add_decode(dt)
+        self.hists.observe("decode", dt)
         if msg is None:
             return True   # chunk of a still-partial frame
+        ctx = unpack_ctx(getattr(msg, "_ctx", None))
+        if ctx is not None:
+            # consume span linked to the client's publish span: the
+            # UPDATE upload gets a flow edge like any data-plane frame
+            _, sender_span, t_send = ctx
+            rtt = max(0.0, t_wall - t_send)
+            self.hists.observe("frame_rtt", rtt)
+            self.tracer.record(
+                "consume", t_wall, t_wall + dt, parent=sender_span,
+                queue=RPC_QUEUE, kind=type(msg).__name__,
+                nbytes=len(raw), rtt_ms=round(rtt * 1e3, 3),
+                round=getattr(msg, "round_idx", None))
         if isinstance(msg, Register):
             # keyed by client_id: clients re-REGISTER until STARTed
             if msg.client_id not in self._registrations:
@@ -890,7 +930,8 @@ class ProtocolContext(TorchContext):
                 for cid, s in sorted(active):
                     expected.setdefault(s, []).append(cid)
             self._fold = agg_plane.StreamingFold(
-                expected, backend=self._fold_backend, faults=self.faults)
+                expected, backend=self._fold_backend, faults=self.faults,
+                hists=self.hists)
             # the partial codec's delta mode: this generation's per-stage
             # START shards, against which the tree encodes (group mean -
             # base) and every receiver adds the base back
@@ -904,6 +945,12 @@ class ProtocolContext(TorchContext):
                         shard_params(params, self.specs, a, b))
                 self._partial_base_gen = self._cur_gen
 
+        # round-phase spans: sequential on the server thread, under the
+        # round loop's "train" span, so the critical-path walk crosses
+        # from here into the clients' timelines at the consume spans
+        # recorded inside each barrier
+        fanout_span = self.tracer.start("start_fanout", round=round_idx,
+                                        cluster=plan.cluster_id)
         # stage-ascending START fan-out: stage-1 feeders start streaming
         # while later stages' STARTs are still encoding.  Shard trees of
         # the shared base are cut once per layer range; a big shard
@@ -978,6 +1025,9 @@ class ProtocolContext(TorchContext):
                                          if sda_route and s < plan.n_stages
                                          else None),
                            "refresh": self.cfg.distribution.refresh,
+                           # clients adopt the server's run-scoped trace
+                           # id, so every journal merges onto one trace
+                           "trace_id": self.tracer.trace_id,
                            "delta_base_version": delta_ver,
                            # aggregator tree: UPDATE to this group's
                            # aggregate queue instead of rpc_queue
@@ -990,6 +1040,7 @@ class ProtocolContext(TorchContext):
                           + ("" if shard[0] is not None
                              else " (no weights)"))
         del shard_cache
+        fanout_span.end()
         # wall of each phase of the round, read at the barriers
         phases = {"fanout_s": time.perf_counter() - fanout_t0}
         t_phase = time.perf_counter()
@@ -1001,10 +1052,12 @@ class ProtocolContext(TorchContext):
             t_phase = now
 
         ids = {cid for cid, _ in active}
-        if not self._pump_until(
+        with self.tracer.span("ready_wait", round=round_idx):
+            ready_ok = self._pump_until(
                 lambda: ids <= self._ready,
                 lambda: f"READY from {ids - self._ready}",
-                deadline=time.monotonic() + self.ready_timeout):
+                deadline=time.monotonic() + self.ready_timeout)
+        if not ready_ok:
             ids &= self._ready   # drop unresponsive clients mid-round
         if self._fold is not None and groups is None:
             # stop the reorder window waiting for clients dropped at the
@@ -1033,6 +1086,7 @@ class ProtocolContext(TorchContext):
         # dropped feeder never fences, so the quorum and the feeder sets
         # are recomputed from the clients that answered and ride SYN.
         # Kept for every active client: a late READY's SYN reuses them
+        syn_span = self.tracer.start("syn_fanout", round=round_idx)
         live_s1 = [c for c in stage1 if c in ids]
         self._syn_overrides = {}
         for cid, s in active:
@@ -1046,23 +1100,26 @@ class ProtocolContext(TorchContext):
             self.bus.publish(reply_queue(cid), encode(Syn(
                 round_idx, sda_fence_quorum=quorum, sda_feeders=feeders)))
         self.log.sent(f"SYN -> {sorted(ids)}")
+        syn_span.end()
         # async: the SYN window stays open for a straggler's late READY
         self._syn_live = self._async
         self._syn_round = round_idx
 
         s1_ids = set(stage1) & ids
         quorum_n = self.cfg.learning.async_quorum if self._async else 0
-        if quorum_n:
-            # async quorum: the round moves on once enough feeders have
-            # dispatched their data; a slow one folds late instead
-            s1_need = min(len(s1_ids), quorum_n)
-            self._pump_until(
-                lambda: len(self._notified & s1_ids) >= s1_need,
-                f"NOTIFY quorum {s1_need}/{len(s1_ids)}")
-        else:
-            self._pump_until(lambda: s1_ids <= self._notified,
-                             "NOTIFY from stage-1 clients")
+        with self.tracer.span("notify_wait", round=round_idx):
+            if quorum_n:
+                # async quorum: the round moves on once enough feeders
+                # have dispatched their data; a slow one folds late
+                s1_need = min(len(s1_ids), quorum_n)
+                self._pump_until(
+                    lambda: len(self._notified & s1_ids) >= s1_need,
+                    f"NOTIFY quorum {s1_need}/{len(s1_ids)}")
+            else:
+                self._pump_until(lambda: s1_ids <= self._notified,
+                                 "NOTIFY from stage-1 clients")
         lap("train_s")   # SYN -> the last stage-1 NOTIFY
+        pause_span = self.tracer.start("pause_fanout", round=round_idx)
         # late-READY joiners (async) get their PAUSE too: they are
         # training and upload like everyone else
         pause_ids = ids | (self._ready & set(stage_of))
@@ -1070,6 +1127,7 @@ class ProtocolContext(TorchContext):
             self.bus.publish(reply_queue(cid), encode(Pause(
                 send_weights=_stage_flag(send_weights, stage_of[cid]))))
         self.log.sent(f"PAUSE -> {sorted(pause_ids)}")
+        pause_span.end()
 
         def fresh_ids() -> set:
             # the current version's contributions only: an async
@@ -1081,19 +1139,20 @@ class ProtocolContext(TorchContext):
         # they can never arrive, so the barrier stops counting them
         # (the tree's health check runs at each pump, when a tree runs)
         tree = {"poll": self._poll_l1} if self._l1 else {}
-        if quorum_n:
-            # bounded-staleness version cut at async-quorum fresh
-            # contributions
-            need = min(quorum_n, len(ids))
-            self._pump_until(
-                lambda: len(fresh_ids() & ids) >= need,
-                lambda: (f"UPDATE quorum {need}/{len(ids)} (missing "
-                         f"{sorted(ids - fresh_ids())})"))
-        else:
-            self._pump_until(
-                lambda: (fresh_ids() | self._agg_gone) >= ids,
-                lambda: "UPDATE from " + str(
-                    ids - fresh_ids() - self._agg_gone), **tree)
+        with self.tracer.span("update_wait", round=round_idx):
+            if quorum_n:
+                # bounded-staleness version cut at async-quorum fresh
+                # contributions
+                need = min(quorum_n, len(ids))
+                self._pump_until(
+                    lambda: len(fresh_ids() & ids) >= need,
+                    lambda: (f"UPDATE quorum {need}/{len(ids)} (missing "
+                             f"{sorted(ids - fresh_ids())})"))
+            else:
+                self._pump_until(
+                    lambda: (fresh_ids() | self._agg_gone) >= ids,
+                    lambda: "UPDATE from " + str(
+                        ids - fresh_ids() - self._agg_gone), **tree)
         self._syn_live = False
         if self._l1:
             self._finish_l1()
@@ -1105,11 +1164,19 @@ class ProtocolContext(TorchContext):
             # left is the per-stage divide + optimizer step + cast
             fold, self._fold = self._fold, None
             m = float(self._agg.server_momentum)
-            result = fold.finish(
-                base=params if m else None, momentum=m,
-                velocity=(self._agg_velocity.setdefault(
-                    plan.cluster_id, {}) if m else None),
-                fused=self._agg.update_sharded)
+            # the span carries the overlapped fold's wall; each stage's
+            # completion is marked on it
+            with self.tracer.span(
+                    "aggregate", round=round_idx, cluster=plan.cluster_id,
+                    overlapped_fold_s=round(fold.fold_s, 6)):
+                result = fold.finish(
+                    base=params if m else None, momentum=m,
+                    velocity=(self._agg_velocity.setdefault(
+                        plan.cluster_id, {}) if m else None),
+                    fused=self._agg.update_sharded,
+                    on_stage=lambda s, p, st: self.tracer.record(
+                        "update_stage", time.time(), time.time(),
+                        round=round_idx, stage=s))
             result.params = _torch_tree(result.params, self.device)
             result.stats = _torch_tree(result.stats, self.device)
             self.last_fold = result
@@ -1148,11 +1215,16 @@ class ProtocolContext(TorchContext):
         # room in its send queue and the sender spent on the socket
         sender = {f"cumulative_{k}": getattr(self.bus, k) for k in (
             "publish_wait_s", "send_s") if hasattr(self.bus, k)}
+        # this process's wire counters ride the same record: bytes in
+        # and out by plane, encode and decode seconds, the sender's
+        # high-water mark
+        wsnap = {k: v for k, v in self.wire.snapshot().items() if v}
         self.log.metric(kind="wire", gen=self._cur_gen,
                         round_idx=round_idx, cluster=plan.cluster_id,
                         cumulative_reply_bytes=totals["reply"],
                         cumulative_rpc_bytes=totals["rpc"],
-                        cumulative_data_bytes=totals["data"], **sender)
+                        cumulative_data_bytes=totals["data"], **sender,
+                        **wsnap)
         self.round_phases.append(phases)
         self.log.metric(kind="phases", gen=self._cur_gen,
                         round_idx=round_idx, cluster=plan.cluster_id,
@@ -1170,6 +1242,18 @@ class ProtocolContext(TorchContext):
             self.log.metric(kind="faults", gen=self._cur_gen,
                             round_idx=round_idx, cluster=plan.cluster_id,
                             **snap)
+        # latency percentiles: this participant's histograms merged with
+        # the process-wide transport clocks (queue wait, reliable
+        # envelope RTT), cumulative like the counters above
+        from split_learning_torch.runtime.trace import default_histograms
+        hsnap = {**default_histograms.snapshot(), **self.hists.snapshot()}
+        if hsnap and hsnap != self._hist_base:
+            self._hist_base = hsnap
+            self.log.metric(kind="latency", gen=self._cur_gen,
+                            round_idx=round_idx, cluster=plan.cluster_id,
+                            **hsnap)
+        # a finished invocation's spans are durable before the next one
+        self.tracer.flush()
         return updates
 
     def stop_all(self, reason: str = "training complete"):
@@ -1177,6 +1261,7 @@ class ProtocolContext(TorchContext):
             self.bus.publish(reply_queue(reg.client_id),
                              encode(Stop(reason=reason)))
         self.log.sent(f"STOP -> all ({reason})")
+        self.tracer.close()
 
 
 class ProtocolServer:
@@ -1210,7 +1295,8 @@ class ProtocolServer:
               init_stats: Any | None = None) -> TrainResult:
         """Registration barrier, planning, the round loop, STOP."""
         regs = self.ctx.wait_for_registrations()
-        plans = plan_clusters(self.cfg, regs)
+        with self.ctx.tracer.span("plan"):
+            plans = plan_clusters(self.cfg, regs)
         try:
             return run_training(self.cfg, self.ctx, plans, self.log,
                                 init_params=init_params,

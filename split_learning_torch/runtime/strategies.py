@@ -16,6 +16,7 @@ average.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Sequence
@@ -29,6 +30,14 @@ from split_learning_torch.runtime.checkpoint import save_checkpoint
 from split_learning_torch.runtime.context import TrainContext, client_groups
 from split_learning_torch.runtime.plan import ClusterPlan
 from split_learning_torch.runtime.protocol import Update
+
+
+def _span(ctx, name: str, **attrs):
+    """Tracing span on the context's tracer (no-op without one)."""
+    tracer = getattr(ctx, "tracer", None)
+    if tracer is None:
+        return contextlib.nullcontext()
+    return tracer.span(name, **attrs)
 
 
 @dataclasses.dataclass
@@ -184,13 +193,17 @@ class FedAvgStrategy(RoundStrategy):
             # reference: a failed round skips aggregation entirely
             return RoundOutcome(params, stats, ok=False, validate=False)
         metrics = {"fold_s": agg_s}
-        if len(plans) == 1:
-            # the fold's output is already nan_to_num-sanitized
-            return RoundOutcome(cluster_params[0], cluster_stats[0],
+        # the round's fold as one "aggregate" span: the final merge, with
+        # the per-cluster folds' total as an attribute
+        with _span(ctx, "aggregate", round=round_idx,
+                   fold_s=round(agg_s, 6)):
+            if len(plans) == 1:
+                # the fold's output is already nan_to_num-sanitized
+                return RoundOutcome(cluster_params[0], cluster_stats[0],
+                                    num_samples=total, metrics=metrics)
+            return RoundOutcome(merge_clusters(cluster_params),
+                                merge_clusters(cluster_stats),
                                 num_samples=total, metrics=metrics)
-        return RoundOutcome(merge_clusters(cluster_params),
-                            merge_clusters(cluster_stats),
-                            num_samples=total, metrics=metrics)
 
 
 class SDAStrategy(FedAvgStrategy):
