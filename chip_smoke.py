@@ -23,10 +23,12 @@ walls, idle shares and profiles are taken beside the other groups' work:
    tolerances (bf16 at the slice's shapes and at D = 128, float32 causal
    and not, odd sequence lengths, every head dim), each forward and
    backward case checked to take the kernels its route names (bf16
-   D >= 16: the tensor-core kernels; float32 and D = 8: the CUDA-core
-   ones); the CUDA-core forward and backward pair also at the slice's
-   shapes (in float32, the dtype of their route, bounded by float32
-   bytes and the 67 TFLOP/s CUDA-core rate), timed beside the
+   D >= 16: the bf16 tensor-core kernels; float32 and D = 8: the
+   ``_simt`` ones); the float32-route forward and backward pair also at
+   the slice's shapes (in float32, the dtype of their route; the
+   CUDA-core forward bounded by float32 bytes and the 67 TFLOP/s
+   CUDA-core rate, the split-TF32 backward pair by three TF32 products a
+   float32 one at 495 TFLOP/s, its CUDA-core bound beside), timed beside the
    tensor-core kernels and SDPA (the backward
    against SDPA's backward with its backend pinned, by profiler device
    time beside that of delta + dK/dV + dQ); the quantizer on both of its
@@ -58,8 +60,8 @@ walls, idle shares and profiles are taken beside the other groups' work:
    through ``split_learning_torch.run.run_local`` on CUDA, with the
    kernels' launch counts zeroed just before and read just after (the
    bf16 forward takes the tensor-core kernel, 176 launches a step, each
-   tensor-core backward kernel 88 a step, and the CUDA-core kernels are
-   launched 0 times);
+   tensor-core backward kernel 88 a step, and the float32-route
+   ``_simt`` kernels are launched 0 times);
 5. profile — the same round once more, warm, with its device kernels
    traced by ``torch.profiler`` (not counted) and summed by name from the
    trace's kineto events: round wall, the device's busy and idle share,
@@ -75,7 +77,7 @@ walls, idle shares and profiles are taken beside the other groups' work:
    with momentum every TinyLlama leaf takes the momentum kernel and only
    a plain FedAvg round finalizes.  Counts zeroed before and read after
    (each tensor-core backward kernel 88 launches a round, the vec
-   quantizer and the dequantizer 48, the CUDA-core kernels and the
+   quantizer and the dequantizer 48, the ``_simt`` kernels and the
    generic quantizer 0);
 7. protocol_tcp — the first of those rounds in the deployment shape
    (one round, for the script's length; ``variants_tcp`` carries a
@@ -296,12 +298,17 @@ sys.path.insert(0, str(HERE))
 # H100 SXM data-sheet peaks (dense): device memory and compute rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the float32 and D = 8 backward pair runs each float32 product as three
+# TF32 products on the tensor cores (split TF32): its operations bound
+SPLIT_TF32_KERNELS = ("flash_bwd_dkv_simt", "flash_bwd_dq_simt")
+PEAK_TF32 = 495e12
 
 # the slice's flash-attention shapes: (B*H, S, D) = (8*32, 256, 64), bf16
 SLICE_SHAPE = (8 * 32, 256, 64)
-# the CUDA-core flash kernels: the float32 and D = 8 route
+# the flash kernels of the float32 and D = 8 route (the CUDA-core forward
+# and the split-TF32 backward pair)
 SIMT_KERNELS = ("flash_fwd_simt", "flash_bwd_dkv_simt", "flash_bwd_dq_simt")
-# the kernels that the bf16 main paths must never launch: the CUDA-core
+# the kernels that the bf16 main paths must never launch: the float32-route
 # flash kernels and the generic quantizer (the wire's tile 256 on an
 # aligned frame takes the vec quantizer)
 OFF_PATH_KERNELS = SIMT_KERNELS + ("quantize_generic",)
@@ -509,8 +516,45 @@ def _bytes_and_flops(name: str, shape, dtype, causal: bool):
     return 5 * mat + 2 * row, 6 * d * pairs   # dq: 3 products
 
 
+def _check_tf32_sass() -> dict:
+    """The split-TF32 backward pair's machine code, from ``cuobjdump
+    -sass`` of the built flash library: the TF32 tensor-core products
+    (``HMMA.1688.F32.TF32``) and the float32 FMAs (``FFMA``) of each
+    instantiation.  Fails if an instantiation has no TF32 product."""
+    from split_learning_torch.ops.kernels import build
+    tool = pathlib.Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    try:
+        sass = subprocess.run(["c++filt"], input=sass, capture_output=True,
+                              text=True, timeout=60).stdout or sass
+    except (OSError, subprocess.SubprocessError):
+        pass
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            func = name if "_x3_kernel" in name else None
+            if func:
+                counts[func] = {"tf32_mma": 0, "ffma": 0}
+        elif func and "HMMA.1688.F32.TF32" in line:
+            counts[func]["tf32_mma"] += 1
+        elif func and " FFMA " in line:
+            counts[func]["ffma"] += 1
+    for func, c in sorted(counts.items()):
+        print(f"  sass: {func}: {c['tf32_mma']} HMMA.1688.F32.TF32, "
+              f"{c['ffma']} FFMA")
+    check(len(counts) == 20 and all(c["tf32_mma"] for c in counts.values()),
+          f"split-TF32 backward: expected 20 instantiations with TF32 "
+          f"tensor-core products, got {counts}")
+    return counts
+
+
 def phase_kernels() -> dict:
     from split_learning_torch.ops import flash_attention as fa
+    sass = _check_tf32_sass()
 
     cases = [("slice bf16 causal", SLICE_SHAPE, torch.bfloat16, True),
              ("bf16 D=128 S=256 causal", (16, 256, 128), torch.bfloat16,
@@ -565,8 +609,8 @@ def phase_kernels() -> dict:
                 dkv_name: [("dk", dk, dk_ref), ("dv", dv, dv_ref)],
                 dq_name: [("dq", dq, dq_ref)]}
         if ci == 0:
-            # the CUDA-core kernels at the slice's shapes too: they are
-            # the float32 route, and the yardsticks of the tensor-core ones
+            # the float32-route kernels at the slice's shapes too, on its
+            # bf16 inputs: they are the yardsticks of the bf16 ones
             o_s, lse_s = fa._launch_fwd("flash_fwd_simt", q, k, v, causal)
             errs["flash_fwd_simt"] = [("o", o_s, o_ref32),
                                       ("lse", lse_s, lse_ref)]
@@ -595,8 +639,8 @@ def phase_kernels() -> dict:
         if ci != 0:
             continue
         # times at the slice's shapes: the tensor-core kernels on its
-        # bf16 inputs, the CUDA-core ones on the same values in float32,
-        # the dtype whose route they are
+        # bf16 inputs, the float32-route ones on the same values in
+        # float32, the dtype whose route they are
         q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
         o32, lse32 = fa.flash_fwd_reference(q32, k32, v32, causal)
         lse32 = lse32.contiguous()
@@ -636,11 +680,11 @@ def phase_kernels() -> dict:
         sdpa32 = (lambda: F.scaled_dot_product_attention(
             q4_32, k4_32, v4_32, is_causal=True))
         library = {"flash_fwd": sdpa, "flash_fwd_simt": sdpa32}
-        bwd_ms = {"tc": _backward_yardstick(q, k, v, do, o, lse_in, causal,
-                                            (q4, k4, v4)),
-                  "simt": _backward_yardstick(q32, k32, v32, do32, o32,
-                                              lse32, causal,
-                                              (q4_32, k4_32, v4_32))}
+        bwd_ms, bwd_split = {}, {}
+        bwd_ms["tc"], bwd_split["tc"] = _backward_yardstick(
+            q, k, v, do, o, lse_in, causal, (q4, k4, v4))
+        bwd_ms["simt"], bwd_split["simt"] = _backward_yardstick(
+            q32, k32, v32, do32, o32, lse32, causal, (q4_32, k4_32, v4_32))
         for name, (kern, plain) in runs.items():
             simt = name.endswith("_simt")
             row_dtype = torch.float32 if simt else dtype
@@ -648,6 +692,16 @@ def phase_kernels() -> dict:
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / PEAK_FLOPS[row_dtype] * 1e3
             r = results[name]
+            if name in SPLIT_TF32_KERNELS:
+                # bounded by the arithmetic the kernel runs: three TF32
+                # products a float32 one; the CUDA-core bound beside it
+                # keeps earlier rows comparable
+                r["arith"] = "split TF32 (3 x mma.sync m16n8k8 tf32)"
+                r["cuda_core_bound_ms"] = max(t_bytes, t_ops)
+                t_ops = 3 * flops / PEAK_TF32 * 1e3
+                r["port_backward_split"] = bwd_split["simt"]
+                r["sass"] = {f: c for f, c in sass.items()
+                             if name.removesuffix("_simt") + "_x3" in f}
             r["timed_at"] = (f"{str(row_dtype).replace('torch.', '')} "
                              f"{tuple(shape)} causal")
             r["ms"] = _time_ms(kern)
@@ -668,6 +722,12 @@ def phase_kernels() -> dict:
                   f"{r['plain_ms']:.4f} ms  library {r['library_ms']} ms  "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
                   f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            if "arith" in r:
+                print(f"  {name:18s} arithmetic {r['arith']}: bound "
+                      f"{r['bound_ms']:.4f} ms (bytes {t_bytes:.4f}, 3 x "
+                      f"{flops / 1e9:.2f} GFLOP at {PEAK_TF32 / 1e12:.0f} "
+                      f"TFLOP/s {t_ops:.4f}); CUDA-core bound "
+                      f"{r['cuda_core_bound_ms']:.4f} ms")
     return results
 
 
@@ -715,12 +775,14 @@ def _sdpa_backward(q4, k4, v4, do4):
     raise SmokeFailure("no SDPA backend takes the slice's shapes")
 
 
-def _backward_yardstick(q, k, v, do, o, lse, causal, qkv4) -> float:
+def _backward_yardstick(q, k, v, do, o, lse, causal,
+                        qkv4) -> tuple[float, dict]:
     """The library's backward at the slice's shapes against the port's:
     profiler device time of SDPA's backward (pinned backend) beside that
     of the port's backward as ``_Flash.backward`` runs it on the route of
     the inputs' dtype — the ``delta`` pre-pass, then dK/dV and dQ.
-    Returns the library's device time in ms."""
+    Returns the library's device time in ms, and the port's split into
+    those three parts with the library's backend and total beside it."""
     from split_learning_torch.ops import flash_attention as fa
     lib_call, backend = _sdpa_backward(*qkv4, do.view_as(qkv4[0]))
     lib_ms, lib_split = _device_ms(lib_call)
@@ -737,7 +799,18 @@ def _backward_yardstick(q, k, v, do, o, lse, causal, qkv4) -> float:
     print(f"  port backward (delta + dK/dV + dQ): device {ms:.4f} ms = "
           f"{ms / lib_ms:.2f}x the library's; kernels "
           + ", ".join(f"{n[:60]} {t:.4f}" for n, t in split.items()))
-    return lib_ms
+    parts = {"delta": 0.0, "dkv": 0.0, "dq": 0.0}
+    for n, t in split.items():
+        part = ("dkv" if "flash_bwd_dkv" in n else
+                "dq" if "flash_bwd_dq" in n else "delta")
+        parts[part] += t
+    print(f"  port backward split ({q.dtype}): delta pre-pass "
+          f"{parts['delta']:.4f} ms, dK/dV {parts['dkv']:.4f}, dQ "
+          f"{parts['dq']:.4f}; sdpa ({backend}) {lib_ms:.4f} ms, kernels "
+          + ", ".join(n[:80] for n in lib_split))
+    return lib_ms, {**parts, "total": ms, "sdpa": lib_ms,
+                    "sdpa_backend": backend,
+                    "sdpa_kernels": list(lib_split)}
 
 
 def phase_model_check() -> None:
@@ -1222,12 +1295,12 @@ def phase_slice(cfg) -> dict:
     check(rec.ok, f"round not ok: {rec}")
     check(math.isfinite(rec.val_loss) and math.isfinite(rec.val_accuracy),
           f"non-finite validation: {rec}")
-    # the bf16 kernels are the tensor-core ones; the CUDA-core kernels
-    # are the float32 route and must not run here
+    # the bf16 kernels are the tensor-core ones; the _simt kernels are
+    # the float32 route and must not run here
     for name, n in launches.items():
         if name in SIMT_KERNELS:
-            check(n == 0, f"the CUDA-core {name} ran {n} times on the bf16 "
-                  "main path")
+            check(n == 0, f"the float32-route {name} ran {n} times on the "
+                  "bf16 main path")
         else:
             check(n > 0, f"kernel {name} was not launched on the main path")
     steps = max(1, (cfg.distribution.num_samples // lrn.batch_size)
@@ -1455,7 +1528,7 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
     GEMM algorithms between the runs).  Then the kernels-on round once
     more with every frame over TCP (participants in threads, the async
     sender), held to the in-process one the same way.  Its float32 forward and backward
-    take the CUDA-core kernels: returns their launches, and the codec
+    take the float32-route kernels: returns their launches, and the codec
     kernels' (either quantizer route may run here), in the first run."""
     from split_learning_torch.config import from_dict
     from split_learning_torch.ops import flash_attention as fa
@@ -1476,7 +1549,7 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
             check(all(simt.values()) and not any(
                 fa.LAUNCHES[n] for n in fa.LAUNCHES if n not in simt),
                   f"tiny float32 round: flash launches {fa.LAUNCHES}, "
-                  "expected the CUDA-core kernels only")
+                  "expected the float32-route kernels only")
         check([r.ok for r in res.history] == [True, True],
               f"tiny protocol round not ok: {res.history}")
         runs.append(res)
@@ -1514,7 +1587,7 @@ def phase_protocol_check(workdir: pathlib.Path) -> dict:
           == [r.num_samples for r in on.history]
           and tcp_loss <= 1e-5 and tcp_param <= 1e-5,
           "tiny protocol round over TCP differs from the in-process one")
-    print(f"  tiny float32 round: CUDA-core kernels launched {simt}, "
+    print(f"  tiny float32 round: float32-route kernels launched {simt}, "
           f"codec kernels {codec}")
     return {**simt, **codec}
 
@@ -5495,7 +5568,8 @@ def main() -> int:
             extra_b3 = {}
         extra = {k: r[k] for k in ("shapes", "tinyllama_shapes", "frames",
                                    "baseline3_shapes", "bert_shapes",
-                                   "timed_at") if k in r}
+                                   "timed_at", "arith", "cuda_core_bound_ms",
+                                   "port_backward_split", "sass") if k in r}
         entries.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,

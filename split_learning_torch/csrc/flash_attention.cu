@@ -8,10 +8,10 @@
 //   flash_fwd_kernel         <- _fwd_kernel      float32, and bfloat16 D = 8
 //   flash_bwd_dkv_tc_kernel  <- _bwd_dkv_kernel  (:134-170, via _flash_bwd_rule)
 //                               bfloat16, D in {16, 32, 64, 128}
-//   flash_bwd_dkv_kernel     <- _bwd_dkv_kernel  float32, and bfloat16 D = 8
+//   flash_bwd_dkv_x3_kernel  <- _bwd_dkv_kernel  float32, and bfloat16 D = 8
 //   flash_bwd_dq_tc_kernel   <- _bwd_dq_kernel   (:173-205, via _flash_bwd_rule)
 //                               bfloat16, D in {16, 32, 64, 128}
-//   flash_bwd_dq_kernel      <- _bwd_dq_kernel   float32, and bfloat16 D = 8
+//   flash_bwd_dq_x3_kernel   <- _bwd_dq_kernel   float32, and bfloat16 D = 8
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are (BH, S, D) row-major, contiguous,
 // in float32 or bfloat16; lse and delta are (BH, S) float32.  lse is the
@@ -103,27 +103,84 @@
 //   64 KB of shared memory); unbounded it takes 232 and 2 blocks, ~8 %
 //   slower on an H100.
 //
-// flash_fwd_kernel and the two CUDA-core backward kernels (the float32 and
-// D = 8 routes):
-//   * One thread block of 256 threads (a 16 x 16 grid) per (bh, 64-row
-//     tile): a Q tile for the forward and dQ, a K tile for dK/dV.  Blocks
-//     run in parallel; the loop over the other axis inside the block takes
-//     the place of the Pallas kernels' sequential fori_loop.
+// flash_fwd_kernel (the float32 and D = 8 forward), on the CUDA cores:
+//   * One thread block of 256 threads (a 16 x 16 grid) per (bh, 64-row Q
+//     tile); the loop over K/V tiles inside the block takes the place of
+//     the Pallas kernel's sequential fori_loop.
 //   * Tiles are staged in shared memory as float32 (rows padded by one
 //     float so the column walks hit distinct banks).  Products are
 //     CUDA-core FMAs in full float32 for both input types: for bf16 inputs
 //     each product of two bf16 values is exact in float32; for float32
-//     inputs it is the counterpart of Precision.HIGHEST.  The forward
-//     pre-scales Q in float32, as the TPU kernel does.
+//     inputs it is the counterpart of Precision.HIGHEST.  Q is pre-scaled
+//     in float32, as the TPU kernel does.
 //   * The softmax state (m, l) and every accumulator stay in float32 in
 //     registers.  Thread (ty, tx) owns rows ty + 16*i (i < 4) and columns
 //     tx + 16*j of each 64 x 64 score tile; row maxima and sums reduce over
-//     the 16 lanes of a row with warp shuffles.
-//   * Causal runs skip fully masked tiles: the forward and dQ stop at the
-//     diagonal tile, dK/dV starts at it.
-//   These run their products on the CUDA cores (67 TFLOP/s float32), so
-//   they are bound by their own operations (~2-4 GFLOP a call), well above
-//   the memory bound.
+//     the 16 lanes of a row with warp shuffles.  Causal runs stop at the
+//     diagonal tile.
+//   It runs its products on the CUDA cores (67 TFLOP/s float32), so it is
+//   bound by its own operations (~2 GFLOP a call), well above the memory
+//   bound.
+//
+// flash_bwd_dkv_x3_kernel and flash_bwd_dq_x3_kernel (the float32 and
+// D = 8 backward, _bwd_dkv_kernel and _bwd_dq_kernel at float32 and bf16
+// D = 8), on the tensor cores in split TF32 ("3xTF32"):
+//   * The JAX package runs float32 flash at Precision.HIGHEST (several
+//     bf16 passes on the MXU).  Here each float32 operand x is split into
+//     hi = cvt.rna.tf32(x) and lo = the TF32 rounding of x - hi, and each
+//     product is lo*hi + hi*lo + hi*hi, small terms first, on
+//     mma.sync.m16n8k8.tf32 into float32 accumulators: within ~2^-21 of a
+//     float32 product, at the 495 TFLOP/s of TF32 and not the 67 of the
+//     CUDA cores.  bf16 values are exact in TF32 (lo = 0), so with bf16
+//     inputs S = Q K^T and dP = dO V^T take one product and the float32 P
+//     and dS two (their B operand's lo term is 0).
+//   * Bound at (256, 256, 64) float32 causal by bytes: dK/dV 101 MB, 0.030
+//     ms; dQ 84 MB, 0.025 ms (the three TF32 products of each float32 one
+//     take 0.026 and 0.020 ms at the TF32 peak).  What bounds this design
+//     on an H100 is the shared memory each product reads: a B fragment
+//     serves one m16 tile, and with hi and lo it is 4 words a lane for 3
+//     mma.sync (each ~5.5 cycles of an SM sub-partition at best,
+//     tools/mma_sync_rate.cu), about as many wavefronts as the SM's shared
+//     memory serves in that time.  The
+//     CUDA-core kernels these replace were bound by one 4-byte shared load
+//     per two FMAs and by synchronous element copies, at 21 % of the CUDA
+//     cores.
+//   * Decomposition as the TPU kernels and the bf16 pair: dK/dV one block
+//     of 4 warps per (bh, 64-row K tile), each warp 16 K rows, walking the
+//     Q tiles from the causal start; dQ one block per (bh, 64-row Q tile),
+//     last first, walking up to the diagonal.  Each block owns its output
+//     tile: no atomics, deterministic.  Only the diagonal and ragged tiles
+//     are masked; a warp skips a step none of whose pairs it can see.
+//   * The kept tiles (K and V, or Q and dO) are split once a block into
+//     the A fragments the products read, in fragment order (one 16-byte
+//     read a fragment for hi, one for lo).  The streamed ones (Q, dO, lse
+//     and delta, or K and V) come in 32-row steps by 16-byte cp.async
+//     copies, zero-filled past S, and each step is split once into a hi
+//     and a lo plane that every warp then reads (split where each warp
+//     reads it, every value is split 8 times a step: slower on an H100,
+//     though a ring of raw steps then needs one barrier a step).  The
+//     planes take a second barrier a step (written, then read by every
+//     warp); the next step's copies are in flight while a step computes.
+//     At D = 64: the kept tiles 64 KB, the planes 32 KB, the raw step
+//     16.25 KB, 115,200 / 114,688 bytes a block, 2 blocks an SM.
+//   * ldmatrix.trans moves 16-bit elements and cannot transpose float32,
+//     so the B operands read down columns (dO and Q in dV += P^T dO and
+//     dK += dS^T Q, K in dQ += dS K) are 4-byte shared loads of the
+//     planes, whose 16-byte chunks are XOR-swizzled by the row so that
+//     reads along rows (8 bytes, rows g) and down columns (rows 2t, 2t + 1)
+//     both hit 32 distinct banks; no transposed copy (a second plane a
+//     tile, past the 2 blocks an SM).
+//   * P and dS never leave registers: an m16n8 accumulator gives lane
+//     (g, t) columns 2t and 2t + 1, and the m16n8k8 A fragment wants
+//     columns t and t + 4, so the k index of each k8 step is permuted
+//     (A column t <- 2t, t + 4 <- 2t + 1) and B's rows are read in the
+//     same order; a sum over k does not depend on its order, and no
+//     shuffle is needed.  The same permutation makes a kept fragment's
+//     and a B fragment's two columns adjacent in memory.
+//   * p = 2^(s*scale*log2(e) - lse*log2(e)) on ex2.approx; dK, dV and dQ
+//     go from the accumulators straight to device memory (8-byte stores
+//     of two float32, 4-byte of two bf16).
+//   Left for later: wgmma (it takes TF32 only K-major) and TMA.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -175,13 +232,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
     const int g = r0 + r;
     dst[r * DP + c] = g < S ? to_f32(src[(size_t)g * D + c]) * mul : 0.f;
   }
-}
-
-// Stage 64 entries of a (S,) float32 row vector; entries past S are zero.
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int r0, int S) {
-  for (int r = threadIdx.x; r < kTile; r += kThreads)
-    dst[r] = r0 + r < S ? src[r0 + r] : 0.f;
 }
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S,
@@ -302,251 +352,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (c < D) o[base + (size_t)r * D + c] = from_f32<T>(acc[i][j] / l_safe);
     }
     if (tx == 0) lse[(size_t)blockIdx.y * S + r] = m[i] + logf(l_safe);
-  }
-}
-
-// Scores and dP of one (Q tile, K tile) pair, for the thread's 4 x 4
-// entries: s = (q . k) * scale masked, p = exp(s - lse), dp = dO . v,
-// ds = p * (dp - delta) * scale.  Writes p and ds to registers.
-template <int D>
-__device__ __forceinline__ void bwd_scores(
-    const float* sQ, const float* sdO, const float* sK, const float* sV,
-    const float* sL, const float* sDelta, int q0, int k0, int S, int causal,
-    float scale, float p[4][4], float ds[4][4]) {
-  constexpr int DP = D + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[4], dov[4], kv[4], vv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = sQ[(ty + 16 * i) * DP + d];
-      dov[i] = sdO[(ty + 16 * i) * DP + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = sK[(tx + 16 * j) * DP + d];
-      vv[j] = sV[(tx + 16 * j) * DP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool ok = visible(q0 + qr, k0 + tx + 16 * j, S, causal);
-      p[i][j] = ok ? expf(s[i][j] * scale - sL[qr]) : 0.f;
-      ds[i][j] = p[i][j] * (dp[i][j] - sDelta[qr]) * scale;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dK, dV: one block per (bh, K tile); loop over Q tiles from the causal
-// start.  No atomics: each block owns its dK/dV tile.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int DJ = (D + 15) / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kTile * DP;
-  float* sQ = sV + kTile * DP;
-  float* sdO = sQ + kTile * DP;
-  float* sP = sdO + kTile * DP;
-  float* sL = sP + kTile * kPStride;
-  float* sDelta = sL + kTile;
-
-  const int k0 = blockIdx.x * kTile;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const float* lse_row = lse + (size_t)blockIdx.y * S;
-  const float* delta_row = delta + (size_t)blockIdx.y * S;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<T, D>(sK, k + base, k0, S, 1.f);
-  load_tile<T, D>(sV, v + base, k0, S, 1.f);
-
-  float adk[4][DJ], adv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) adk[i][j] = adv[i][j] = 0.f;
-
-  const int nq = (S + kTile - 1) / kTile;
-  const int qb_start = causal ? k0 / kTile : 0;
-  for (int qb = qb_start; qb < nq; ++qb) {
-    const int q0 = qb * kTile;
-    __syncthreads();
-    load_tile<T, D>(sQ, q + base, q0, S, 1.f);
-    load_tile<T, D>(sdO, dout + base, q0, S, 1.f);
-    load_vec(sL, lse_row, q0, S);
-    load_vec(sDelta, delta_row, q0, S);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    bwd_scores<D>(sQ, sdO, sK, sV, sL, sDelta, q0, k0, S, causal, scale, p,
-                  ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(ty + 16 * i) * kPStride + tx + 16 * j] = p[i][j];
-    __syncthreads();
-    // dV[kr, c] += sum_q P[q, kr] * dO[q, c]
-#pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[qq * kPStride + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float x = sdO[qq * DP + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) adv[i][j] = fmaf(pv[i], x, adv[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(ty + 16 * i) * kPStride + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    // dK[kr, c] += sum_q dS[q, kr] * Q[q, c]
-#pragma unroll 4
-    for (int qq = 0; qq < kTile; ++qq) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sP[qq * kPStride + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float x = sQ[qq * DP + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) adk[i][j] = fmaf(dsv[i], x, adk[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) {
-        dk[base + (size_t)r * D + c] = from_f32<T>(adk[i][j]);
-        dv[base + (size_t)r * D + c] = from_f32<T>(adv[i][j]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dQ: one block per (bh, Q tile); loop over K tiles up to the diagonal.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int S, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int DJ = (D + 15) / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kTile * DP;
-  float* sK = sdO + kTile * DP;
-  float* sV = sK + kTile * DP;
-  float* sP = sV + kTile * DP;
-  float* sL = sP + kTile * kPStride;
-  float* sDelta = sL + kTile;
-
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<T, D>(sQ, q + base, q0, S, 1.f);
-  load_tile<T, D>(sdO, dout + base, q0, S, 1.f);
-  load_vec(sL, lse + (size_t)blockIdx.y * S, q0, S);
-  load_vec(sDelta, delta + (size_t)blockIdx.y * S, q0, S);
-
-  float adq[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) adq[i][j] = 0.f;
-
-  const int nk = (S + kTile - 1) / kTile;
-  const int nk_eff = causal ? min(nk, (q0 + kTile + kTile - 1) / kTile) : nk;
-  for (int kb = 0; kb < nk_eff; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();
-    load_tile<T, D>(sK, k + base, k0, S, 1.f);
-    load_tile<T, D>(sV, v + base, k0, S, 1.f);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    bwd_scores<D>(sQ, sdO, sK, sV, sL, sDelta, q0, k0, S, causal, scale, p,
-                  ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sP[(ty + 16 * i) * kPStride + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    // dQ[qr, c] += sum_k dS[qr, k] * K[k, c]
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sP[(ty + 16 * i) * kPStride + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float x = sK[kk * DP + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) adq[i][j] = fmaf(dsv[i], x, adq[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) dq[base + (size_t)r * D + c] = from_f32<T>(adq[i][j]);
-    }
   }
 }
 
@@ -1281,14 +1086,563 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   store_rows_bf16<D>(dqa, tc_smem, dq + base, q0, S, warp, lane);
 }
 
+// ---------------------------------------------------------------------------
+// float32 (and bf16 D = 8) backward on the tensor cores, in split TF32
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 by cvt.rna (nearest, ties away from zero): a float32
+// whose low 13 mantissa bits are 0
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32 (kExact: x is a bf16 value, exact
+// in TF32, so hi = x and lo = 0).  hi = cvt.rna(x), so that x - hi is the
+// exact remainder: the mma reads only the top 19 bits of a register and
+// drops the low 13 silently.  lo = cvt.rna(x - hi) in what the mma reads:
+// the bits of x - hi plus half a TF32 ulp (0x1000), whose low 13 bits the
+// mma drops (round to nearest, ties away from zero, on the magnitude) --
+// the same TF32 value as cvt for every finite x, in one integer add in
+// place of cvt's four instructions.  A non-finite x keeps hi non-finite.
+template <bool kExact>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  if constexpr (kExact) {
+    hi = __float_as_uint(x);
+    lo = 0u;
+  } else {
+    hi = tf32_rna(x);
+    lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+  }
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += A B in split TF32, the small terms first: lo(A) hi(B) + hi(A) lo(B)
+// + hi(A) hi(B) (lo lo, ~2^-22 of the product, is left out).  A term whose
+// lo is 0 (a bf16 operand) is skipped.
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma_x3(float (&c)[4], const uint32_t (&ah)[4],
+                                       const uint32_t (&al)[4],
+                                       const uint32_t (&bh)[2],
+                                       const uint32_t (&bl)[2]) {
+  if constexpr (!kExactA) mma_tf32(c, al, bh[0], bh[1]);
+  if constexpr (!kExactB) mma_tf32(c, ah, bl[0], bl[1]);
+  mma_tf32(c, ah, bh[0], bh[1]);
+}
+
+// Rows of a streamed tile of the split-TF32 backward (Q and dO in dK/dV,
+// K and V in dQ): 32, so that the kept tiles, the streamed ones split and
+// raw fit 2 blocks an SM at D = 64.
+constexpr int kSub = 32;
+
+// A kept tile (K and V in dK/dV, Q and dO in dQ) is split once, into the
+// A fragments the products read: [warp][k8 step][lane] x 4 hi words, then
+// the same for lo, so that a lane's fragment is one 16-byte read into the
+// registers the mma takes.  Fragment columns t and t + 4 hold the tile's
+// columns 2t and 2t + 1: the k index of each k8 step is permuted (a sum
+// over k does not depend on its order), and B operands take their rows in
+// the same order.
+template <int D>
+__host__ __device__ constexpr uint32_t kept_half_bytes() {
+  return (uint32_t)kTile * D * 4;
+}
+template <int D>
+__device__ __forceinline__ uint32_t kept_off(int warp, int kk, int lane) {
+  return (uint32_t)((warp * (D / 8) + kk) * 32 + lane) * 16;
+}
+
+// A streamed tile is split into a hi plane and a lo plane of float32 rows
+// of max(D, 32) values, in 16-byte chunks of 4 columns: chunk c/4 of row r
+// sits at c/4 ^ pl_swz(r).  B fragments read along rows (columns 2t, 2t + 1
+// of rows g: 8-byte reads) and down columns (column g of rows 2t and
+// 2t + 1: 4-byte reads) then hit 32 distinct banks: pl_swz takes four
+// values on any 4 consecutive rows and on the even and the odd rows of
+// each 8.
+template <int D>
+__host__ __device__ constexpr uint32_t pl_row_bytes() {
+  return (D < 32 ? 32 : D) * 4;
+}
+__device__ __forceinline__ int pl_swz(int r) {
+  return ((((r >> 1) & 1) << 1) | ((r ^ (r >> 2)) & 1)) << 1;
+}
+template <int D>
+__device__ __forceinline__ uint32_t pl_off(int r, int c) {
+  return r * pl_row_bytes<D>() +
+         ((((c >> 2) ^ pl_swz(r)) << 4) | ((c & 3) << 2));
+}
+
+// Issue the 16-byte copies of rows [r0, r0 + kSub) of a (S, D) matrix of
+// T into a raw streamed tile (rows of D * sizeof(T) bytes); rows past S
+// are zero-filled.
+template <typename T, int D>
+__device__ __forceinline__ void stage_streamed(uint32_t dst, const T* src,
+                                               int r0, int S) {
+  constexpr int CH = D * (int)sizeof(T) / 16;   // 16-byte chunks of a row
+  for (int idx = threadIdx.x; idx < kSub * CH; idx += kTcThreads) {
+    const int r = idx / CH, c = idx - (idx / CH) * CH;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + idx * 16,
+               src + (size_t)(ok ? r0 + r : 0) * D + c * (16 / sizeof(T)),
+               ok);
+  }
+}
+
+// A kept tile lands raw with 16-byte chunk q of row r at q ^ kept_swz(r),
+// so that the split below reads it without bank conflicts: float32 rows
+// as pairs (8-byte reads of rows g, 4 rows a phase), bf16 rows as 4-byte
+// reads (rows g, 8 rows a phase).
+template <typename T, int D>
+__device__ __forceinline__ int kept_swz(int r) {
+  constexpr int CH = D * (int)sizeof(T) / 16;
+  return (sizeof(T) == 4 ? 2 * (r & 3) : (r & 7)) & (CH - 1);
+}
+template <typename T, int D>
+__device__ __forceinline__ void stage_kept(uint32_t dst, const T* src,
+                                           int r0, int S) {
+  constexpr int CH = D * (int)sizeof(T) / 16;
+  for (int idx = threadIdx.x; idx < kTile * CH; idx += kTcThreads) {
+    const int r = idx / CH, c = idx - (idx / CH) * CH;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + (r * CH + (c ^ kept_swz<T, D>(r))) * 16,
+               src + (size_t)(ok ? r0 + r : 0) * D + c * (16 / sizeof(T)),
+               ok);
+  }
+}
+
+// Split the two raw kept 64-row tiles of T (contiguous at raw) into A
+// fragments (at dst, the first tile's, then the second's), each value
+// once: a thread builds a lane's whole fragment (rows g and g + 8,
+// columns 2t and 2t + 1) and writes it as one 16-byte hi and one 16-byte
+// lo store.  Unrolled by 8, so that a thread's reads go out together.
+template <typename T, int D>
+__device__ __forceinline__ void split_kept(unsigned char* dst,
+                                           const unsigned char* raw) {
+  constexpr bool kExact = sizeof(T) == 2;
+  constexpr int CH = D * (int)sizeof(T) / 16;
+  constexpr int kFrags = 4 * (D / 8) * 32;   // fragment chunks of a tile
+#pragma unroll 8
+  for (int i = threadIdx.x; i < 2 * kFrags; i += kTcThreads) {
+    const int tile = i / kFrags, f = i - tile * kFrags;
+    const int lane = f & 31, wk = f >> 5;   // wk = warp * D/8 + k8 step
+    const int r = (wk / (D / 8)) * 16 + (lane >> 2);
+    const int c = (wk % (D / 8)) * 8 + 2 * (lane & 3);
+    const unsigned char* const src =
+        raw + tile * kTile * D * (int)sizeof(T);
+    unsigned char* const out = dst + tile * 2 * kept_half_bytes<D>();
+    float x[2][2];   // rows r, r + 8; columns c, c + 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h, byte = c * (int)sizeof(T);
+      const unsigned char* at =
+          src + (row * CH + ((byte >> 4) ^ kept_swz<T, D>(row))) * 16 +
+          (byte & 15);
+      if constexpr (sizeof(T) == 4) {
+        const float2 v = *reinterpret_cast<const float2*>(at);
+        x[h][0] = v.x;
+        x[h][1] = v.y;
+      } else {
+        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(at);
+        x[h][0] = __low2float(v);
+        x[h][1] = __high2float(v);
+      }
+    }
+    uint4 hi, lo;
+    split_tf32<kExact>(x[0][0], hi.x, lo.x);
+    split_tf32<kExact>(x[1][0], hi.y, lo.y);
+    split_tf32<kExact>(x[0][1], hi.z, lo.z);
+    split_tf32<kExact>(x[1][1], hi.w, lo.w);
+    *reinterpret_cast<uint4*>(out + f * 16) = hi;
+    *reinterpret_cast<uint4*>(out + kept_half_bytes<D>() + f * 16) = lo;
+  }
+}
+
+// Split the two raw kSub-row tiles of a step (contiguous at raw) into
+// their hi and lo planes (at dst: the first tile's hi, its lo, then the
+// second's), each value once; the loop is unrolled, so that a thread's
+// chunks are read and split together.
+template <typename T, int D>
+__device__ __forceinline__ void split_streamed(unsigned char* dst,
+                                               const unsigned char* raw) {
+  constexpr bool kExact = sizeof(T) == 2;
+  constexpr uint32_t kPlane = kSub * pl_row_bytes<D>();
+  constexpr int VC = 16 / (int)sizeof(T);   // values of a 16-byte chunk
+  constexpr int CH = D / VC;                // chunks of a raw row
+  constexpr int kChunks = 2 * kSub * CH;
+#pragma unroll
+  for (int i0 = 0; i0 < kChunks; i0 += kTcThreads) {
+    const int idx = i0 + threadIdx.x;
+    if (kChunks % kTcThreads != 0 && idx >= kChunks) break;
+    const int r = idx / CH, q = idx - (idx / CH) * CH;
+    const uint4 w = *reinterpret_cast<const uint4*>(raw + idx * 16);
+    const T* x = reinterpret_cast<const T*>(&w);
+    unsigned char* const plane = dst + (r / kSub) * 2 * kPlane;
+#pragma unroll
+    for (int i = 0; i < VC; i += 4) {
+      uint4 h, l;
+      split_tf32<kExact>(to_f32(x[i]), h.x, l.x);
+      split_tf32<kExact>(to_f32(x[i + 1]), h.y, l.y);
+      split_tf32<kExact>(to_f32(x[i + 2]), h.z, l.z);
+      split_tf32<kExact>(to_f32(x[i + 3]), h.w, l.w);
+      const uint32_t at = pl_off<D>(r % kSub, q * VC + i);
+      *reinterpret_cast<uint4*>(plane + at) = h;
+      *reinterpret_cast<uint4*>(plane + kPlane + at) = l;
+    }
+  }
+}
+
+// acc[kSub/8][4] += A B^T: A this warp's kept fragments (16 rows, all D
+// columns), B the streamed tile's kSub rows (its rows are the n index),
+// read along rows.
+template <int D, bool kExact>
+__device__ __forceinline__ void x3_rows_by_tile(float (&acc)[kSub / 8][4],
+                                                const unsigned char* kept,
+                                                const unsigned char* tB,
+                                                int warp, int lane) {
+  constexpr uint32_t kPlane = kSub * pl_row_bytes<D>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t ka = kept_off<D>(warp, kk, lane);
+    const uint4 h4 = *reinterpret_cast<const uint4*>(kept + ka);
+    const uint4 l4 =
+        *reinterpret_cast<const uint4*>(kept + kept_half_bytes<D>() + ka);
+    const uint32_t ah[4] = {h4.x, h4.y, h4.z, h4.w};
+    const uint32_t al[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) {
+      const uint32_t at = pl_off<D>(j * 8 + g, kk * 8 + 2 * t);
+      const uint2 h2 = *reinterpret_cast<const uint2*>(tB + at);
+      const uint2 l2 = *reinterpret_cast<const uint2*>(tB + kPlane + at);
+      const uint32_t bh[2] = {h2.x, h2.y}, bl[2] = {l2.x, l2.y};
+      mma_x3<kExact, kExact>(acc[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc[D/8][4] += F B: F (16 x kSub) float32 accumulators, split here, B
+// the streamed tile (its rows are the k index), read down columns.  F
+// stays in registers: lane (g, t)'s accumulator columns 2t and 2t + 1 are
+// its A fragment's columns t and t + 4 (the permuted k order), and B's
+// rows 2t and 2t + 1 its fragment rows t and t + 4.
+template <int D, bool kExact>
+__device__ __forceinline__ void x3_frags_by_tile(float (&acc)[D / 8][4],
+                                                 const float (&f)[kSub / 8][4],
+                                                 const unsigned char* tB,
+                                                 int lane) {
+  constexpr uint32_t kPlane = kSub * pl_row_bytes<D>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < kSub / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split_tf32<false>(f[kk][0], ah[0], al[0]);   // row g,     column 2t
+    split_tf32<false>(f[kk][2], ah[1], al[1]);   // row g + 8, column 2t
+    split_tf32<false>(f[kk][1], ah[2], al[2]);   // row g,     column 2t + 1
+    split_tf32<false>(f[kk][3], ah[3], al[3]);   // row g + 8, column 2t + 1
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t a0 = pl_off<D>(kk * 8 + 2 * t, n * 8 + g);
+      const uint32_t a1 = pl_off<D>(kk * 8 + 2 * t + 1, n * 8 + g);
+      const uint32_t bh[2] = {*reinterpret_cast<const uint32_t*>(tB + a0),
+                              *reinterpret_cast<const uint32_t*>(tB + a1)};
+      const uint32_t bl[2] = {
+          *reinterpret_cast<const uint32_t*>(tB + kPlane + a0),
+          *reinterpret_cast<const uint32_t*>(tB + kPlane + a1)};
+      mma_x3<false, kExact>(acc[n], ah, al, bh, bl);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+// Write a warp's 16 x D accumulators (rows row and row + 8 of this lane)
+// to out, rows below S only.
+template <typename T, int D>
+__device__ __forceinline__ void x3_store_rows(const float (&acc)[D / 8][4],
+                                              T* out, int row, int S,
+                                              int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= S) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      store2(out + (size_t)(row + 8 * r) * D + n * 8 + 2 * t,
+             acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// Shared memory of the split-TF32 pair: two kept tiles split, two
+// streamed tiles split and raw and, for dK/dV, lse and delta of a
+// streamed tile, raw and scaled.  The kept tiles land raw where the
+// streamed ones are split (512 max(D, 32) >= 128 D sizeof(T) bytes).
+template <typename T, int D>
+constexpr size_t x3_smem(bool rows) {
+  return (size_t)4 * kept_half_bytes<D>() +
+         (size_t)4 * kSub * pl_row_bytes<D>() +
+         (size_t)2 * kSub * D * sizeof(T) +
+         (rows ? (size_t)4 * kSub * sizeof(float) : 0);
+}
+
+// dK, dV (float32, and bf16 at D = 8): one block of 4 warps per (bh,
+// 64-row K tile), each warp 16 K rows; Q, dO, lse and delta stream in
+// kSub-row tiles from the causal start.  No atomics: each block owns its
+// dK/dV tile.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dk,
+                        T* __restrict__ dv, int S, float scale,
+                        float scale_log2, int causal) {
+  constexpr bool kExact = sizeof(T) == 2;
+  constexpr uint32_t kKeep = 2 * kept_half_bytes<D>();
+  constexpr uint32_t kSplit = 2 * kSub * pl_row_bytes<D>();
+  constexpr uint32_t kRaw = kSub * D * sizeof(T);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  unsigned char* const tK = tc_smem;            // K, V: kept fragments
+  unsigned char* const tV = tK + kKeep;
+  unsigned char* const tQ = tV + kKeep;         // Q, dO: streamed planes
+  unsigned char* const tO = tQ + kSplit;
+  float* const rows = reinterpret_cast<float*>(tO + kSplit);  // lse*log2(e),
+  unsigned char* const raw = tO + kSplit + 2 * kSub * sizeof(float);  // delta
+  const uint32_t sRaw = smem_u32(raw);          // raw Q, dO, lse, delta
+
+  const int kb = blockIdx.x;   // K tile 0 (the most Q tiles) first
+  const int k0 = kb * kTile;
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const float* lse_row = lse + (size_t)blockIdx.y * S;
+  const float* delta_row = delta + (size_t)blockIdx.y * S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int krow = k0 + warp * 16 + (lane >> 2);   // keys krow, krow + 8
+
+  // Q-side steps: kSub-row tiles from the causal start (queries before
+  // the K tile see none of its keys)
+  const int s0 = causal ? k0 / kSub : 0;
+  const int n_it = (S + kSub - 1) / kSub - s0;
+  auto stage_step = [&](int it) {
+    const int r0 = (s0 + it) * kSub;
+    stage_streamed<T, D>(sRaw, q + base, r0, S);
+    stage_streamed<T, D>(sRaw + kRaw, dout + base, r0, S);
+    if (threadIdx.x < 2 * kSub) {   // lse, then delta: 4-byte copies
+      const int r = threadIdx.x & (kSub - 1);
+      const bool ok = r0 + r < S;
+      cp_async4(sRaw + 2 * kRaw + 4 * threadIdx.x,
+                (threadIdx.x < kSub ? lse_row : delta_row) +
+                    (ok ? r0 + r : 0),
+                ok);
+    }
+  };
+
+  // K and V land raw where split Q and dO go, and are split once
+  stage_kept<T, D>(smem_u32(tQ), k + base, k0, S);
+  stage_kept<T, D>(smem_u32(tQ) + kTile * D * sizeof(T), v + base, k0, S);
+  cp_async_commit();
+  stage_step(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  split_kept<T, D>(tK, tQ);   // K, then V
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // step it has landed; step it-1's split tiles are free
+    split_streamed<T, D>(tQ, raw);   // Q, then dO
+    if (threadIdx.x < 2 * kSub) {
+      const float x =
+          reinterpret_cast<const float*>(raw + 2 * kRaw)[threadIdx.x];
+      rows[threadIdx.x] = threadIdx.x < kSub ? x * kLog2e : x;
+    }
+    __syncthreads();   // step it is split; the raw stage is free
+    if (it + 1 < n_it) stage_step(it + 1);
+    cp_async_commit();
+
+    const int q0 = (s0 + it) * kSub;
+    if (causal && krow - (lane >> 2) > q0 + kSub - 1)
+      continue;   // this warp's keys follow every query of the step
+
+    // S^T = K Q^T: this warp's 16 keys x kSub queries
+    float p[kSub / 8][4];
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
+    x3_rows_by_tile<D, kExact>(p, tK, tQ, warp, lane);
+
+    // P^T = 2^(s*scale*log2(e) - lse*log2(e)), lse by column (query);
+    // masked entries (diagonal and ragged tiles only) are 0
+    const bool edge = (causal && k0 + kTile > q0) || q0 + kSub > S ||
+                      k0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) {
+      const float2 l2 =
+          *reinterpret_cast<const float2*>(rows + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = ex2f(fmaf(p[j][e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+        if (edge && !visible(q0 + j * 8 + 2 * t + (e & 1),
+                             krow + (e >> 1) * 8, S, causal))
+          x = 0.f;
+        p[j][e] = x;
+      }
+    }
+    // dV += P^T dO
+    x3_frags_by_tile<D, kExact>(dva, p, tO, lane);
+
+    // dP^T = V dO^T
+    float dp[kSub / 8][4];
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
+    x3_rows_by_tile<D, kExact>(dp, tV, tO, warp, lane);
+
+    // dS^T = P^T (dP^T - delta) * scale, delta by column; dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j) {
+      const float2 d2 =
+          *reinterpret_cast<const float2*>(rows + kSub + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = p[j][e] * (dp[j][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+    }
+    x3_frags_by_tile<D, kExact>(dka, dp, tQ, lane);
+  }
+
+  x3_store_rows<T, D>(dka, dk + base, krow, S, t);
+  x3_store_rows<T, D>(dva, dv + base, krow, S, t);
+}
+
+// dQ (float32, and bf16 at D = 8): one block of 4 warps per (bh, 64-row
+// Q tile), each warp 16 Q rows; K and V stream in kSub-row tiles up to
+// the diagonal.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       int S, float scale, float scale_log2, int causal) {
+  constexpr bool kExact = sizeof(T) == 2;
+  constexpr uint32_t kKeep = 2 * kept_half_bytes<D>();
+  constexpr uint32_t kSplit = 2 * kSub * pl_row_bytes<D>();
+  constexpr uint32_t kRaw = kSub * D * sizeof(T);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  unsigned char* const tQ = tc_smem;            // Q, dO: kept fragments
+  unsigned char* const tO = tQ + kKeep;
+  unsigned char* const tK = tO + kKeep;         // K, V: streamed planes
+  unsigned char* const tV = tK + kSplit;
+  unsigned char* const raw = tV + kSplit;       // raw K, V
+  const uint32_t sRaw = smem_u32(raw);
+
+  // the last (under causal the heaviest) Q tile of each head first
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qb * kTile;
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int qrow = q0 + warp * 16 + (lane >> 2);   // rows qrow, qrow + 8
+
+  // K-side steps: kSub-row tiles up to the diagonal
+  const int n_all = (S + kSub - 1) / kSub;
+  const int n_it = causal ? min(n_all, (q0 + kTile) / kSub) : n_all;
+  auto stage_step = [&](int it) {
+    stage_streamed<T, D>(sRaw, k + base, it * kSub, S);
+    stage_streamed<T, D>(sRaw + kRaw, v + base, it * kSub, S);
+  };
+
+  // Q and dO land raw where split K and V go, and are split once
+  stage_kept<T, D>(smem_u32(tK), q + base, q0, S);
+  stage_kept<T, D>(smem_u32(tK) + kTile * D * sizeof(T), dout + base, q0, S);
+  cp_async_commit();
+  stage_step(0);
+  cp_async_commit();
+  // lse in log2 units and delta of the thread's two rows (0 past S)
+  float lr[2], dr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qrow + 8 * r;
+    const size_t at = (size_t)blockIdx.y * S + row;
+    lr[r] = row < S ? lse[at] * kLog2e : 0.f;
+    dr[r] = row < S ? delta[at] : 0.f;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+  split_kept<T, D>(tQ, tK);   // Q, then dO
+
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // step it has landed; step it-1's split tiles are free
+    split_streamed<T, D>(tK, raw);   // K, then V
+    __syncthreads();   // step it is split; the raw stage is free
+    if (it + 1 < n_it) stage_step(it + 1);
+    cp_async_commit();
+
+    const int k0 = it * kSub;
+    if (causal && k0 > qrow - (lane >> 2) + 15)
+      continue;   // every key of the step follows this warp's rows
+
+    // S = Q K^T and dP = dO V^T: this warp's 16 rows x kSub keys each
+    float s[kSub / 8][4], dp[kSub / 8][4];
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    x3_rows_by_tile<D, kExact>(s, tQ, tK, warp, lane);
+    x3_rows_by_tile<D, kExact>(dp, tO, tV, warp, lane);
+
+    // dS = p (dP - delta) * scale, p = 2^(s*scale*log2(e) - lse*log2(e));
+    // masked entries (diagonal and ragged tiles only) are 0
+    const bool edge = (causal && k0 + kSub > q0) || k0 + kSub > S ||
+                      q0 + kTile > S;
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = ex2f(fmaf(s[j][e], scale_log2, -lr[r]));
+        if (edge && !visible(qrow + 8 * r, k0 + j * 8 + 2 * t + (e & 1), S,
+                             causal))
+          x = 0.f;
+        dp[j][e] = x * (dp[j][e] - dr[r]) * scale;
+      }
+    // dQ += dS K
+    x3_frags_by_tile<D, kExact>(dqa, dp, tK, lane);
+  }
+
+  x3_store_rows<T, D>(dqa, dq + base, qrow, S, t);
+}
+
 constexpr size_t fwd_smem(int D) {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPStride);
 }
-constexpr size_t bwd_smem(int D) {
-  return sizeof(float) *
-         (4 * kTile * (D + 1) + kTile * kPStride + 2 * kTile);
-}
-
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int S, float scale, int causal,
@@ -1325,15 +1679,15 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int bh, int S, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = bwd_smem(D);
+  constexpr size_t smem = x3_smem<T, D>(true);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dkv_x3_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_x3_kernel<T, D><<<grid, kTcThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, S, scale, causal);
+      (T*)dk, (T*)dv, S, scale, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1341,15 +1695,15 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int bh, int S,
               float scale, int causal, cudaStream_t stream) {
-  const size_t smem = bwd_smem(D);
+  constexpr size_t smem = x3_smem<T, D>(false);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_bwd_dq_x3_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_x3_kernel<T, D><<<grid, kTcThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, S, scale, causal);
+      (T*)dq, S, scale, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1451,13 +1805,20 @@ int slt_flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
                                        causal, (cudaStream_t)stream)));
 }
 
-// The CUDA-core backward: float32 at any D, bfloat16 at D = 8 on the
-// main paths (every D is built).
+// The float32 and D = 8 backward ("simt" by its historical name), on the
+// tensor cores in split TF32: float32 at any D, bfloat16 at D = 8 on the
+// main paths (every D is built for both).  q, k, v, dout and the outputs
+// 16-byte aligned, lse and delta 4-byte aligned; anything else returns an
+// error without launching.
 int slt_flash_bwd_dkv_simt(int dtype, const void* q, const void* k,
                            const void* v, const void* dout, const void* lse,
                            const void* delta, void* dk, void* dv, int bh,
                            int s, int d, float scale, int causal,
                            void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+       (uintptr_t)dk | (uintptr_t)dv) & 15 ||
+      ((uintptr_t)lse | (uintptr_t)delta) & 3)
+    return (int)cudaErrorMisalignedAddress;
   SLT_DISPATCH(dtype, d,
                (launch_dkv<T, D>(q, k, v, dout, (const float*)lse,
                                  (const float*)delta, dk, dv, bh, s, scale,
@@ -1468,6 +1829,10 @@ int slt_flash_bwd_dq_simt(int dtype, const void* q, const void* k,
                           const void* v, const void* dout, const void* lse,
                           const void* delta, void* dq, int bh, int s, int d,
                           float scale, int causal, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+       (uintptr_t)dq) & 15 ||
+      ((uintptr_t)lse | (uintptr_t)delta) & 3)
+    return (int)cudaErrorMisalignedAddress;
   SLT_DISPATCH(dtype, d,
                (launch_dq<T, D>(q, k, v, dout, (const float*)lse,
                                 (const float*)delta, dq, bh, s, scale, causal,

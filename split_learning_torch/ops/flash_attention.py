@@ -3,8 +3,8 @@ plain PyTorch versions.
 
 Port of the JAX package's ``ops/flash_attention.py``.  The three Pallas
 TPU kernels become six CUDA C++ kernels for Hopper
-(``csrc/flash_attention.cu``), a tensor-core and a CUDA-core kernel for
-each:
+(``csrc/flash_attention.cu``), two for each: one for bf16 at D >= 16 and
+one for float32 and for bf16 at D = 8:
 
 * the forward — online-softmax over ``(BH, S, D)``; emits ``o`` and the
   per-row logsumexp ``lse`` of the scaled scores.  Two hand-written
@@ -16,7 +16,10 @@ each:
   Q tile).  :func:`_bwd_route` picks the pair the same way: ``"tc"``
   launches ``flash_bwd_dkv`` and ``flash_bwd_dq`` (bf16 on the tensor
   cores), ``"simt"`` launches ``flash_bwd_dkv_simt`` and
-  ``flash_bwd_dq_simt`` (the CUDA-core kernels).
+  ``flash_bwd_dq_simt``.  The name is historical: ``"simt"`` is the
+  float32 and D = 8 route, and its pair runs on the tensor cores too, in
+  split TF32 (each float32 operand as two TF32 terms, three products for
+  one, near float32 accuracy).
 
 ``delta = rowsum(dO * O)`` stays a PyTorch pre-pass, as it was an XLA
 pre-pass outside Pallas.  :class:`_Flash` is the ``custom_vjp``: its
@@ -186,6 +189,13 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _check_aligned(name: str, *tensors):
+    """Refuse, before any launch, (BH, S, D) tensors that a kernel's
+    16-byte ``cp.async`` copies cannot take: not 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the {name} needs 16-byte aligned inputs")
+
+
 def _check_tc(name: str, *tensors):
     """Refuse, before any launch, what the tensor-core kernels cannot
     take: they are bf16 only, D in 16..128, and their 16-byte
@@ -194,9 +204,7 @@ def _check_tc(name: str, *tensors):
     if q.dtype != torch.bfloat16 or q.shape[-1] not in _TC_HEAD_DIMS:
         raise ValueError(f"the tensor-core {name} takes bfloat16 with D in "
                          f"{_TC_HEAD_DIMS}, got {q.dtype} D={q.shape[-1]}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"the tensor-core {name} needs 16-byte aligned "
-                         "inputs")
+    _check_aligned(f"tensor-core {name}", *tensors)
 
 
 def _fwd_route(dtype: torch.dtype, d: int) -> str:
@@ -239,10 +247,14 @@ def flash_fwd(q, k, v, causal: bool):
 
 def _bwd_route(dtype: torch.dtype, d: int) -> str:
     """The backward pair for inputs of ``dtype`` and head dim ``d``:
-    ``"tc"`` (``flash_bwd_dkv`` and ``flash_bwd_dq``, tensor cores) for
-    bf16 at D in 16..128, ``"simt"`` (``flash_bwd_dkv_simt`` and
-    ``flash_bwd_dq_simt``, CUDA cores) otherwise, for the forward's
-    reasons."""
+    ``"tc"`` (``flash_bwd_dkv`` and ``flash_bwd_dq``, bf16 products on
+    the tensor cores) for bf16 at D in 16..128, ``"simt"``
+    (``flash_bwd_dkv_simt`` and ``flash_bwd_dq_simt``) otherwise: the
+    float32 and D = 8 route.  Its pair runs split-TF32 products on the
+    tensor cores (``mma.sync`` m16n8k8, whose k8 step fits D = 8), which
+    keep float32 inputs near float32 accuracy (Precision.HIGHEST); the
+    name is what it was when the pair ran on the CUDA cores.  Both pairs
+    need 16-byte aligned (BH, S, D) tensors."""
     if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
         return "tc"
     return "simt"
@@ -253,6 +265,8 @@ def _launch_dkv(route: str, q, k, v, do, lse, delta, causal: bool):
     bh, s, d = q.shape
     if route == "tc":
         _check_tc("backward", q, k, v, do)
+    else:
+        _check_aligned("float32 backward", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -273,6 +287,8 @@ def _launch_dq(route: str, q, k, v, do, lse, delta, causal: bool):
     bh, s, d = q.shape
     if route == "tc":
         _check_tc("backward", q, k, v, do)
+    else:
+        _check_aligned("float32 backward", q, k, v, do)
     dq = torch.empty_like(q)
     lib = _library()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
