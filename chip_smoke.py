@@ -26,10 +26,10 @@ walls, idle shares and profiles are taken beside the other groups' work:
    D >= 16: the bf16 tensor-core kernels; float32 and D = 8: the
    ``_simt`` ones); the float32-route forward and backward pair also at
    the slice's shapes (in float32, the dtype of their route; the
-   CUDA-core forward bounded by float32 bytes and the 67 TFLOP/s
-   CUDA-core rate, the split-TF32 backward pair by three TF32 products a
-   float32 one at 495 TFLOP/s, its CUDA-core bound beside), timed beside the
-   tensor-core kernels and SDPA (the backward
+   split-TF32 forward and backward pair bounded by float32 bytes or by
+   three TF32 products a float32 one at 495 TFLOP/s, their CUDA-core
+   bound beside), timed beside the tensor-core kernels and SDPA (the
+   backward
    against SDPA's backward with its backend pinned, by profiler device
    time beside that of delta + dK/dV + dQ); the quantizer on both of its
    routes (bf16, fp16 and float32 frames at tile 256 with NaN, inf and
@@ -37,7 +37,10 @@ walls, idle shares and profiles are taken beside the other groups' work:
    (generic); ragged leaves; a view 2 bytes off 16-byte alignment;
    rounding-ties and zero-scale tiles down each route), each case
    checked by the launch counters to take the route it names, the
-   dequantizer, finalize (float32, bf16, fp16, int32 with rounding and
+   dequantizer on both of its routes (each case checked to take the
+   route it names: tiles 256, 1024, 2048 and 64 the vec kernel, tile 7
+   and codes 1 byte off 16-byte alignment the generic one), finalize
+   (float32, bf16, fp16, int32 with rounding and
    ties, ragged n % 4 = 1, 2, 3, a view 4 bytes off 16-byte alignment)
    and momentum bit for bit, among them the VGG round's own shapes (the
    (32, 16, 16, 64) bf16 and float32 frames at tile 256, int8 and int4;
@@ -298,20 +301,23 @@ sys.path.insert(0, str(HERE))
 # H100 SXM data-sheet peaks (dense): device memory and compute rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# the float32 and D = 8 backward pair runs each float32 product as three
-# TF32 products on the tensor cores (split TF32): its operations bound
-SPLIT_TF32_KERNELS = ("flash_bwd_dkv_simt", "flash_bwd_dq_simt")
+# the float32 and D = 8 forward and backward pair run each float32
+# product as three TF32 products on the tensor cores (split TF32): their
+# operations bound
+SPLIT_TF32_KERNELS = ("flash_fwd_simt", "flash_bwd_dkv_simt",
+                      "flash_bwd_dq_simt")
 PEAK_TF32 = 495e12
 
 # the slice's flash-attention shapes: (B*H, S, D) = (8*32, 256, 64), bf16
 SLICE_SHAPE = (8 * 32, 256, 64)
-# the flash kernels of the float32 and D = 8 route (the CUDA-core forward
-# and the split-TF32 backward pair)
+# the flash kernels of the float32 and D = 8 route (the split-TF32
+# forward and backward pair)
 SIMT_KERNELS = ("flash_fwd_simt", "flash_bwd_dkv_simt", "flash_bwd_dq_simt")
 # the kernels that the bf16 main paths must never launch: the float32-route
-# flash kernels and the generic quantizer (the wire's tile 256 on an
-# aligned frame takes the vec quantizer)
-OFF_PATH_KERNELS = SIMT_KERNELS + ("quantize_generic",)
+# flash kernels and the generic quantizer and dequantizer (the wire's tile
+# 256 on an aligned frame, and the codes it decodes into, take the vec
+# kernels)
+OFF_PATH_KERNELS = SIMT_KERNELS + ("quantize_generic", "dequantize_generic")
 # one activation / gradient frame at a cut: (batch, sequence, hidden)
 FRAME_SHAPE = (8, 256, 2048)
 # the codec frames timed beside the bf16 int8 one of the kernel rows,
@@ -362,6 +368,8 @@ KERNELS = {
                          "split_learning_tpu/ops/kernels/quant.py:37"),
     "dequantize": ("split_learning_torch/csrc/quant.cu",
                    "split_learning_tpu/ops/kernels/quant.py:92"),
+    "dequantize_generic": ("split_learning_torch/csrc/quant.cu",
+                           "split_learning_tpu/ops/kernels/quant.py:92"),
     "finalize": ("split_learning_torch/csrc/update.cu",
                  "split_learning_tpu/ops/kernels/update.py:53"),
     "momentum": ("split_learning_torch/csrc/update.cu",
@@ -517,10 +525,11 @@ def _bytes_and_flops(name: str, shape, dtype, causal: bool):
 
 
 def _check_tf32_sass() -> dict:
-    """The split-TF32 backward pair's machine code, from ``cuobjdump
-    -sass`` of the built flash library: the TF32 tensor-core products
-    (``HMMA.1688.F32.TF32``) and the float32 FMAs (``FFMA``) of each
-    instantiation.  Fails if an instantiation has no TF32 product."""
+    """The split-TF32 kernels' machine code (the float32-route forward
+    and backward pair), from ``cuobjdump -sass`` of the built flash
+    library: the TF32 tensor-core products (``HMMA.1688.F32.TF32``) and
+    the float32 FMAs (``FFMA``) of each instantiation.  Fails unless all
+    30 (3 kernels x 2 dtypes x 5 head dims) have TF32 products."""
     from split_learning_torch.ops.kernels import build
     tool = pathlib.Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass",
@@ -546,8 +555,8 @@ def _check_tf32_sass() -> dict:
     for func, c in sorted(counts.items()):
         print(f"  sass: {func}: {c['tf32_mma']} HMMA.1688.F32.TF32, "
               f"{c['ffma']} FFMA")
-    check(len(counts) == 20 and all(c["tf32_mma"] for c in counts.values()),
-          f"split-TF32 backward: expected 20 instantiations with TF32 "
+    check(len(counts) == 30 and all(c["tf32_mma"] for c in counts.values()),
+          f"split-TF32 kernels: expected 30 instantiations with TF32 "
           f"tensor-core products, got {counts}")
     return counts
 
@@ -699,7 +708,8 @@ def phase_kernels() -> dict:
                 r["arith"] = "split TF32 (3 x mma.sync m16n8k8 tf32)"
                 r["cuda_core_bound_ms"] = max(t_bytes, t_ops)
                 t_ops = 3 * flops / PEAK_TF32 * 1e3
-                r["port_backward_split"] = bwd_split["simt"]
+                if "bwd" in name:
+                    r["port_backward_split"] = bwd_split["simt"]
                 r["sass"] = {f: c for f, c in sass.items()
                              if name.removesuffix("_simt") + "_x3" in f}
             r["timed_at"] = (f"{str(row_dtype).replace('torch.', '')} "
@@ -917,11 +927,13 @@ def _time_triple(name: str, kern, plain, library, nbytes: int,
 
 
 def _codec_frames(g, shape, frames) -> dict:
-    """Events and profiler device time of the quantizer (both routes:
-    the generic kernel is the vec kernel's predecessor) and the
-    dequantizer on each ``(label, dtype, bits)`` of ``frames`` at
-    ``shape``, and of ``torch.mul`` (the dequantizer's library
-    yardstick) on the int8 codes, each beside its bound."""
+    """Events and profiler device time of the quantizer and the
+    dequantizer, each on both routes (the generic kernels are the vec
+    kernels' predecessors), on each ``(label, dtype, bits)`` of
+    ``frames`` at ``shape``, of ``torch.mul`` (the dequantizer's library
+    yardstick) on the int8 codes, and of the dequantizer's write floor
+    (``fill_`` of its float32 output: the same bytes written, nothing
+    read; a yardstick only), each beside its bound."""
     from split_learning_torch.ops.kernels import quant as kq
     out = {}
     for label, dtype, bits in frames:
@@ -933,9 +945,13 @@ def _codec_frames(g, shape, frames) -> dict:
         calls = {f"quantize {route}": (
             lambda route=route: kq._launch_quantize(route, x, 256, bits),
             quant_b, 5 * n) for route in kq.QUANT_ROUTES}
-        calls["dequantize"] = (
-            lambda: kq.dequantize_tiles(q, s, tile=256, bits=bits),
+        calls.update({f"dequantize {route}": (
+            lambda route=route: kq._launch_dequantize(route, q, s, 256,
+                                                      bits),
             codes_b + 4 * t_count + 4 * n, n)
+            for route in kq.DEQUANT_ROUTES})
+        out32 = torch.empty(n, device="cuda")
+        calls["fill floor"] = (lambda: out32.fill_(0), 4 * n, 0)
         if bits == 8:
             calls["torch.mul"] = (
                 lambda: torch.mul(q.view(t_count, 256), s[:, None]),
@@ -954,14 +970,16 @@ def _codec_frames(g, shape, frames) -> dict:
     return out
 
 
-def _launched(kq, call, route: str, label: str):
+def _launched(kq, call, route: str, label: str, what: str = "quantize"):
     """``call()``, checked by the launch counters to launch the
-    quantizer kernel of ``route`` and no other kernel."""
+    quantizer (``what="dequantize"``: the dequantizer) kernel of
+    ``route`` and no other kernel."""
+    routes = kq.QUANT_ROUTES if what == "quantize" else kq.DEQUANT_ROUTES
     before = dict(kq.LAUNCHES)
     out = call()
     took = {k for k in kq.LAUNCHES if kq.LAUNCHES[k] != before[k]}
-    check(took == {kq.QUANT_ROUTES[route]},
-          f"quantize {label}: launched {took}, expected route {route}")
+    check(took == {routes[route]},
+          f"{what} {label}: launched {took}, expected route {route}")
     return out
 
 
@@ -979,7 +997,17 @@ def _wire_times(frame, acc, base, vel, tw: float) -> dict:
     t_count = s.numel()
     tw_t = torch.tensor(tw, dtype=torch.float32, device="cuda")
     leaf_n = acc.numel()
-    return {
+    # the dequantizer's write floor: a fill of its float32 output writes
+    # the same bytes and reads nothing (a yardstick; the port never
+    # calls it)
+    out32 = torch.empty(t_count * 256, device="cuda")
+    floor = {"ms": _time_ms(lambda: out32.fill_(0)),
+             "device_ms": _device_ms(lambda: out32.fill_(0))[0],
+             "bytes": 4 * n}
+    print(f"  {'fill floor':16s} device {floor['device_ms']:.4f} ms, events "
+          f"{floor['ms']:.4f} ms (fill_ of the dequantizer's "
+          f"{4 * n / 1e6:.1f} MB float32 output)")
+    rows = {
         # float in, int8 codes + float32 scales out; abs, max, divide,
         # round and clip a value.  Both routes on the same frame
         "quantize": _time_triple(
@@ -999,6 +1027,12 @@ def _wire_times(frame, acc, base, vel, tw: float) -> dict:
             lambda: kq.dequantize_reference(q, s, 256, 8),
             lambda: torch.mul(q.view(t_count, 256), s[:, None]),
             n + 4 * t_count + 4 * n, n),
+        "dequantize_generic": _time_triple(
+            "dequantize_generic",
+            lambda: kq._launch_dequantize("generic", q, s, 256, 8),
+            lambda: kq.dequantize_reference(q, s, 256, 8),
+            lambda: torch.mul(q.view(t_count, 256), s[:, None]),
+            n + 4 * t_count + 4 * n, n),
         # float32 in and out; one divide.  library: torch.div
         "finalize": _time_triple(
             "finalize", lambda: ku.finalize_leaf(acc, tw, torch.float32),
@@ -1013,6 +1047,9 @@ def _wire_times(frame, acc, base, vel, tw: float) -> dict:
                                           torch.float32), None,
             20 * leaf_n, 5 * leaf_n),
     }
+    for name in kq.DEQUANT_ROUTES.values():
+        rows[name]["fill_floor"] = floor
+    return rows
 
 
 def phase_wire_kernels() -> dict:
@@ -1091,10 +1128,26 @@ def phase_wire_kernels() -> dict:
         torch.cuda.synchronize()
         _bitwise("quantize", label + " codes", q, qr)
         _bitwise("quantize", label + " scales", s, sr)
-        d = kq.dequantize_tiles(q, s, tile=tile, bits=bits)
+        # every tile here but 7 is a whole number of 16-byte code chunks
+        # (16 int8 or 32 int4 codes), and fresh codes are aligned: the
+        # vec dequantizer; the same codes 1 byte off 16-byte alignment
+        # take the generic one
+        droute = "generic" if tile == 7 else "vec"
+        d = _launched(kq, lambda: kq.dequantize_tiles(q, s, tile=tile,
+                                                      bits=bits),
+                      droute, label, "dequantize")
         dr = kq.dequantize_reference(q, s, tile, bits)
         torch.cuda.synchronize()
-        _bitwise("dequantize", label, d, dr)
+        _bitwise("dequantize", f"{label} {droute}", d, dr)
+        if droute == "vec":
+            q1 = torch.empty(q.numel() + 16, dtype=q.dtype,
+                             device="cuda")[1:1 + q.numel()]
+            q1.copy_(q)
+            d1 = _launched(kq, lambda: kq.dequantize_tiles(
+                q1, s, tile=tile, bits=bits), "generic",
+                f"{label} codes +1 B", "dequantize")
+            torch.cuda.synchronize()
+            _bitwise("dequantize", f"{label} codes +1 B generic", d1, dr)
         # the round trip is within half a quantization step per tile
         n = x.numel()
         xf = torch.nn.functional.pad(x.reshape(-1).float(),
@@ -1129,9 +1182,14 @@ def phase_wire_kernels() -> dict:
                 torch.cuda.synchronize()
                 _bitwise("quantize", f"{label} {route} codes", q, qr)
                 _bitwise("quantize", f"{label} {route} scales", s, sr)
-                _bitwise("dequantize", f"{label} {route}",
-                         kq.dequantize_tiles(q, s, tile=256, bits=bits),
-                         kq.dequantize_reference(q, s, 256, bits))
+                dr = kq.dequantize_reference(q, s, 256, bits)
+                for droute in kq.DEQUANT_ROUTES:
+                    d = _launched(kq, lambda: kq._launch_dequantize(
+                        droute, q, s, 256, bits), droute, label,
+                        "dequantize")
+                    torch.cuda.synchronize()
+                    _bitwise("dequantize", f"{label} {route} {droute}", d,
+                             dr)
 
     acc = torch.randn(LEAF_SHAPE, generator=g, device="cuda") * 50
     small = torch.randn(4096, 64, generator=g, device="cuda") * 50
@@ -2344,7 +2402,7 @@ def phase_step_check() -> dict:
 #: the kernels on the VGG protocol path (every flag on): the codec on
 #: both cut directions and the stage update of the sharded fold
 VGG_PATH_KERNELS = ("quantize", "quantize_generic", "dequantize",
-                    "finalize", "momentum")
+                    "dequantize_generic", "finalize", "momentum")
 #: the in-process VGG runs: (label, YAML, rounds; None: the YAML's).
 #: Baseline 1 runs 1 of its 5 rounds, so that the script keeps to about
 #: ten minutes with configs 3 and 4 beside it
@@ -2520,8 +2578,7 @@ def _check_held(path: str, m: float, held: dict, launches: dict) -> None:
     for name in ("quantize", "dequantize", "finalize", "momentum"):
         h = held.get(name, {"launches": 0, "by_input": {},
                             "mismatches": [], "s": 0.0})
-        counted = launches[name] + (launches["quantize_generic"]
-                                    if name == "quantize" else 0)
+        counted = launches[name] + launches.get(f"{name}_generic", 0)
         print(f"  momentum {m}: {name:10s} {h['launches']} launches "
               f"held against the plain version ({h['s']:.3f} s), "
               f"{len(h['mismatches'])} differ; by input "
@@ -5567,6 +5624,7 @@ def main() -> int:
             held = None
             extra_b3 = {}
         extra = {k: r[k] for k in ("shapes", "tinyllama_shapes", "frames",
+                                   "fill_floor",
                                    "baseline3_shapes", "bert_shapes",
                                    "timed_at", "arith", "cuda_core_bound_ms",
                                    "port_backward_split", "sass") if k in r}

@@ -5,7 +5,7 @@
 //
 //   flash_fwd_tc_kernel      <- _fwd_kernel      (:62-102, via _flash_fwd_bhsd)
 //                               bfloat16, D in {16, 32, 64, 128}
-//   flash_fwd_kernel         <- _fwd_kernel      float32, and bfloat16 D = 8
+//   flash_fwd_x3_kernel      <- _fwd_kernel      float32, and bfloat16 D = 8
 //   flash_bwd_dkv_tc_kernel  <- _bwd_dkv_kernel  (:134-170, via _flash_bwd_rule)
 //                               bfloat16, D in {16, 32, 64, 128}
 //   flash_bwd_dkv_x3_kernel  <- _bwd_dkv_kernel  float32, and bfloat16 D = 8
@@ -53,8 +53,8 @@
 //     memory as 16-byte stores; lse converts m back to natural log:
 //     m*ln(2) + log(l_safe).
 //   The k16 step of mma.sync does not fit D = 8, and float32 inputs must
-//   not lose precision to bf16 or TF32 (Precision.HIGHEST), so both keep
-//   flash_fwd_kernel.
+//   not lose precision to bf16 or TF32 (Precision.HIGHEST), so both take
+//   flash_fwd_x3_kernel.
 //
 // flash_bwd_dkv_tc_kernel (dK and dV of the bf16 main path), the
 // transposed form of FlashAttention-2's backward, on the forward's tiles:
@@ -102,25 +102,6 @@
 //   At D = 64 it is bounded to 3 blocks an SM (168 registers, no spills,
 //   64 KB of shared memory); unbounded it takes 232 and 2 blocks, ~8 %
 //   slower on an H100.
-//
-// flash_fwd_kernel (the float32 and D = 8 forward), on the CUDA cores:
-//   * One thread block of 256 threads (a 16 x 16 grid) per (bh, 64-row Q
-//     tile); the loop over K/V tiles inside the block takes the place of
-//     the Pallas kernel's sequential fori_loop.
-//   * Tiles are staged in shared memory as float32 (rows padded by one
-//     float so the column walks hit distinct banks).  Products are
-//     CUDA-core FMAs in full float32 for both input types: for bf16 inputs
-//     each product of two bf16 values is exact in float32; for float32
-//     inputs it is the counterpart of Precision.HIGHEST.  Q is pre-scaled
-//     in float32, as the TPU kernel does.
-//   * The softmax state (m, l) and every accumulator stay in float32 in
-//     registers.  Thread (ty, tx) owns rows ty + 16*i (i < 4) and columns
-//     tx + 16*j of each 64 x 64 score tile; row maxima and sums reduce over
-//     the 16 lanes of a row with warp shuffles.  Causal runs stop at the
-//     diagonal tile.
-//   It runs its products on the CUDA cores (67 TFLOP/s float32), so it is
-//   bound by its own operations (~2 GFLOP a call), well above the memory
-//   bound.
 //
 // flash_bwd_dkv_x3_kernel and flash_bwd_dq_x3_kernel (the float32 and
 // D = 8 backward, _bwd_dkv_kernel and _bwd_dq_kernel at float32 and bf16
@@ -181,6 +162,44 @@
 //     go from the accumulators straight to device memory (8-byte stores
 //     of two float32, 4-byte of two bf16).
 //   Left for later: wgmma (it takes TF32 only K-major) and TMA.
+//
+// flash_fwd_x3_kernel (the float32 and D = 8 forward, _fwd_kernel at
+// float32 and bf16 D = 8), the backward pair's split-TF32 parts in the
+// shape of flash_bwd_dq_x3_kernel with one product fewer:
+//   * Bound at (256, 256, 64) float32 causal by bytes: q, k, v, o and lse
+//     move 67.4 MB, 0.020 ms; the three TF32 products of each float32 one
+//     (2.15 GFLOP) take 0.013 ms at the TF32 peak (0.032 ms on the CUDA
+//     cores, where the kernel this one replaced took 0.160 ms on an
+//     H100 at 700 W).  What bounds
+//     this design on an H100 is, as in the backward, the shared memory
+//     its B fragments read (hi and lo, 4 words a lane for 3 mma.sync),
+//     and the two barriers a 32-key step.
+//   * One block of 4 warps per (bh, 64-row Q tile), each warp 16 Q rows,
+//     the last (under causality the heaviest) Q tile first; the block
+//     walks K and V up to the diagonal (the TPU kernel's nk_eff).
+//   * Q is scaled in float32 (q * scale, as the TPU kernel does), so even
+//     bf16 Q needs both TF32 terms.  It lands raw (16-byte cp.async) and
+//     is split once into hi/lo A fragments in fragment order: into
+//     registers at D <= 64, into shared memory at D = 128 (in registers
+//     the fragments and the 64-column accumulator would spill).
+//   * K and V stream in 32-row steps by 16-byte cp.async, zero-filled
+//     past S, and each step is split once into the swizzled hi/lo planes
+//     of the backward (K read along rows as the B operand of S = Q K^T,
+//     V down columns as the B operand of O += P V, by 4-byte loads); the
+//     next step's copies are in flight while a step computes.  bf16 K
+//     and V are exact in TF32: their lo term is skipped, so bf16 D = 8
+//     takes two products for S and two for P V.
+//   * Online softmax in registers, in log2 units: p = 2^(s*log2(e) - m),
+//     m and l of a row reduced over its quad (l at the end only); m
+//     starts at the finite NEG_INF and masked scores are -inf, so a
+//     masked p is 0 and no row makes a NaN.  Only the diagonal and
+//     ragged steps are masked, and a warp skips a step it sees nothing
+//     of.  The accumulator is rescaled by corr once a step.  P never
+//     leaves registers: split into hi/lo, it is the A operand of P V
+//     through the permuted k order, no shuffles.
+//   * o = acc * (1 / l_safe) goes from the accumulators straight to
+//     device memory; lse = m*ln(2) + log(l_safe), the natural log that
+//     _Flash.backward and the x3 pair read.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -190,169 +209,16 @@
 namespace {
 
 constexpr int kTile = 64;       // rows of a Q tile and of a K tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kPStride = kTile + 1;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Reduce over the 16 lanes that share a row (tx = lane & 15).
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off, 16));
-  return v;
-}
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off, 16);
-  return v;
-}
-
-// Stage rows [r0, r0 + 64) of a (S, D) matrix into shared memory as
-// float32 with row stride D + 1, times `mul`; rows past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int S, float mul) {
-  constexpr int DP = D + 1;
-  for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D, c = idx - (idx / D) * D;
-    const int g = r0 + r;
-    dst[r * DP + c] = g < S ? to_f32(src[(size_t)g * D + c]) * mul : 0.f;
-  }
-}
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S,
                                         int causal) {
   return qpos < S && kpos < S && (!causal || kpos <= qpos);
-}
-
-// ---------------------------------------------------------------------------
-// forward: one block per (bh, Q tile); loop over K/V tiles.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int DJ = (D + 15) / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kTile * DP;
-  float* sV = sK + kTile * DP;
-  float* sP = sV + kTile * DP;
-
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-
-  load_tile<T, D>(sQ, q + base, q0, S, scale);   // Q pre-scaled, as on TPU
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
-
-  const int nk = (S + kTile - 1) / kTile;
-  const int nk_eff = causal ? min(nk, (q0 + kTile + kTile - 1) / kTile) : nk;
-  for (int kb = 0; kb < nk_eff; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();   // the previous tile's readers are done
-    load_tile<T, D>(sK, k + base, k0, S, 1.f);
-    load_tile<T, D>(sV, v + base, k0, S, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // masked scores give p = 0 exactly; m starts at the finite
-        // NEG_INF, so a row with nothing visible yet never makes a NaN
-        if (!visible(qpos, k0 + tx + 16 * j, S, causal)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        ps += p;
-        sP[(ty + 16 * i) * kPStride + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + row_sum16(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kPStride + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int c = tx + 16 * j;
-        if (c < D) {
-          const float vv = sV[kk * DP + c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= S) continue;
-    const float l_safe = l[i] > 0.f ? l[i] : 1.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < D) o[base + (size_t)r * D + c] = from_f32<T>(acc[i][j] / l_safe);
-    }
-    if (tx == 0) lse[(size_t)blockIdx.y * S + r] = m[i] + logf(l_safe);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1224,43 +1090,55 @@ __device__ __forceinline__ void stage_kept(uint32_t dst, const T* src,
 // once: a thread builds a lane's whole fragment (rows g and g + 8,
 // columns 2t and 2t + 1) and writes it as one 16-byte hi and one 16-byte
 // lo store.  Unrolled by 8, so that a thread's reads go out together.
+// The hi and lo A fragment of chunk f ([warp][k8 step][lane]) of a raw
+// kept 64-row tile of T at src: lane (g, t)'s rows g and g + 8, columns
+// 2t and 2t + 1 of the step, each value times mul when kScale.
+template <typename T, int D, bool kExact, bool kScale>
+__device__ __forceinline__ void kept_frag(const unsigned char* src, int f,
+                                          float mul, uint4& hi, uint4& lo) {
+  constexpr int CH = D * (int)sizeof(T) / 16;
+  const int lane = f & 31, wk = f >> 5;   // wk = warp * D/8 + k8 step
+  const int r = (wk / (D / 8)) * 16 + (lane >> 2);
+  const int c = (wk % (D / 8)) * 8 + 2 * (lane & 3);
+  float x[2][2];   // rows r, r + 8; columns c, c + 1
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h, byte = c * (int)sizeof(T);
+    const unsigned char* at =
+        src + (row * CH + ((byte >> 4) ^ kept_swz<T, D>(row))) * 16 +
+        (byte & 15);
+    if constexpr (sizeof(T) == 4) {
+      const float2 v = *reinterpret_cast<const float2*>(at);
+      x[h][0] = v.x;
+      x[h][1] = v.y;
+    } else {
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(at);
+      x[h][0] = __low2float(v);
+      x[h][1] = __high2float(v);
+    }
+    if constexpr (kScale) {
+      x[h][0] *= mul;
+      x[h][1] *= mul;
+    }
+  }
+  split_tf32<kExact>(x[0][0], hi.x, lo.x);
+  split_tf32<kExact>(x[1][0], hi.y, lo.y);
+  split_tf32<kExact>(x[0][1], hi.z, lo.z);
+  split_tf32<kExact>(x[1][1], hi.w, lo.w);
+}
+
 template <typename T, int D>
 __device__ __forceinline__ void split_kept(unsigned char* dst,
                                            const unsigned char* raw) {
   constexpr bool kExact = sizeof(T) == 2;
-  constexpr int CH = D * (int)sizeof(T) / 16;
   constexpr int kFrags = 4 * (D / 8) * 32;   // fragment chunks of a tile
 #pragma unroll 8
   for (int i = threadIdx.x; i < 2 * kFrags; i += kTcThreads) {
     const int tile = i / kFrags, f = i - tile * kFrags;
-    const int lane = f & 31, wk = f >> 5;   // wk = warp * D/8 + k8 step
-    const int r = (wk / (D / 8)) * 16 + (lane >> 2);
-    const int c = (wk % (D / 8)) * 8 + 2 * (lane & 3);
-    const unsigned char* const src =
-        raw + tile * kTile * D * (int)sizeof(T);
     unsigned char* const out = dst + tile * 2 * kept_half_bytes<D>();
-    float x[2][2];   // rows r, r + 8; columns c, c + 1
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r + 8 * h, byte = c * (int)sizeof(T);
-      const unsigned char* at =
-          src + (row * CH + ((byte >> 4) ^ kept_swz<T, D>(row))) * 16 +
-          (byte & 15);
-      if constexpr (sizeof(T) == 4) {
-        const float2 v = *reinterpret_cast<const float2*>(at);
-        x[h][0] = v.x;
-        x[h][1] = v.y;
-      } else {
-        const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(at);
-        x[h][0] = __low2float(v);
-        x[h][1] = __high2float(v);
-      }
-    }
     uint4 hi, lo;
-    split_tf32<kExact>(x[0][0], hi.x, lo.x);
-    split_tf32<kExact>(x[1][0], hi.y, lo.y);
-    split_tf32<kExact>(x[0][1], hi.z, lo.z);
-    split_tf32<kExact>(x[1][1], hi.w, lo.w);
+    kept_frag<T, D, kExact, false>(raw + tile * kTile * D * (int)sizeof(T),
+                                   f, 1.f, hi, lo);
     *reinterpret_cast<uint4*>(out + f * 16) = hi;
     *reinterpret_cast<uint4*>(out + kept_half_bytes<D>() + f * 16) = lo;
   }
@@ -1300,16 +1178,34 @@ __device__ __forceinline__ void split_streamed(unsigned char* dst,
   }
 }
 
+// acc[kSub/8][4] += A B^T over k8 step kk: A one fragment (ah, al) of
+// this warp's 16 rows, B the streamed tile's kSub rows (its rows are the
+// n index), read along rows.
+template <int D, bool kExactA, bool kExactB>
+__device__ __forceinline__ void x3_rows_step(float (&acc)[kSub / 8][4],
+                                             const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4],
+                                             const unsigned char* tB, int kk,
+                                             int lane) {
+  constexpr uint32_t kPlane = kSub * pl_row_bytes<D>();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kSub / 8; ++j) {
+    const uint32_t at = pl_off<D>(j * 8 + g, kk * 8 + 2 * t);
+    const uint2 h2 = *reinterpret_cast<const uint2*>(tB + at);
+    const uint2 l2 = *reinterpret_cast<const uint2*>(tB + kPlane + at);
+    const uint32_t bh[2] = {h2.x, h2.y}, bl[2] = {l2.x, l2.y};
+    mma_x3<kExactA, kExactB>(acc[j], ah, al, bh, bl);
+  }
+}
+
 // acc[kSub/8][4] += A B^T: A this warp's kept fragments (16 rows, all D
-// columns), B the streamed tile's kSub rows (its rows are the n index),
-// read along rows.
-template <int D, bool kExact>
+// columns), B the streamed tile's kSub rows, read along rows.
+template <int D, bool kExactA, bool kExactB>
 __device__ __forceinline__ void x3_rows_by_tile(float (&acc)[kSub / 8][4],
                                                 const unsigned char* kept,
                                                 const unsigned char* tB,
                                                 int warp, int lane) {
-  constexpr uint32_t kPlane = kSub * pl_row_bytes<D>();
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
     const uint32_t ka = kept_off<D>(warp, kk, lane);
@@ -1318,14 +1214,7 @@ __device__ __forceinline__ void x3_rows_by_tile(float (&acc)[kSub / 8][4],
         *reinterpret_cast<const uint4*>(kept + kept_half_bytes<D>() + ka);
     const uint32_t ah[4] = {h4.x, h4.y, h4.z, h4.w};
     const uint32_t al[4] = {l4.x, l4.y, l4.z, l4.w};
-#pragma unroll
-    for (int j = 0; j < kSub / 8; ++j) {
-      const uint32_t at = pl_off<D>(j * 8 + g, kk * 8 + 2 * t);
-      const uint2 h2 = *reinterpret_cast<const uint2*>(tB + at);
-      const uint2 l2 = *reinterpret_cast<const uint2*>(tB + kPlane + at);
-      const uint32_t bh[2] = {h2.x, h2.y}, bl[2] = {l2.x, l2.y};
-      mma_x3<kExact, kExact>(acc[j], ah, al, bh, bl);
-    }
+    x3_rows_step<D, kExactA, kExactB>(acc, ah, al, tB, kk, lane);
   }
 }
 
@@ -1488,7 +1377,7 @@ flash_bwd_dkv_x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kSub / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) p[j][e] = 0.f;
-    x3_rows_by_tile<D, kExact>(p, tK, tQ, warp, lane);
+    x3_rows_by_tile<D, kExact, kExact>(p, tK, tQ, warp, lane);
 
     // P^T = 2^(s*scale*log2(e) - lse*log2(e)), lse by column (query);
     // masked entries (diagonal and ragged tiles only) are 0
@@ -1516,7 +1405,7 @@ flash_bwd_dkv_x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kSub / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-    x3_rows_by_tile<D, kExact>(dp, tV, tO, warp, lane);
+    x3_rows_by_tile<D, kExact, kExact>(dp, tV, tO, warp, lane);
 
     // dS^T = P^T (dP^T - delta) * scale, delta by column; dK += dS^T Q
 #pragma unroll
@@ -1615,8 +1504,8 @@ flash_bwd_dq_x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kSub / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    x3_rows_by_tile<D, kExact>(s, tQ, tK, warp, lane);
-    x3_rows_by_tile<D, kExact>(dp, tO, tV, warp, lane);
+    x3_rows_by_tile<D, kExact, kExact>(s, tQ, tK, warp, lane);
+    x3_rows_by_tile<D, kExact, kExact>(dp, tO, tV, warp, lane);
 
     // dS = p (dP - delta) * scale, p = 2^(s*scale*log2(e) - lse*log2(e));
     // masked entries (diagonal and ragged tiles only) are 0
@@ -1640,20 +1529,192 @@ flash_bwd_dq_x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   x3_store_rows<T, D>(dqa, dq + base, qrow, S, t);
 }
 
-constexpr size_t fwd_smem(int D) {
-  return sizeof(float) * (3 * kTile * (D + 1) + kTile * kPStride);
+// The float32 and D = 8 forward keeps Q's fragments in registers up to
+// this head dim, in shared memory above it.
+constexpr int kFwdRegQ = 64;
+
+// Shared memory of the split-TF32 forward: Q's fragments (D > kFwdRegQ),
+// the K and V planes of a step, and the raw step.  Q lands raw where the
+// planes go (512 max(D, 32) >= 64 D sizeof(T) bytes).
+template <typename T, int D>
+__host__ __device__ constexpr size_t fwd_x3_smem() {
+  return (D > kFwdRegQ ? (size_t)2 * kept_half_bytes<D>() : 0) +
+         (size_t)4 * kSub * pl_row_bytes<D>() +
+         (size_t)2 * kSub * D * sizeof(T);
 }
+
+// o and lse (float32, and bf16 at D = 8): one block of 4 warps per (bh,
+// 64-row Q tile), each warp 16 Q rows; K and V stream in kSub-row steps
+// up to the diagonal.  Scores are in natural units (Q is pre-scaled),
+// m and p in log2 units.
+template <typename T, int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int S, float scale,
+                    int causal) {
+  constexpr bool kExact = sizeof(T) == 2;   // K and V exact in TF32
+  constexpr bool kRegQ = D <= kFwdRegQ;
+  constexpr uint32_t kKeep = kRegQ ? 0 : 2 * kept_half_bytes<D>();
+  constexpr uint32_t kSplit = 2 * kSub * pl_row_bytes<D>();
+  constexpr uint32_t kRaw = kSub * D * sizeof(T);
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  unsigned char* const tQ = tc_smem;            // Q fragments (D = 128)
+  unsigned char* const tK = tQ + kKeep;         // K, V: streamed planes
+  unsigned char* const tV = tK + kSplit;
+  unsigned char* const raw = tV + kSplit;       // raw K, V
+  const uint32_t sRaw = smem_u32(raw);
+
+  // the last (under causal the heaviest) Q tile of each head first
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int q0 = qb * kTile;
+  const size_t base = (size_t)blockIdx.y * S * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qrow = q0 + warp * 16 + g;   // rows qrow, qrow + 8
+  const int wrow = q0 + warp * 16;       // this warp's first row
+
+  // K-side steps: kSub-row tiles up to the diagonal
+  const int n_all = (S + kSub - 1) / kSub;
+  const int n_it = causal ? min(n_all, (q0 + kTile) / kSub) : n_all;
+  auto stage_step = [&](int it) {
+    stage_streamed<T, D>(sRaw, k + base, it * kSub, S);
+    stage_streamed<T, D>(sRaw + kRaw, v + base, it * kSub, S);
+  };
+
+  // Q lands raw where the split K and V go, and is split once, scaled
+  stage_kept<T, D>(smem_u32(tK), q + base, q0, S);
+  cp_async_commit();
+  stage_step(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qh[kRegQ ? D / 8 : 1][4], ql[kRegQ ? D / 8 : 1][4];
+  if constexpr (kRegQ) {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint4 h, l;
+      kept_frag<T, D, false, true>(tK, (warp * (D / 8) + kk) * 32 + lane,
+                                   scale, h, l);
+      qh[kk][0] = h.x; qh[kk][1] = h.y; qh[kk][2] = h.z; qh[kk][3] = h.w;
+      ql[kk][0] = l.x; ql[kk][1] = l.y; ql[kk][2] = l.z; ql[kk][3] = l.w;
+    }
+  } else {
+    constexpr int kFrags = 4 * (D / 8) * 32;
+#pragma unroll 8
+    for (int f = threadIdx.x; f < kFrags; f += kTcThreads) {
+      uint4 h, l;
+      kept_frag<T, D, false, true>(tK, f, scale, h, l);
+      *reinterpret_cast<uint4*>(tQ + f * 16) = h;
+      *reinterpret_cast<uint4*>(tQ + kept_half_bytes<D>() + f * 16) = l;
+    }
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // running max (log2 units) and this thread's partial row sums; m starts
+  // at the finite NEG_INF so a row with nothing visible yet gives no NaN
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // step it has landed; step it-1's split tiles are free
+    split_streamed<T, D>(tK, raw);   // K, then V
+    __syncthreads();   // step it is split; the raw stage is free
+    if (it + 1 < n_it) stage_step(it + 1);
+    cp_async_commit();
+
+    const int k0 = it * kSub;
+    if (causal && k0 > wrow + 15)
+      continue;   // every key of the step follows this warp's rows
+
+    // S = Q K^T: this warp's 16 rows x kSub keys
+    float s[kSub / 8][4];
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (kRegQ) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        x3_rows_step<D, false, kExact>(s, qh[kk], ql[kk], tK, kk, lane);
+    } else {
+      x3_rows_by_tile<D, false, kExact>(s, tQ, tK, warp, lane);
+    }
+
+    // mask the diagonal and ragged steps only (masked scores give p = 0
+    // exactly); rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    const bool edge = (causal && k0 + kSub - 1 > wrow) || k0 + kSub > S;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge && !visible(qrow + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1),
+                             S, causal))
+          s[j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * kLog2e);
+      corr[r] = ex2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+#pragma unroll
+    for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2f(fmaf(s[j][e], kLog2e, -m[e >> 1]));
+        l[e >> 1] += s[j][e];
+      }
+    // O += P V
+    x3_frags_by_tile<D, kExact>(acc, s, tV, lane);
+  }
+
+  float l_safe[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    l_safe[r] = l[r] > 0.f ? l[r] : 1.f;
+  }
+  // one IEEE division a row
+  const float inv[2] = {1.f / l_safe[0], 1.f / l_safe[1]};
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= inv[e >> 1];
+  x3_store_rows<T, D>(acc, o + base, qrow, S, t);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      if (row < S)
+        lse[(size_t)blockIdx.y * S + row] = m[r] * kLn2 + logf(l_safe[r]);
+    }
+  }
+}
+
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int S, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = fwd_smem(D);
+  constexpr size_t smem = fwd_x3_smem<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_x3_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kTile - 1) / kTile, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_x3_kernel<T, D><<<grid, kTcThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, scale, causal);
   return (int)cudaGetLastError();
 }
@@ -1786,9 +1847,17 @@ int launch_dq_tc(const void* q, const void* k, const void* v,
 
 extern "C" {
 
+// The float32 and D = 8 forward ("simt" by its historical name), on the
+// tensor cores in split TF32: float32 at any D, bfloat16 at D = 8 on the
+// main paths (every D is built for both).  q, k, v and o 16-byte
+// aligned, lse 4-byte aligned; anything else returns an error without
+// launching.
 int slt_flash_fwd(int dtype, const void* q, const void* k, const void* v,
                   void* o, void* lse, int bh, int s, int d, float scale,
                   int causal, void* stream) {
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15 ||
+      (uintptr_t)lse & 3)
+    return (int)cudaErrorMisalignedAddress;
   SLT_DISPATCH(dtype, d,
                (launch_fwd<T, D>(q, k, v, o, (float*)lse, bh, s, scale,
                                  causal, (cudaStream_t)stream)));

@@ -10,16 +10,18 @@ one for float32 and for bf16 at D = 8:
   per-row logsumexp ``lse`` of the scaled scores.  Two hand-written
   kernels compute it, and :func:`_fwd_route` picks one from the dtype and
   head dim: ``flash_fwd`` (bf16 on the tensor cores, ``mma.sync``) and
-  ``flash_fwd_simt`` (the CUDA-core kernel, for float32 and for bf16 at
-  D = 8);
+  ``flash_fwd_simt`` (for float32 and for bf16 at D = 8);
 * the backward — dK and dV (one block per K tile) and dQ (one block per
   Q tile).  :func:`_bwd_route` picks the pair the same way: ``"tc"``
   launches ``flash_bwd_dkv`` and ``flash_bwd_dq`` (bf16 on the tensor
   cores), ``"simt"`` launches ``flash_bwd_dkv_simt`` and
-  ``flash_bwd_dq_simt``.  The name is historical: ``"simt"`` is the
-  float32 and D = 8 route, and its pair runs on the tensor cores too, in
-  split TF32 (each float32 operand as two TF32 terms, three products for
-  one, near float32 accuracy).
+  ``flash_bwd_dq_simt``.
+
+The name ``simt`` is historical: it is the float32 and D = 8 route, and
+its three kernels (forward, dK/dV and dQ) run on the tensor cores too, in
+split TF32 (each float32 operand as two TF32 terms, three products for
+one, near float32 accuracy).  Every kernel takes 16-byte aligned
+``(BH, S, D)`` tensors and refuses others before any launch.
 
 ``delta = rowsum(dO * O)`` stays a PyTorch pre-pass, as it was an XLA
 pre-pass outside Pallas.  :class:`_Flash` is the ``custom_vjp``: its
@@ -209,10 +211,13 @@ def _check_tc(name: str, *tensors):
 
 def _fwd_route(dtype: torch.dtype, d: int) -> str:
     """The forward kernel for inputs of ``dtype`` and head dim ``d``:
-    ``"flash_fwd"`` (tensor cores) for bf16 at D in 16..128,
-    ``"flash_fwd_simt"`` (CUDA cores) otherwise — float32 keeps full
-    float32 products (Precision.HIGHEST), and D = 8 is narrower than the
-    tensor cores' k16 step."""
+    ``"flash_fwd"`` (bf16 products on the tensor cores) for bf16 at D in
+    16..128, ``"flash_fwd_simt"`` otherwise: the float32 and D = 8
+    route.  Its kernel runs split-TF32 products on the tensor cores
+    (``mma.sync`` m16n8k8, whose k8 step fits D = 8), which keep float32
+    inputs near float32 accuracy (Precision.HIGHEST) and agree with the
+    backward pair of the same route; the name is what it was when the
+    kernel ran on the CUDA cores."""
     if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS:
         return "flash_fwd"
     return "flash_fwd_simt"
@@ -223,6 +228,8 @@ def _launch_fwd(route: str, q, k, v, causal: bool):
     bh, s, d = q.shape
     if route == "flash_fwd":
         _check_tc("forward", q, k, v)
+    else:
+        _check_aligned("float32 forward", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     lib = _library()

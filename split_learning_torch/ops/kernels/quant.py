@@ -24,6 +24,17 @@ leaf — at the wire's tile 256, every bf16, fp16 and float32 leaf — and
 ``"generic"`` (``quantize_generic_kernel``, any tile and alignment;
 counted as ``LAUNCHES["quantize_generic"]``) otherwise.
 
+The dequantizer has two CUDA kernels too, and :func:`_dequant_route`
+picks one from the tile width, the code width and the codes' alignment
+alone: ``"vec"`` (``dequantize_kernel``: 16-byte loads of whole code
+chunks, restaged in shared memory so that a warp's stores are
+contiguous; counted as ``LAUNCHES["dequantize"]``) when a tile holds a
+whole number of 16-byte chunks (``tile % 16 == 0`` for int8,
+``tile % 32 == 0`` for int4) of 16-byte aligned codes — the wire's tile
+256 on the codes a frame decodes into — and ``"generic"``
+(``dequantize_generic_kernel``, any tile and alignment; counted as
+``LAUNCHES["dequantize_generic"]``) otherwise.
+
 Each wrapper takes the plain version (``*_reference``) only because the
 tensor it was given lies on the CPU; for a CUDA tensor it launches a
 kernel or raises.  Each launch adds one to its entry in
@@ -37,12 +48,17 @@ import ctypes
 import torch
 
 #: launches of each CUDA kernel since the last :func:`reset_launches`
-LAUNCHES = {"quantize": 0, "quantize_generic": 0, "dequantize": 0}
+LAUNCHES = {"quantize": 0, "quantize_generic": 0, "dequantize": 0,
+            "dequantize_generic": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 #: quantizer route -> its kernel's entry in :data:`LAUNCHES`
 QUANT_ROUTES = {"vec": "quantize", "generic": "quantize_generic"}
+#: dequantizer route -> its kernel's entry in :data:`LAUNCHES`
+DEQUANT_ROUTES = {"vec": "dequantize", "generic": "dequantize_generic"}
+#: codes in one 16-byte chunk, by code width
+CHUNK_CODES = {8: 16, 4: 32}
 #: the widest tile (values) the vec route holds in registers: at 1024 a
 #: float32 tile is 8 chunks a lane, twice over (the next tile's loads go
 #: out before the current one's codes), 64 registers of data
@@ -123,8 +139,9 @@ def _library():
         for fn in (lib.slt_quantize, lib.slt_quantize_generic):
             fn.argtypes = [i, p, ll, i, ll, i, p, p, p]
             fn.restype = ctypes.c_int
-        lib.slt_dequantize.argtypes = [p, p, ll, i, i, p, p]
-        lib.slt_dequantize.restype = ctypes.c_int
+        for fn in (lib.slt_dequantize, lib.slt_dequantize_generic):
+            fn.argtypes = [p, p, ll, i, i, p, p]
+            fn.restype = ctypes.c_int
         lib._slt_typed = True
     return lib
 
@@ -212,6 +229,36 @@ def quantize_tiles(x: torch.Tensor, *, tile: int, bits: int):
                             tile, bits)
 
 
+def _dequant_route(tile: int, bits: int, codes_ptr: int) -> str:
+    """The dequantizer kernel for codes of ``bits`` at ``codes_ptr`` in
+    tiles of ``tile``: ``"vec"`` when a tile is a whole number of
+    16-byte code chunks (16 int8 or 32 int4 codes each, so no chunk
+    straddles two tiles) and the codes are 16-byte aligned; ``"generic"``
+    otherwise."""
+    if tile % CHUNK_CODES[bits] == 0 and codes_ptr % 16 == 0:
+        return "vec"
+    return "generic"
+
+
+def _launch_dequantize(route: str, q: torch.Tensor, scale: torch.Tensor,
+                       tile: int, bits: int) -> torch.Tensor:
+    """Launch the dequantizer kernel of ``route`` on checked CUDA codes
+    and scales; the flat ``(T * tile,)`` float32 values."""
+    if route == "vec" and _dequant_route(tile, bits, q.data_ptr()) != "vec":
+        raise ValueError(f"the vec dequantizer does not take int{bits} "
+                         f"codes at tile {tile} from {q.data_ptr():#x}")
+    t_count = scale.numel()
+    out = torch.empty(t_count * tile, device=q.device, dtype=torch.float32)
+    lib = _library()
+    fn = lib.slt_dequantize if route == "vec" else lib.slt_dequantize_generic
+    name = DEQUANT_ROUTES[route]
+    err = fn(q.data_ptr(), scale.data_ptr(), t_count, tile, bits,
+             out.data_ptr(), _stream(q))
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def dequantize_tiles(q: torch.Tensor, scale: torch.Tensor, *, tile: int,
                      bits: int) -> torch.Tensor:
     """Mirror pass: flat codes + ``(T,)`` scales -> flat ``(T * tile,)``
@@ -230,10 +277,5 @@ def dequantize_tiles(q: torch.Tensor, scale: torch.Tensor, *, tile: int,
                          f"{tuple(scale.shape)} {scale.dtype}")
     if not (q.is_contiguous() and scale.is_contiguous()):
         raise ValueError("the dequantize kernel needs contiguous inputs")
-    out = torch.empty(t_count * tile, device=q.device, dtype=torch.float32)
-    err = _library().slt_dequantize(
-        q.data_ptr(), scale.data_ptr(), t_count, tile, bits,
-        out.data_ptr(), _stream(q))
-    _raise_on(err, "dequantize")
-    LAUNCHES["dequantize"] += 1
-    return out
+    return _launch_dequantize(_dequant_route(tile, bits, q.data_ptr()), q,
+                              scale, tile, bits)
