@@ -335,6 +335,10 @@ VGG_LEAF_SHAPE = (4096, 4096)
 VGG_STATS_SHAPE = (64,)
 # the VGG frames timed beside the bf16 int8 one of the kernel rows
 VGG_CODEC_FRAMES = (("f32 int8", torch.float32, 8),)
+#: the widest tile (bf16 values) a block of the generic quantizer stages
+#: in shared memory (``kSpanBytes`` of ``csrc/quant.cu``): one value more
+#: takes its windows, read twice
+GENERIC_SPAN_VALUES_BF16 = 16384
 #: BASELINE config 3's protocol round (ResNet-50, batch 64): the bf16
 #: activation frames at cuts 3 and 6, and its largest leaf (a 3x3 conv
 #: kernel of 512 -> 512 channels)
@@ -1052,6 +1056,56 @@ def _wire_times(frame, acc, base, vel, tw: float) -> dict:
     return rows
 
 
+def _generic_times(g) -> dict:
+    """Rows 4b and 5b at the shapes their routes serve, on VGG's frame:
+    the generic quantizer at the wire-slow codec's int8 tile 64 on the
+    bf16 activation and the float32 gradient frame, the generic
+    dequantizer on int8 codes at tile 100 and int4 codes at tile 48
+    (tiles the vec kernel does not take).  Each by events and profiler
+    device time beside its bytes bound and a fill of the same output
+    bytes (codes, or float32 values: a floor of one launch and its
+    writes, not a library call)."""
+    from split_learning_torch.ops.kernels import quant as kq
+
+    def row(label, fn, nbytes, fill):
+        r = {"ms": _time_ms(fn), "device_ms": _device_ms(fn)[0],
+             "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fill_floor_device_ms": _device_ms(fill)[0]}
+        print(f"  {label:40s} device {r['device_ms']:.4f} ms, events "
+              f"{r['ms']:.4f}, bound {r['bound_ms']:.5f} ms "
+              f"({nbytes} B), fill floor {r['fill_floor_device_ms']:.4f}")
+        return r
+
+    out = {"quantize_generic": {}, "dequantize_generic": {}}
+    frames = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        frames[dtype] = (torch.randn(VGG_FRAME_SHAPE, generator=g,
+                                     device="cuda") * 3).to(dtype)
+        x = frames[dtype]
+        label = f"{'bf16' if dtype == torch.bfloat16 else 'f32'} int8 tile 64"
+        q, s = _launched(kq, lambda: kq.quantize_tiles(x, tile=64, bits=8),
+                         "generic", label)
+        out["quantize_generic"][label] = row(
+            f"quantize_generic {label}",
+            lambda: kq._launch_quantize("generic", x, 64, 8),
+            x.numel() * x.element_size() + q.numel() + 4 * s.numel(),
+            lambda: q.fill_(0))
+    x = frames[torch.bfloat16]
+    for label, tile, bits in (("int8 tile 100", 100, 8),
+                              ("int4 tile 48", 48, 4)):
+        q, s = kq.quantize_tiles(x, tile=tile, bits=bits)
+        out32 = torch.empty(s.numel() * tile, device="cuda")
+        _launched(kq, lambda: kq.dequantize_tiles(q, s, tile=tile,
+                                                  bits=bits),
+                  "generic", label, "dequantize")
+        out["dequantize_generic"][label] = row(
+            f"dequantize_generic {label}",
+            lambda: kq._launch_dequantize("generic", q, s, tile, bits),
+            q.numel() + 4 * s.numel() + 4 * out32.numel(),
+            lambda: out32.fill_(0))
+    return out
+
+
 def phase_wire_kernels() -> dict:
     """The quantizer (each case on the route it names), dequantizer and
     stage-update kernels against their plain versions, bit for bit —
@@ -1120,6 +1174,40 @@ def phase_wire_kernels() -> dict:
              "generic"),
             (f"view +2 B bf16 int{bits} tile 256", shifted, 256, bits,
              "generic")]
+    # the generic route at the shapes it serves: the wire-slow codec's
+    # tile 64 on VGG's bf16 activation and float32 gradient frames, tiles
+    # the vec kernel does not take (128, 100, 48, 768), a tile one value
+    # wider than a block's span (read in windows, twice) and a leaf 2
+    # bytes off alignment, each frame with an all-zero, a NaN and an inf
+    # tile
+    def with_bad_tiles(x):
+        x = x.clone()
+        flat = x.view(-1)
+        flat[64 * 20:64 * 24] = 0             # all-zero tiles
+        flat[64 * 36 + 17] = float("nan")     # a NaN tile
+        flat[64 * 48 + 3] = float("inf")      # an inf tile
+        return x
+
+    vgg16_bad, vgg32_bad = with_bad_tiles(vgg16), with_bad_tiles(vgg32)
+    wide = GENERIC_SPAN_VALUES_BF16 + 1
+    for bits in (8, 4):
+        cases += [
+            (f"VGG frame bf16 int{bits} tile 64", vgg16_bad, 64, bits,
+             "generic"),
+            (f"VGG frame f32 int{bits} tile 64", vgg32_bad, 64, bits,
+             "generic"),
+            (f"VGG frame bf16 int{bits} tile 128", vgg16_bad, 128, bits,
+             "generic"),
+            (f"VGG frame bf16 int{bits} tile 100", vgg16_bad, 100, bits,
+             "generic"),
+            (f"VGG frame bf16 int{bits} tile 48", vgg16_bad, 48, bits,
+             "generic"),
+            (f"VGG frame bf16 int{bits} tile 768", vgg16_bad, 768, bits,
+             "generic"),
+            (f"VGG frame bf16 int{bits} tile {wide}", vgg16_bad, wide,
+             bits, "generic"),
+            (f"VGG view +2 B bf16 int{bits} tile 64",
+             vgg16_bad.view(-1)[1:], 64, bits, "generic")]
     for label, x, tile, bits, route in cases:
         q, s = _launched(kq, lambda: kq.quantize_tiles(x, tile=tile,
                                                        bits=bits),
@@ -1128,26 +1216,27 @@ def phase_wire_kernels() -> dict:
         torch.cuda.synchronize()
         _bitwise("quantize", label + " codes", q, qr)
         _bitwise("quantize", label + " scales", s, sr)
-        # every tile here but 7 is a whole number of 16-byte code chunks
-        # (16 int8 or 32 int4 codes), and fresh codes are aligned: the
-        # vec dequantizer; the same codes 1 byte off 16-byte alignment
-        # take the generic one
-        droute = "generic" if tile == 7 else "vec"
+        # fresh codes are aligned: a tile of whole 16-byte code chunks
+        # (16 int8 or 32 int4 codes) takes the vec dequantizer, any other
+        # the generic one; the same codes 1 and 3 bytes off 16-byte
+        # alignment take the generic one
+        droute = "vec" if tile % kq.CHUNK_CODES[bits] == 0 else "generic"
         d = _launched(kq, lambda: kq.dequantize_tiles(q, s, tile=tile,
                                                       bits=bits),
                       droute, label, "dequantize")
         dr = kq.dequantize_reference(q, s, tile, bits)
         torch.cuda.synchronize()
         _bitwise("dequantize", f"{label} {droute}", d, dr)
-        if droute == "vec":
+        for off in (1, 3):
             q1 = torch.empty(q.numel() + 16, dtype=q.dtype,
-                             device="cuda")[1:1 + q.numel()]
+                             device="cuda")[off:off + q.numel()]
             q1.copy_(q)
             d1 = _launched(kq, lambda: kq.dequantize_tiles(
                 q1, s, tile=tile, bits=bits), "generic",
-                f"{label} codes +1 B", "dequantize")
+                f"{label} codes +{off} B", "dequantize")
             torch.cuda.synchronize()
-            _bitwise("dequantize", f"{label} codes +1 B generic", d1, dr)
+            _bitwise("dequantize", f"{label} codes +{off} B generic", d1,
+                     dr)
         # the round trip is within half a quantization step per tile
         n = x.numel()
         xf = torch.nn.functional.pad(x.reshape(-1).float(),
@@ -1267,6 +1356,9 @@ def phase_wire_kernels() -> dict:
                  * 3).to(torch.bfloat16)
     out = _wire_times(vgg_frame, vgg_acc, vgg_base, vgg_vel, vgg_tw)
     vgg_frames = _codec_frames(g, VGG_FRAME_SHAPE, VGG_CODEC_FRAMES)
+    print("  rows 4b and 5b at their routes' own shapes (VGG's frame):")
+    for name, rows in _generic_times(g).items():
+        out[name]["own_shapes"] = rows
     print("  times at the TinyLlama shapes (frame bf16 "
           f"{FRAME_SHAPE} tile 256, leaf f32 {LEAF_SHAPE}):")
     tiny = _wire_times(frame, acc, base, vel, tw)
@@ -4588,6 +4680,104 @@ def phase_codec_protocol(workdir: pathlib.Path) -> dict:
     return out
 
 
+#: the activation codec the JAX package's scheduler grants a client it
+#: finds slow on the wire (``config.yaml``'s ``wire-slow-codec``)
+WIRE_SLOW_CODEC = "int8:64"
+
+
+def wire_slow_protocol_config(workdir: pathlib.Path):
+    """Cell 6's baseline 1 protocol round (:func:`vgg_protocol_config` at
+    ``server-momentum: 0.9``, 1 round) at :data:`WIRE_SLOW_CODEC` on both
+    data families, every kernel flag on."""
+    cfg = vgg_protocol_config(workdir, 0.9)
+    return dataclasses.replace(
+        cfg, transport=dataclasses.replace(
+            cfg.transport, codec={"intermediate": WIRE_SLOW_CODEC,
+                                  "gradient": WIRE_SLOW_CODEC})).validate()
+
+
+def check_wire_slow_launches(launches: dict, batches: int) -> None:
+    """Every quantize launch of the wire-slow round on the generic route
+    (a tile of 64 is 128 bytes of bf16, 256 of float32: no vec tile),
+    every dequantize on the vec route (four 16-byte int8 chunks a
+    tile), one of each a data frame: an activation and a gradient a
+    training batch."""
+    want = {"quantize_generic": 2 * batches, "quantize": 0,
+            "dequantize": 2 * batches, "dequantize_generic": 0}
+    for name, n in want.items():
+        check(launches[name] == n, f"wire_slow: {name} launched "
+              f"{launches[name]} times, expected {n}")
+    check(launches["momentum"] > 0 and launches["finalize"] > 0,
+          f"wire_slow: the fold's kernels were not launched: {launches}")
+
+
+def phase_wire_slow_protocol(workdir: pathlib.Path) -> dict:
+    """Cell 27: the wire-slow codec on cell 6's round
+    (:func:`wire_slow_protocol_config`).  Every quantize, dequantize,
+    finalize and momentum launch held bit for bit
+    (:func:`_hold_on_path`); the launch counts by route
+    (:func:`check_wire_slow_launches`); each data family's wire bytes
+    held to its codes plus 4 bytes of scale a tile of 64, frame headers
+    included within 1 %.  Prints the round wall, training samples/s,
+    peak memory and validation."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+
+    cfg = wire_slow_protocol_config(workdir / "wire_slow")
+    held: dict = {}
+    seen: dict = {}
+    originals = _hold_on_path(kq, ku, held, seen)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        server, clients, bus, res = run_protocol(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        for (mod, attr), fn in originals.items():
+            setattr(mod, attr, fn)
+    rounds = _rounds("wire_slow", cfg, res,
+                     _expected_samples(cfg, protocol=True))
+    _check_held("wire-slow protocol", 0.9, held, launches)
+    batches = (cfg.clients[0] * cfg.distribution.num_samples
+               // cfg.learning.batch_size)
+    check_wire_slow_launches(launches, batches)
+    fam = _family_bytes(bus)
+    itemsize = torch.tensor([], dtype=clients[0].wire_dtype).element_size()
+    tile = int(WIRE_SLOW_CODEC.split(":")[1])
+    coded = {}
+    for family in ("intermediate", "gradient"):
+        values = sum(n for c in clients for q, n in c.raw_bytes_out.items()
+                     if q.startswith(f"{family}_queue")) // itemsize
+        want = values + 4 * -(-values // tile)
+        coded[family] = {"bytes": fam.get(family, 0), "values": values,
+                         "codes_and_scales": want,
+                         "ratio": fam.get(family, 0) / want}
+        check(values > 0 and 1.0 <= coded[family]["ratio"] <= 1.01,
+              f"wire_slow: {family} bytes {fam.get(family)} against "
+              f"{want} of codes and scales for {values} values")
+    out = {"rounds": rounds, "run_wall_s": wall,
+           "phases": server.ctx.round_phases, "bytes_by_family": fam,
+           "coded_bytes": coded, "max_memory_allocated_bytes": peak,
+           "launches": launches, "held": held, "quantized_dtypes": seen}
+    for r in rounds:
+        print(f"  wire_slow round {r['round']}: wall {r['wall_s']:.3f} s, "
+              f"{r['samples']} samples, {r['train_samples_per_s']:.1f} "
+              f"training samples/s, peak memory {peak / 2**30:.2f} GiB, "
+              f"val_loss {r['val_loss']:.4f} val_acc "
+              f"{r['val_accuracy']:.4f}")
+    print(f"  wire_slow: run {wall:.3f} s; phases "
+          f"{server.ctx.round_phases}; bytes against codes and scales "
+          + ", ".join(f"{f} {c['bytes']} / {c['codes_and_scales']} "
+                      f"({c['ratio']:.5f})" for f, c in coded.items())
+          + f"; quantized dtypes {seen}; launches {launches}")
+    return out
+
+
 #: the aggregator-tree phase: the stage-1 aggregator that run b kills
 TREE_KILLED = "aggregator_0_0"
 #: run b's partial codec
@@ -5416,7 +5606,8 @@ PHASE_GROUPS = {
         ("variants_tcp",
          lambda w, r: phase_variants_tcp(w, r["variants_protocol"])),
         ("chaos_protocol", lambda w, r: phase_chaos_protocol(w)),
-        ("chaos_tcp", lambda w, r: phase_chaos_tcp(w, r["chaos_protocol"]))),
+        ("chaos_tcp", lambda w, r: phase_chaos_tcp(w, r["chaos_protocol"])),
+        ("wire_slow_protocol", lambda w, r: phase_wire_slow_protocol(w))),
 }
 #: seconds from the script's start by which every group must have ended:
 #: the script then fails with the groups' logs, inside the 1200 s that
@@ -5545,6 +5736,7 @@ def main() -> int:
     async_proto, codec_proto, tree_proto, trace_proto = (
         results[k] for k in ("async_protocol", "codec_protocol",
                              "tree_protocol", "trace_protocol"))
+    wire_slow = results["wire_slow_protocol"]
     entries = []
     for name, r in kernels.items():
         source, replaces = KERNELS[name]
@@ -5579,6 +5771,7 @@ def main() -> int:
         by_path["tree_protocol"] = sum(tree_proto[run]["launches"][name]
                                        for run in ("a", "b"))
         by_path["trace_protocol"] = trace_proto["launches"][name]
+        by_path["wire_slow_protocol"] = wire_slow["launches"][name]
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels
@@ -5586,7 +5779,14 @@ def main() -> int:
         # stage-update row are taken at the VGG round's shapes (``shapes``;
         # the TinyLlama shapes' in ``tinyllama_shapes``), and each of its
         # launches on that path was held against its plain version
-        if name in VGG_PATH_KERNELS:
+        if name == "quantize_generic":
+            # its path: the wire-slow codec's round (cell 27), every
+            # launch held against the plain version
+            main_path = "wire_slow_protocol"
+            per_round = {"server-momentum 0.9": wire_slow["launches"][name]}
+            held = wire_slow["held"].get("quantize", {}).get("launches", 0)
+            extra_b3 = {}
+        elif name in VGG_PATH_KERNELS:
             main_path = "vgg_protocol"
             per_round = {f"server-momentum {m}": run["launches"][name]
                          for m, run in vgg_proto["runs"].items()}
@@ -5624,7 +5824,7 @@ def main() -> int:
             held = None
             extra_b3 = {}
         extra = {k: r[k] for k in ("shapes", "tinyllama_shapes", "frames",
-                                   "fill_floor",
+                                   "fill_floor", "own_shapes",
                                    "baseline3_shapes", "bert_shapes",
                                    "timed_at", "arith", "cuda_core_bound_ms",
                                    "port_backward_split", "sass") if k in r}

@@ -56,13 +56,30 @@
 //     The ragged last tile is masked in the same kernel (zeros past n).
 //     Indices are 32-bit when the padded code array allows it.
 //   * quantize_generic_kernel (every other tile width, or a leaf off
-//     16-byte alignment): one block of 8 warps owns 8 consecutive tiles
-//     (an even count, so code pairs never cross a block).  Phase 1: one
-//     warp per tile reads the leaf in its own dtype with scalar loads,
-//     masking the ragged tail, and reduces the absmax and the non-finite
-//     flag with warp shuffles; lane 0 writes the scale.  Phase 2: the
-//     block's threads write the codes (int8) or the packed bytes (int4),
-//     reading the values again from L1/L2, where phase 1 left them.
+//     16-byte alignment; the wire-slow codec's tile 64 on bf16 and
+//     float32 frames): a block owns a span of whole tiles (pairs at an
+//     odd int4 tile, so that no code byte straddles two blocks) of 2-4
+//     KB, sized so that a frame spreads over the card (a tile up to
+//     kSpanBytes wide, one tile or pair), and
+//     stages it in shared memory with 16-byte cp.async copies from the
+//     16-byte aligned address at or below its first value (bytes past
+//     the leaf's end arrive as zeros): every tile and every alignment
+//     take the same loads, and the leaf is read once.  A thread takes 8
+//     values of the span (16 bytes, 32 of float32), realigned by funnel
+//     shifts from conflict-free 16-byte shared loads; the absmax reduces
+//     over the magnitudes' bits (as in the vec kernel: no per-value
+//     branch, no NaN dropped) by a shuffle scan over the lanes whose
+//     values end in the same tile and a shared atomicMax a tile; a
+//     value's tile comes from one division a thread and a compare a
+//     value.  The codes (the saturating conversion of the IEEE quotient)
+//     are packed 8 to a thread in registers, restaged in shared memory
+//     in the layout of the code array and leave by 16-byte stores at the
+//     aligned addresses the span covers whole (512 contiguous bytes a
+//     warp store), bytes at its unaligned ends.  A tile wider than
+//     kSpanBytes (16384 bf16 or fp16 values, 8192 float32) takes one
+//     block (a pair at an odd int4 tile) and windows of kSpanBytes, read
+//     once to reduce and again from L2 to code: the only case that reads
+//     the leaf twice.
 //   * dequantize_kernel (the "vec" route: a tile of whole 16-byte code
 //     chunks -- tile % 16 == 0 for int8, tile % 32 == 0 for int4 -- from
 //     16-byte aligned codes).  A warp takes 32 chunks at a time, lane l
@@ -84,9 +101,12 @@
 //     frame, 0.78 us at 3.35 TB/s), which at such a frame is below a
 //     launch and a load round trip: it is read beside the time of a fill
 //     that writes the same float32 bytes and reads nothing.
-//   * dequantize_generic_kernel (any tile, any alignment): a grid-stride
-//     loop, four consecutive codes a thread (one index division for the
-//     four, byte loads, one 16-byte store).
+//   * dequantize_generic_kernel (any tile, codes at any alignment):
+//     the vec kernel's design, with each 16-byte chunk of the codes
+//     realigned by funnel shifts from the aligned chunk at or below it
+//     and the next one (taken from the neighbouring lane), one division a
+//     float4 for its tile, and the scales of a float4 that straddles
+//     tiles loaded beside the chunks.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -98,172 +118,12 @@
 
 namespace {
 
-constexpr int kTilesPerBlock = 8;   // one warp each; even (int4 pairs)
-constexpr int kThreads = 32 * kTilesPerBlock;
-
-__device__ __forceinline__ float load_f32(const float* x, long long i) {
-  return x[i];
-}
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* x,
-                                          long long i) {
-  return __bfloat162float(x[i]);
-}
-__device__ __forceinline__ float load_f32(const __half* x, long long i) {
-  return __half2float(x[i]);
-}
-
-// The value at flat padded position c (zero past the leaf's end).
-template <typename T>
-__device__ __forceinline__ float value_at(const T* x, long long n,
-                                          long long c) {
-  return c < n ? load_f32(x, c) : 0.0f;
-}
-
 // clip(rint(v / scale), -qmax, qmax); a NaN quotient (non-finite tile:
 // NaN scale) gives code 0.  +-inf quotients clip to +-qmax, as jnp.clip.
 __device__ __forceinline__ int code_of(float v, float scale, float qmax) {
   float r = rintf(__fdiv_rn(v, scale));
   if (r != r) return 0;
   return (int)fminf(fmaxf(r, -qmax), qmax);
-}
-
-template <typename T, int BITS>
-__global__ void __launch_bounds__(kThreads)
-quantize_generic_kernel(const T* __restrict__ x, long long n, int tile,
-                        long long t_count, int8_t* __restrict__ codes8,
-                        uint8_t* __restrict__ codes4,
-                        float* __restrict__ scales) {
-  __shared__ float s_scale[kTilesPerBlock];
-  const float qmax = BITS == 8 ? 127.0f : 7.0f;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long t0 = (long long)blockIdx.x * kTilesPerBlock;
-
-  // phase 1: per-tile absmax + non-finite flag, one warp per tile
-  const long long t = t0 + warp;
-  if (t < t_count) {   // uniform across the warp
-    const long long base = t * (long long)tile;
-    float amax = 0.0f;
-    int bad = 0;
-#pragma unroll 4
-    for (int i = lane; i < tile; i += 32) {
-      float v = value_at(x, n, base + i);
-      if (isfinite(v)) {
-        amax = fmaxf(amax, fabsf(v));
-      } else {
-        bad = 1;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-      bad |= __shfl_xor_sync(0xffffffffu, bad, off);
-    }
-    float scale;
-    if (bad) {
-      scale = __int_as_float(0x7fc00000);   // NaN sentinel
-    } else if (amax > 0.0f) {
-      scale = __fdiv_rn(amax, qmax);
-    } else {
-      scale = 1.0f;
-    }
-    if (lane == 0) {
-      s_scale[warp] = scale;
-      scales[t] = scale;
-    }
-  }
-  __syncthreads();
-
-  // phase 2: codes for the block's tiles
-  const long long t_end = min(t0 + kTilesPerBlock, t_count);
-  const long long c0 = t0 * tile;
-  const int count = (int)((t_end - t0) * tile);   // codes in this block
-  if (BITS == 8) {
-    for (int j = threadIdx.x; j < count; j += kThreads) {
-      const long long c = c0 + j;
-      codes8[c] = (int8_t)code_of(value_at(x, n, c), s_scale[j / tile],
-                                  qmax);
-    }
-  } else {
-    // c0 and count are even: tiles per block is even, and the padded
-    // total t_count * tile is even
-    for (int j = 2 * threadIdx.x; j < count; j += 2 * kThreads) {
-      const long long c = c0 + j;
-      const int lo = code_of(value_at(x, n, c), s_scale[j / tile], qmax);
-      const int hi = code_of(value_at(x, n, c + 1),
-                             s_scale[(j + 1) / tile], qmax);
-      codes4[c >> 1] = (uint8_t)((lo & 0xF) | ((hi & 0xF) << 4));
-    }
-  }
-}
-
-// Code c of the flat padded code array, sign-extended.
-template <int BITS>
-__device__ __forceinline__ int code_at(const uint8_t* codes, long long c) {
-  if (BITS == 8) return (int)(int8_t)codes[c];
-  const int u = codes[c >> 1];
-  const int nib = (c & 1) ? (u >> 4) : (u & 0xF);   // low nibble first
-  return nib < 8 ? nib : nib - 16;
-}
-
-// Four consecutive codes a thread: one integer division for the four
-// (IDX is int whenever the array allows it — a 64-bit division a value
-// cost more than the memory traffic), one float4 store.
-template <int BITS, typename IDX>
-__global__ void __launch_bounds__(256)
-dequantize_generic_kernel(const uint8_t* __restrict__ codes,
-                          const float* __restrict__ scales, IDX total,
-                          int tile, float* __restrict__ out) {
-  const IDX groups = total / 4;
-  for (IDX g = (IDX)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
-       g += (IDX)gridDim.x * blockDim.x) {
-    const IDX c = 4 * g;
-    IDX t = c / tile;
-    int r = (int)(c - t * tile);
-    float s = scales[t];
-    float o[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (r == tile) {
-        ++t;
-        r = 0;
-        s = scales[t];
-      }
-      o[k] = __fmul_rn((float)code_at<BITS>(codes, c + k), s);
-      ++r;
-    }
-    reinterpret_cast<float4*>(out)[g] = make_float4(o[0], o[1], o[2], o[3]);
-  }
-  // the last total % 4 codes
-  if (blockIdx.x == 0 && threadIdx.x < (unsigned)(total - 4 * groups)) {
-    const IDX c = 4 * groups + threadIdx.x;
-    out[c] = __fmul_rn((float)code_at<BITS>(codes, c), scales[c / tile]);
-  }
-}
-
-int grid_for(long long work, int threads) {
-  long long blocks = (work + threads - 1) / threads;
-  const long long cap = 132LL * 16;   // a few waves of the 132 SMs
-  if (blocks > cap) blocks = cap;
-  return (int)(blocks < 1 ? 1 : blocks);
-}
-
-template <typename T>
-int launch_quantize_generic(const void* x, long long n, int tile,
-                            long long t_count, int bits, void* codes,
-                            float* scales, cudaStream_t stream) {
-  const long long blocks = (t_count + kTilesPerBlock - 1) / kTilesPerBlock;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (bits == 8) {
-    quantize_generic_kernel<T, 8><<<(unsigned)blocks, kThreads, 0,
-                                    stream>>>(
-        (const T*)x, n, tile, t_count, (int8_t*)codes, nullptr, scales);
-  } else {
-    quantize_generic_kernel<T, 4><<<(unsigned)blocks, kThreads, 0,
-                                    stream>>>(
-        (const T*)x, n, tile, t_count, nullptr, (uint8_t*)codes, scales);
-  }
-  return (int)cudaGetLastError();
 }
 
 // ---- the vec route: one warp per tile, the tile held in registers ----
@@ -306,9 +166,18 @@ template <> struct Magnitude<__half> {
   }
 };
 
-// Value j of a 16-byte chunk held as four 32-bit words.
-template <typename T>
-__device__ __forceinline__ float chunk_value(const uint32_t (&w)[4],
+// A tile's scale from its absmax bits: the NaN sentinel for a
+// non-finite tile, 1 for an all-zero one.
+template <typename T, int BITS>
+__device__ __forceinline__ float scale_of(uint32_t m) {
+  if (m >= Magnitude<T>::kInf) return __int_as_float(0x7fc00000);
+  if (m == 0u) return 1.0f;
+  return __fdiv_rn(Magnitude<T>::to_float(m), BITS == 8 ? 127.0f : 7.0f);
+}
+
+// Value j of 16-byte chunks held as 32-bit words.
+template <typename T, int N>
+__device__ __forceinline__ float chunk_value(const uint32_t (&w)[N],
                                              int j) {
   if constexpr (sizeof(T) == 4) {
     return __uint_as_float(w[j]);
@@ -413,14 +282,7 @@ quantize_kernel(const T* __restrict__ x, IDX n, IDX t_count,
     for (int off = 16; off > 0; off >>= 1)
       m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
     const bool bad = m >= Magnitude<T>::kInf;   // a NaN or an inf
-    float scale;
-    if (bad) {
-      scale = __int_as_float(0x7fc00000);   // NaN sentinel, codes 0
-    } else if (m != 0u) {
-      scale = __fdiv_rn(Magnitude<T>::to_float(m), BITS == 8 ? 127.0f : 7.0f);
-    } else {
-      scale = 1.0f;
-    }
+    const float scale = scale_of<T, BITS>(m);
     if (lane == 0) scales[t] = scale;
 
 #pragma unroll
@@ -453,31 +315,50 @@ quantize_kernel(const T* __restrict__ x, IDX n, IDX t_count,
   }
 }
 
+// The SMs of the current device.
+int sm_count(int* sms) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  return err;
+}
+
+// Blocks of `threads` that cover the card once, no more than `need`:
+// the kernel's occupancy is asked once per instantiation (per_sm).
+template <typename Kernel>
+int covering_grid(Kernel kernel, int threads, long long need,
+                  std::atomic<int>& per_sm, long long* grid) {
+  int blocks_per_sm = per_sm.load(std::memory_order_relaxed);
+  if (blocks_per_sm == 0) {
+    int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm, kernel, threads, 0);
+    if (err != 0) return err;
+    per_sm.store(blocks_per_sm, std::memory_order_relaxed);
+  }
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err != 0) return err;
+  const long long fit = (long long)sms * (blocks_per_sm > 0 ? blocks_per_sm
+                                                            : 1);
+  *grid = need < fit ? need : fit;
+  return 0;
+}
+
 // Persistent grid: as many blocks as the SMs hold at once, no more than
-// the tiles need.  The occupancy is asked once per instantiation.
+// the tiles need.
 template <typename T, int C, int BITS, typename IDX>
 int launch_vec(const void* x, IDX n, IDX t_count, void* codes,
                float* scales, cudaStream_t stream) {
   auto kernel = quantize_kernel<T, C, BITS, IDX>;
   static std::atomic<int> per_sm{0};
-  int blocks_per_sm = per_sm.load(std::memory_order_relaxed);
-  if (blocks_per_sm == 0) {
-    int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm, kernel, kVecThreads, 0);
-    if (err != 0) return err;
-    per_sm.store(blocks_per_sm, std::memory_order_relaxed);
-  }
-  int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err == 0)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
+  long long grid = 0;
+  const int err = covering_grid(
+      kernel, kVecThreads,
+      ((long long)t_count + kVecThreads / 32 - 1) / (kVecThreads / 32),
+      per_sm, &grid);
   if (err != 0) return err;
-  const long long need = ((long long)t_count + kVecThreads / 32 - 1) /
-                         (kVecThreads / 32);
-  const long long fit = (long long)sms * (blocks_per_sm > 0 ? blocks_per_sm
-                                                            : 1);
-  const long long grid = need < fit ? need : fit;
   kernel<<<(unsigned)grid, kVecThreads, 0, stream>>>(
       (const T*)x, n, t_count, (uint8_t*)codes, scales);
   return (int)cudaGetLastError();
@@ -609,36 +490,537 @@ dequantize_kernel(const uint4* __restrict__ codes,
   }
 }
 
-// The grid covers the card once, no more than the chunks need.  The
-// occupancy is asked once per instantiation.
+// The grid covers the card once, no more than the chunks need.
 template <int BITS, typename IDX>
 int launch_dequantize(const void* codes, const float* scales, IDX chunks,
                       int tile, float* out, cudaStream_t stream) {
   auto kernel = dequantize_kernel<BITS, IDX>;
   static std::atomic<int> per_sm{0};
-  int blocks_per_sm = per_sm.load(std::memory_order_relaxed);
-  if (blocks_per_sm == 0) {
-    int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm, kernel, kDeqThreads, 0);
-    if (err != 0) return err;
-    per_sm.store(blocks_per_sm, std::memory_order_relaxed);
-  }
-  int dev = 0, sms = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (err == 0)
-    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev);
+  long long grid = 0;
+  const int err = covering_grid(
+      kernel, kDeqThreads, ((long long)chunks + kDeqThreads - 1) /
+      kDeqThreads, per_sm, &grid);
   if (err != 0) return err;
   int shift = 0;
   while ((1 << shift) < tile) ++shift;
   if ((1 << shift) != tile) shift = -1;
-  const long long need = ((long long)chunks + kDeqThreads - 1) / kDeqThreads;
-  const long long fit = (long long)sms * (blocks_per_sm > 0 ? blocks_per_sm
-                                                            : 1);
-  const long long grid = need < fit ? need : fit;
   kernel<<<(unsigned)grid, kDeqThreads, 0, stream>>>(
       (const uint4*)codes, scales, chunks, tile, shift, (float4*)out);
   return (int)cudaGetLastError();
+}
+
+// ---- the generic routes: any tile, any alignment ----
+
+// Bytes [s, s + 16) of the 32 bytes a then b (s in [0, 16) and the same
+// across the warp), each 32-bit word by one funnel shift.
+template <int Q>
+__device__ __forceinline__ uint4 shift_words(const uint32_t (&w)[8],
+                                             uint32_t r) {
+  return make_uint4(__funnelshift_r(w[Q], w[Q + 1], r),
+                    __funnelshift_r(w[Q + 1], w[Q + 2], r),
+                    __funnelshift_r(w[Q + 2], w[Q + 3], r),
+                    __funnelshift_r(w[Q + 3], w[Q + 4], r));
+}
+__device__ __forceinline__ uint4 realign(const uint4& a, const uint4& b,
+                                         int s) {
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const uint32_t r = 8u * (uint32_t)(s & 3);
+  switch (s >> 2) {
+    case 0: return shift_words<0>(w, r);
+    case 1: return shift_words<1>(w, r);
+    case 2: return shift_words<2>(w, r);
+    default: return shift_words<3>(w, r);
+  }
+}
+
+// A unit: 8 consecutive values of a staged window (16 bytes of a 16-bit
+// dtype, 32 of float32) as 32-bit words, realigned by funnel shifts from
+// the 16-byte chunks that hold them.
+constexpr int kUnit = 8;
+template <typename T>
+using UnitWords = uint32_t[2 * sizeof(T)];
+
+template <typename T>
+__device__ __forceinline__ void load_unit(const uint4* sx, int k, int head,
+                                          UnitWords<T>& w) {
+  constexpr int kChunks = sizeof(T) / 2;   // 16-byte chunks a unit
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const uint4 v = realign(sx[kChunks * k + c], sx[kChunks * k + c + 1],
+                            head);
+    w[4 * c] = v.x; w[4 * c + 1] = v.y; w[4 * c + 2] = v.z;
+    w[4 * c + 3] = v.w;
+  }
+}
+
+// The bits (the dtype's own) of value p of a unit.
+template <typename T>
+__device__ __forceinline__ uint32_t unit_bits(const UnitWords<T>& w, int p) {
+  if constexpr (sizeof(T) == 4) {
+    return w[p];
+  } else {
+    return (w[p >> 1] >> (16 * (p & 1))) & 0xffffu;
+  }
+}
+
+constexpr int kGenThreads = 128;
+// The widest span of values (bytes) a block stages in shared memory.  A
+// tile wider than it (two tiles of it for int4 at an odd tile, whose
+// boundary byte holds a nibble of each) takes windows of this width
+// and is read twice.
+constexpr int kSpanBytes = 32768;
+// A span's bytes: the leaf's bytes over kSpanBlocksPerSM blocks an SM,
+// within [kSpanMinBytes, kSpanTargetBytes] (a tile wider than that, one
+// tile or pair), so that a small frame still spreads over the card and
+// a large one takes waves of short blocks whose loads overlap other
+// blocks' work.
+constexpr int kSpanMinBytes = 2048;
+constexpr int kSpanTargetBytes = 4096;
+constexpr int kSpanBlocksPerSM = 4;
+constexpr int kMaxSpanTiles = 1024;   // even; the scales a block holds
+
+// Shared memory for a window of `values` values: the values from the
+// aligned-down address (up to 15 bytes of head) and one more chunk for
+// the realigning reads; its codes behind a 16-byte pad, and one more
+// chunk for the realigning reads.
+__host__ __device__ constexpr int staged_bytes(int values, int item) {
+  return ((values * item + 15) / 16 + 2) * 16;
+}
+__host__ __device__ constexpr int code_window_bytes(int values, int bits) {
+  return ((values * bits / 8 + 15) / 16 + 2) * 16;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes));
+}
+
+// Stage values [e, e + nv) of the leaf x (n values) in sx with 16-byte
+// cp.async copies from the 16-byte aligned address at or below x + e;
+// bytes past the leaf's end arrive as zeros (the copy's source size).
+// Returns the first value's byte offset in sx (x + e's address mod 16).
+template <typename T>
+__device__ __forceinline__ int stage_window(const T* x, long long n,
+                                            long long e, int nv,
+                                            uint4* sx) {
+  const char* base = reinterpret_cast<const char*>(x);
+  const char* g = base + e * (long long)sizeof(T);
+  const int head = (int)((uintptr_t)g & 15);
+  const char* a = g - head;
+  const char* end = base + n * (long long)sizeof(T);
+  const int chunks = (head + nv * (int)sizeof(T) + 15) / 16;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const char* src = a + 16LL * i;
+    const long long valid = end - src;
+    if (valid > 0) {
+      cp_async16(sx + i, src, valid >= 16 ? 16 : (int)valid);
+    } else {
+      sx[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  return head;
+}
+
+// The absmax of a staged window (the block's values [v0, v0 + nv)) into
+// st[tile], as magnitude bits.  Thread k takes the window's unit k, one
+// division for its first value's tile and a compare a value after; a
+// run that ends inside the unit goes to st by a shared atomicMax, the
+// unit's last run through a shuffle scan over the warp's lanes that end
+// in the same tile (their tiles rise with the lane), then one atomicMax
+// a tile a warp.
+template <typename T>
+__device__ __forceinline__ void reduce_window(const uint4* sx, int head,
+                                              int v0, int nv, int tile,
+                                              uint32_t* st) {
+  const int units = (nv + kUnit - 1) / kUnit;
+  const int lane = threadIdx.x & 31;
+  const uint32_t mag = sizeof(T) == 4 ? 0x7fffffffu : 0x7fffu;
+  for (int base = 0; base < units; base += blockDim.x) {
+    const int k = base + threadIdx.x;
+    uint32_t key = 0xffffffffu, m = 0u;
+    if (k < units) {
+      UnitWords<T> w;
+      load_unit<T>(sx, k, head, w);
+      const int j0 = k * kUnit, v = v0 + j0;
+      key = (uint32_t)(v / tile);
+      int r = v - (int)key * tile;
+#pragma unroll
+      for (int p = 0; p < kUnit; ++p) {
+        if (j0 + p < nv) {
+          if (r == tile) {   // the next tile starts inside the unit
+            atomicMax(st + key, m);
+            ++key;
+            m = 0u;
+            r = 0;
+          }
+          m = max(m, unit_bits<T>(w, p) & mag);
+          ++r;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const uint32_t om = __shfl_down_sync(0xffffffffu, m, off);
+      const uint32_t ok = __shfl_down_sync(0xffffffffu, key, off);
+      if (lane + off < 32 && ok == key) m = max(m, om);
+    }
+    const uint32_t prev = __shfl_up_sync(0xffffffffu, key, 1);
+    if (key != 0xffffffffu && (lane == 0 || prev != key))
+      atomicMax(st + key, m);
+  }
+}
+
+// The codes of a staged window into the code window sc (window code
+// byte r at sc[r]): thread k codes unit k with the scales of its tiles
+// (from st's absmax bits: one division a tile a thread), a value's tile
+// by one division a unit and a compare a value, packs the unit's 8
+// codes as the code array holds them (8 bytes int8, 4 int4) and stores
+// them with one shared store.  The conversion rounds half to even and
+// saturates, and turns a NaN quotient (a non-finite tile's NaN scale)
+// into 0, so clipping it is the oracle's code.
+template <typename T, int BITS>
+__device__ __forceinline__ void code_window(const uint4* sx, int head,
+                                            int v0, int nv, int tile,
+                                            const uint32_t* st,
+                                            uint8_t* sc) {
+  constexpr int qmax = BITS == 8 ? 127 : 7;
+  const int units = (nv + kUnit - 1) / kUnit;
+  for (int k = threadIdx.x; k < units; k += blockDim.x) {
+    UnitWords<T> w;
+    load_unit<T>(sx, k, head, w);
+    const int j0 = k * kUnit, v = v0 + j0;
+    int t = v / tile, r = v - t * tile;
+    float s = scale_of<T, BITS>(st[t]);
+    uint32_t out[2] = {0u, 0u};
+#pragma unroll
+    for (int p = 0; p < kUnit; ++p) {
+      if (j0 + p < nv) {
+        if (r == tile) {
+          ++t;
+          r = 0;
+          s = scale_of<T, BITS>(st[t]);
+        }
+        const uint32_t q = (uint32_t)min(
+            max(__float2int_rn(__fdiv_rn(chunk_value<T>(w, p), s)), -qmax),
+            qmax);
+        if constexpr (BITS == 8) {
+          out[p >> 2] |= (q & 0xffu) << (8 * (p & 3));
+        } else {   // low nibble first
+          out[0] |= (q & 0xfu) << (4 * p);
+        }
+        ++r;
+      }
+    }
+    if constexpr (BITS == 8) {
+      *reinterpret_cast<uint2*>(sc + j0) = make_uint2(out[0], out[1]);
+    } else {
+      *reinterpret_cast<uint32_t*>(sc + j0 / 2) = out[0];
+    }
+  }
+}
+
+// A window's nb code bytes, staged behind the 16-byte pad of sc, to
+// dst: 16-byte stores at the 16-byte aligned addresses the window
+// covers whole (each warp store instruction 512 contiguous bytes), byte
+// stores at its unaligned head and tail.
+__device__ __forceinline__ void store_window(const uint4* sc, int nb,
+                                             uint8_t* dst) {
+  const int hb = (int)((uintptr_t)dst & 15);
+  uint8_t* a = dst - hb;
+  const int chunks = (hb + nb + 15) / 16;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const uint4 v = hb ? realign(sc[i], sc[i + 1], 16 - hb) : sc[i + 1];
+    const int r0 = 16 * i - hb;   // the window code byte at a + 16 i
+    if (r0 >= 0 && r0 + 16 <= nb) {
+      *reinterpret_cast<uint4*>(a + 16 * i) = v;
+    } else {
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int b = 0; b < 16; ++b)
+        if (r0 + b >= 0 && r0 + b < nb)
+          a[16 * i + b] = (uint8_t)(w[b >> 2] >> (8 * (b & 3)));
+    }
+  }
+}
+
+// A block takes span_tiles consecutive tiles (the last block fewer) and
+// walks their values in windows of `win` values: one window when the
+// span fits (the leaf read once), else a wide tile's windows twice, the
+// second time from L2.  Per window: stage, reduce; then per window:
+// code (the scales written once a tile beside it), restage, store.
+template <typename T, int BITS>
+__global__ void __launch_bounds__(kGenThreads)
+quantize_generic_kernel(const T* __restrict__ x, long long n, int tile,
+                        long long t_count, int span_tiles, int win,
+                        uint8_t* __restrict__ codes,
+                        float* __restrict__ scales) {
+  extern __shared__ uint4 smem[];
+  uint4* sx = smem;
+  uint4* sc = smem + staged_bytes(win, sizeof(T)) / 16;
+  uint32_t* st = reinterpret_cast<uint32_t*>(
+      sc + code_window_bytes(win, BITS) / 16);
+  const long long t0 = (long long)blockIdx.x * span_tiles;
+  const int tiles = (int)min((long long)span_tiles, t_count - t0);
+  const int span = tiles * tile;   // values: < 2^31 by the entry's limit
+  const long long e0 = t0 * tile;
+  const int wins = (span + win - 1) / win;
+  for (int i = threadIdx.x; i < tiles; i += blockDim.x) st[i] = 0u;
+  int head = 0;
+  for (int w = 0; w < wins; ++w) {
+    if (w) __syncthreads();   // the last window's readers are done
+    const int v0 = w * win, nv = min(win, span - v0);
+    head = stage_window<T>(x, n, e0 + v0, nv, sx);
+    reduce_window<T>(sx, head, v0, nv, tile, st);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < tiles; i += blockDim.x)
+    scales[t0 + i] = scale_of<T, BITS>(st[i]);
+  for (int w = 0; w < wins; ++w) {
+    const int v0 = w * win, nv = min(win, span - v0);
+    if (wins > 1) head = stage_window<T>(x, n, e0 + v0, nv, sx);
+    code_window<T, BITS>(sx, head, v0, nv, tile, st,
+                         reinterpret_cast<uint8_t*>(sc + 1));
+    __syncthreads();
+    const long long e = e0 + v0;
+    store_window(sc, BITS == 8 ? nv : nv / 2,
+                 codes + (BITS == 8 ? e : e / 2));
+    if (w + 1 < wins) __syncthreads();   // sx and sc free for the next
+  }
+}
+
+// Spans of whole tiles (pairs at an odd int4 tile) within kSpanBytes,
+// or windows of kSpanBytes over a wide tile; the dynamic shared memory
+// ceiling is raised once per instantiation.
+template <typename T, int BITS>
+int launch_quantize_generic(const void* x, long long n, int tile,
+                            long long t_count, void* codes, float* scales,
+                            cudaStream_t stream) {
+  auto kernel = quantize_generic_kernel<T, BITS>;
+  constexpr int kItem = sizeof(T);
+  static std::atomic<int> opted{0};
+  if (!opted.load(std::memory_order_relaxed)) {
+    const int most = staged_bytes(kSpanBytes / kItem, kItem) +
+                     code_window_bytes(kSpanBytes / kItem, BITS) +
+                     4 * kMaxSpanTiles;
+    int err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != 0) return err;
+    opted.store(1, std::memory_order_relaxed);
+  }
+  const int pair = (BITS == 4 && (tile & 1)) ? 2 : 1;
+  const long long tile_bytes = (long long)tile * kItem;
+  int span_tiles, win;
+  if (pair * tile_bytes > kSpanBytes) {
+    span_tiles = pair;
+    win = kSpanBytes / kItem;
+  } else {
+    int sms = 0;
+    const int err = sm_count(&sms);
+    if (err != 0) return err;
+    long long target = t_count * tile_bytes /
+                       ((long long)kSpanBlocksPerSM * (sms > 0 ? sms : 1));
+    if (target < kSpanMinBytes) target = kSpanMinBytes;
+    if (target > kSpanTargetBytes) target = kSpanTargetBytes;
+    long long k = target / tile_bytes / pair * pair;
+    if (k < pair) k = pair;
+    if (k > kMaxSpanTiles) k = kMaxSpanTiles;
+    span_tiles = (int)k;
+    win = span_tiles * tile;
+  }
+  const long long blocks = (t_count + span_tiles - 1) / span_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int smem = staged_bytes(win, kItem) + code_window_bytes(win, BITS) +
+                   4 * span_tiles;
+  kernel<<<(unsigned)blocks, kGenThreads, smem, stream>>>(
+      (const T*)x, n, tile, t_count, span_tiles, win, (uint8_t*)codes,
+      scales);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_quantize_generic_bits(const void* x, long long n, int tile,
+                                 long long t_count, int bits, void* codes,
+                                 float* scales, cudaStream_t stream) {
+  return bits == 8
+      ? launch_quantize_generic<T, 8>(x, n, tile, t_count, codes, scales,
+                                      stream)
+      : launch_quantize_generic<T, 4>(x, n, tile, t_count, codes, scales,
+                                      stream);
+}
+
+constexpr int kDeqGenThreads = 256;
+constexpr int kDeqGenInFlight = 1;   // groups a warp loads before it stores
+
+// The four codes of float4 j of a staged group, sign-extended by
+// shifts: word j (int8, low byte first) or halfword j (int4, low nibble
+// first).
+template <int BITS>
+__device__ __forceinline__ void codes_of_quad(const uint4* group, int j,
+                                              int (&c)[4]) {
+  if constexpr (BITS == 8) {
+    const uint32_t w = reinterpret_cast<const uint32_t*>(group)[j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = (int32_t)(w << (24 - 8 * i)) >> 24;
+  } else {
+    const uint32_t x =
+        (uint32_t)reinterpret_cast<const uint16_t*>(group)[j] << 16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = (int32_t)(x << (12 - 4 * i)) >> 28;
+  }
+}
+
+// Row 5's design at any tile and any alignment.  Chunk c of the codes
+// is bytes [16 c, 16 c + 16) from `codes`: a warp takes 32 chunks at a
+// time, lane l the 16-byte aligned chunk at or below its chunk's start
+// by one read-only load (kDeqGenInFlight groups a thread out before any
+// is used) and the next aligned chunk from lane l + 1 (lane 31 loads
+// it), realigned by funnel shifts.  Each float4's tile comes from one
+// division for its first code; its four codes take the NS scales from
+// that tile on (1 when tile % 4 == 0, 2 for any other tile >= 4, 4
+// below), loaded beside the chunks.  The chunks go through the warp's
+// shared-memory slice so that each store instruction writes 512
+// contiguous bytes; the last float4 of an array whose length is not a
+// multiple of 4 is stored a float at a time.
+template <int BITS, int NS, typename IDX>
+__global__ void __launch_bounds__(kDeqGenThreads)
+dequantize_generic_kernel(const uint8_t* __restrict__ codes,
+                          const float* __restrict__ scales, IDX t_count,
+                          IDX total, int tile, float* __restrict__ out) {
+  constexpr int kOut = BITS == 8 ? 4 : 8;   // float4s a chunk
+  constexpr int kWarps = kDeqGenThreads / 32;
+  constexpr int U = kDeqGenInFlight;
+  __shared__ uint4 stage[kWarps][U][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int hq = (int)((uintptr_t)codes & 15);
+  const uint4* qa = reinterpret_cast<const uint4*>(codes - hq);
+  const IDX nbytes = BITS == 8 ? total : total / 2;
+  const IDX chunks = (nbytes + 15) / 16;
+  const IDX held = (hq + nbytes + 15) / 16;   // aligned chunks of codes
+  const IDX quads = (total + 3) / 4;           // float4s of out
+  const IDX groups = (chunks + 31) / 32;
+  const IDX gstride = (IDX)gridDim.x * kWarps;
+  for (IDX g0 = (IDX)blockIdx.x * kWarps + warp; g0 < groups;
+       g0 += U * gstride) {
+    uint4 a[U], b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {   // every load out first
+      const IDX c = (g0 + u * gstride) * 32 + lane;
+      a[u] = c < held ? __ldg(qa + c) : make_uint4(0u, 0u, 0u, 0u);
+      b[u] = (hq && lane == 31 && c + 1 < held)
+                 ? __ldg(qa + c + 1) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float s[U][kOut][NS];
+    int r[U][kOut];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < kOut; ++k) {
+        const IDX f = (g0 + u * gstride) * 32 * kOut + k * 32 + lane;
+        r[u][k] = 0;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) s[u][k][i] = 0.0f;
+        if (f < quads) {
+          const IDX code = 4 * f, t = code / tile;
+          r[u][k] = (int)(code - t * tile);
+          s[u][k][0] = __ldg(scales + t);
+#pragma unroll
+          for (int i = 1; i < NS; ++i)
+            s[u][k][i] = __ldg(scales + (t + i < t_count ? t + i
+                                                         : t_count - 1));
+        }
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      uint4 w = a[u];
+      if (hq) {   // the same in every lane
+        uint4 nxt = make_uint4(__shfl_down_sync(0xffffffffu, a[u].x, 1),
+                               __shfl_down_sync(0xffffffffu, a[u].y, 1),
+                               __shfl_down_sync(0xffffffffu, a[u].z, 1),
+                               __shfl_down_sync(0xffffffffu, a[u].w, 1));
+        if (lane == 31) nxt = b[u];
+        w = realign(a[u], nxt, hq);
+      }
+      stage[warp][u][lane] = w;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const IDX f0 = (g0 + u * gstride) * 32 * kOut;
+#pragma unroll
+      for (int k = 0; k < kOut; ++k) {
+        const int j = k * 32 + lane;
+        const IDX f = f0 + j;
+        if (f >= quads) continue;
+        int c[4];
+        codes_of_quad<BITS>(stage[warp][u], j, c);
+        float o[4];
+        int rr = r[u][k], idx = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float sc = s[u][k][0];
+          if constexpr (NS > 1) {
+            if (rr == tile) {   // the next tile starts inside the float4
+              ++idx;
+              rr = 0;
+            }
+            if (idx == 1) sc = s[u][k][1];
+            if constexpr (NS > 2) {
+              if (idx == 2) sc = s[u][k][2];
+              if (idx == 3) sc = s[u][k][3];
+            }
+            ++rr;
+          }
+          o[i] = __fmul_rn((float)c[i], sc);
+        }
+        if (4 * f + 4 <= total) {
+          reinterpret_cast<float4*>(out)[f] =
+              make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (4 * f + i < total) out[4 * f + i] = o[i];
+        }
+      }
+    }
+    __syncwarp();   // the slice is free for the next groups
+  }
+}
+
+// The grid covers the card once, no more than the chunks need.
+template <int BITS, int NS, typename IDX>
+int launch_dequantize_generic(const void* codes, const float* scales,
+                              IDX t_count, IDX total, int tile, float* out,
+                              cudaStream_t stream) {
+  auto kernel = dequantize_generic_kernel<BITS, NS, IDX>;
+  static std::atomic<int> per_sm{0};
+  const long long chunks =
+      ((long long)(BITS == 8 ? total : total / 2) + 15) / 16;
+  long long grid = 0;
+  const int err = covering_grid(
+      kernel, kDeqGenThreads, (chunks + kDeqGenThreads - 1) / kDeqGenThreads,
+      per_sm, &grid);
+  if (err != 0) return err;
+  kernel<<<(unsigned)grid, kDeqGenThreads, 0, stream>>>(
+      (const uint8_t*)codes, scales, t_count, total, tile, out);
+  return (int)cudaGetLastError();
+}
+
+template <int BITS, typename IDX>
+int launch_dequantize_generic_ns(const void* codes, const float* scales,
+                                 IDX t_count, IDX total, int tile,
+                                 float* out, cudaStream_t stream) {
+  if (tile % 4 == 0)
+    return launch_dequantize_generic<BITS, 1, IDX>(codes, scales, t_count,
+                                                   total, tile, out, stream);
+  if (tile >= 4)
+    return launch_dequantize_generic<BITS, 2, IDX>(codes, scales, t_count,
+                                                   total, tile, out, stream);
+  return launch_dequantize_generic<BITS, 4, IDX>(codes, scales, t_count,
+                                                 total, tile, out, stream);
 }
 
 }  // namespace
@@ -680,26 +1062,29 @@ int slt_quantize(int dtype, const void* x, long long n, int tile,
   }
 }
 
-// The generic route: any tile, any alignment; same arguments.
+// The generic route: any tile, any alignment; same arguments.  A tile
+// holds at most 2^28 - 1 values, the route's limit since its first
+// design.
 int slt_quantize_generic(int dtype, const void* x, long long n, int tile,
                          long long t_count, int bits, void* codes,
                          void* scales, void* stream) {
   if (tile < 1 || t_count < 1 || (bits != 8 && bits != 4) ||
       (bits == 4 && (t_count * tile) % 2) ||
-      n > t_count * (long long)tile ||
-      (long long)kTilesPerBlock * tile > 0x7fffffffLL)
+      n > t_count * (long long)tile || 8LL * tile > 0x7fffffffLL ||
+      (uintptr_t)scales % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* sc = (float*)scales;
   switch (dtype) {
     case 0:
-      return launch_quantize_generic<float>(x, n, tile, t_count, bits,
-                                            codes, (float*)scales, s);
+      return launch_quantize_generic_bits<float>(x, n, tile, t_count, bits,
+                                                 codes, sc, s);
     case 1:
-      return launch_quantize_generic<__nv_bfloat16>(
-          x, n, tile, t_count, bits, codes, (float*)scales, s);
+      return launch_quantize_generic_bits<__nv_bfloat16>(
+          x, n, tile, t_count, bits, codes, sc, s);
     case 2:
-      return launch_quantize_generic<__half>(x, n, tile, t_count, bits,
-                                             codes, (float*)scales, s);
+      return launch_quantize_generic_bits<__half>(x, n, tile, t_count, bits,
+                                                  codes, sc, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -731,35 +1116,32 @@ int slt_dequantize(const void* codes, const void* scales, long long t_count,
       : launch_dequantize<4, long long>(codes, sc, chunks, tile, o, s);
 }
 
-// The generic route: any tile, any alignment; same arguments.
+// The generic route: any tile, codes at any alignment; same arguments
+// (out 16-byte aligned, scales 4-byte aligned).
 int slt_dequantize_generic(const void* codes, const void* scales,
                            long long t_count, int tile, int bits, void* out,
                            void* stream) {
   if (tile < 1 || t_count < 1 || (bits != 8 && bits != 4) ||
-      (bits == 4 && (t_count * tile) % 2))
+      (bits == 4 && (t_count * tile) % 2) || (uintptr_t)out % 16 ||
+      (uintptr_t)scales % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long total = t_count * (long long)tile;
-  const int grid = grid_for(total / 4 + 1, 256);
-  const uint8_t* q = (const uint8_t*)codes;
   const float* sc = (const float*)scales;
   float* o = (float*)out;
-  if (total <= 0x7fffffffLL) {
-    if (bits == 8) {
-      dequantize_generic_kernel<8, int><<<grid, 256, 0, s>>>(
-          q, sc, (int)total, tile, o);
-    } else {
-      dequantize_generic_kernel<4, int><<<grid, 256, 0, s>>>(
-          q, sc, (int)total, tile, o);
-    }
-  } else if (bits == 8) {
-    dequantize_generic_kernel<8, long long><<<grid, 256, 0, s>>>(
-        q, sc, total, tile, o);
-  } else {
-    dequantize_generic_kernel<4, long long><<<grid, 256, 0, s>>>(
-        q, sc, total, tile, o);
+  // 32-bit indices while 4 * (the float4 index of a group's end) fits
+  if (total <= 0x3fffffffLL) {
+    return bits == 8
+        ? launch_dequantize_generic_ns<8, int>(codes, sc, (int)t_count,
+                                               (int)total, tile, o, s)
+        : launch_dequantize_generic_ns<4, int>(codes, sc, (int)t_count,
+                                               (int)total, tile, o, s);
   }
-  return (int)cudaGetLastError();
+  return bits == 8
+      ? launch_dequantize_generic_ns<8, long long>(codes, sc, t_count, total,
+                                                   tile, o, s)
+      : launch_dequantize_generic_ns<4, long long>(codes, sc, t_count, total,
+                                                   tile, o, s);
 }
 
 }  // extern "C"

@@ -21,8 +21,12 @@ from the leaf's dtype, the tile width and the leaf's alignment alone:
 16-byte loads; counted as ``LAUNCHES["quantize"]``) for a tile of 512,
 1024, 2048 or 4096 bytes and at most 1024 values on a 16-byte aligned
 leaf — at the wire's tile 256, every bf16, fp16 and float32 leaf — and
-``"generic"`` (``quantize_generic_kernel``, any tile and alignment;
-counted as ``LAUNCHES["quantize_generic"]``) otherwise.
+``"generic"`` (``quantize_generic_kernel``, any tile up to
+:data:`GENERIC_MAX_TILE` and any alignment: a block stages a span of
+whole tiles in shared memory with 16-byte copies from the aligned-down
+address and reads the leaf once, a tile wider than the span twice;
+counted as ``LAUNCHES["quantize_generic"]``) otherwise — the wire-slow
+codec's tile 64 on every frame.
 
 The dequantizer has two CUDA kernels too, and :func:`_dequant_route`
 picks one from the tile width, the code width and the codes' alignment
@@ -32,7 +36,8 @@ contiguous; counted as ``LAUNCHES["dequantize"]``) when a tile holds a
 whole number of 16-byte chunks (``tile % 16 == 0`` for int8,
 ``tile % 32 == 0`` for int4) of 16-byte aligned codes — the wire's tile
 256 on the codes a frame decodes into — and ``"generic"``
-(``dequantize_generic_kernel``, any tile and alignment; counted as
+(``dequantize_generic_kernel``: the same design at any tile, with the
+16-byte chunks realigned from the aligned-down address; counted as
 ``LAUNCHES["dequantize_generic"]``) otherwise.
 
 Each wrapper takes the plain version (``*_reference``) only because the
@@ -63,6 +68,8 @@ CHUNK_CODES = {8: 16, 4: 32}
 #: float32 tile is 8 chunks a lane, twice over (the next tile's loads go
 #: out before the current one's codes), 64 registers of data
 VEC_MAX_TILE = 1024
+#: the widest tile (values) the generic quantizer takes
+GENERIC_MAX_TILE = (2**31 - 1) // 8
 
 
 def reset_launches() -> None:
@@ -200,6 +207,9 @@ def _launch_quantize(route: str, x: torch.Tensor, tile: int, bits: int):
                                        x.data_ptr()) != "vec":
         raise ValueError(f"the vec quantizer does not take {x.dtype} at "
                          f"tile {tile} from {x.data_ptr():#x}")
+    if tile > GENERIC_MAX_TILE:
+        raise ValueError(f"the quantizer takes tiles of at most "
+                         f"{GENERIC_MAX_TILE} values, got {tile}")
     n_codes = t_count * tile // (2 if bits == 4 else 1)
     codes = torch.empty(n_codes, device=x.device,
                         dtype=torch.int8 if bits == 8 else torch.uint8)
@@ -272,6 +282,9 @@ def dequantize_tiles(q: torch.Tensor, scale: torch.Tensor, *, tile: int,
     if q.dtype != want_dt or q.numel() != want or q.dim() != 1:
         raise ValueError(f"expected {want} {want_dt} codes for {t_count} "
                          f"tiles of {tile}, got {tuple(q.shape)} {q.dtype}")
+    if bits == 4 and t_count * tile % 2:
+        raise ValueError(f"int4 codes pair up: {t_count} tiles of {tile} "
+                         "are an odd code count")
     if scale.dtype != torch.float32 or scale.dim() != 1:
         raise ValueError(f"expected (T,) float32 scales, got "
                          f"{tuple(scale.shape)} {scale.dtype}")
