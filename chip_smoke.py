@@ -5,10 +5,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases, each fatal on failure.  Phases 1-3 run first, alone, so that
-the kernels are timed with nothing else on the card; phases 4-30 then
+the kernels are timed with nothing else on the card; phases 4-31 then
 run in four groups at once, each group a process of its own on the card
-running its phases in order (:data:`PHASE_GROUPS`: TinyLlama and BERT;
-VGG16's baseline 1; baselines 2-4; KWT-1's variants and chaos), so their
+running its phases in order (:data:`PHASE_GROUPS`: TinyLlama, BERT and
+the telemetry plane's round; VGG16's baseline 1; baselines 2-4; KWT-1's variants and chaos), so their
 walls, idle shares and profiles are taken beside the other groups' work:
 
 1. device — requires CUDA; prints the card's name and power limit
@@ -256,7 +256,20 @@ walls, idle shares and profiles are taken beside the other groups' work:
    Phases 9, 11 and 23 read their own runs' journals again: the loop's
    spans and phases in process, one trace and complete edges across the
    TCP processes, ``transport_rtt`` under chaos;
-31. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
+31. fleet_protocol — cell 6's round with heartbeats every 0.5 s, a
+   liveness timeout of 4 s and the exporter serving, a thread scraping
+   ``/metrics`` and ``/fleet`` every 0.4 s: run a (FedAvgM 0.9) every
+   scrape lint-clean, every client seen healthy after its SYN, each
+   client's heartbeats at least its training wall over 0.5 s less 2,
+   every UPDATE carrying a snapshot, a ``kind=fleet`` record naming
+   every client, ``tools/sl_top.py`` rendering it; run b (momentum 0)
+   ``client_1_1`` killed by a scripted crash at its second activation,
+   its heartbeat thread ending with it, marked ``lost`` and its barrier
+   released early (``fleet_lost_drops``), the survivors' UPDATEs folded,
+   no survivor ever ``lost``, the wall under run a's + 4 + 5 s; every
+   quantize, dequantize, finalize and momentum launch held bit for bit.
+   Every protocol phase prints its clients' heartbeat frames and bytes;
+32. summary — a ``{"kernels": [...]}`` line (each kernel's launches on
    its main path: the VGG protocol round for the codec and stage-update
    kernels, the TinyLlama protocol round for the flash kernels; every
    path's in ``launches_by_path``; the times and bounds at that path's
@@ -1589,6 +1602,16 @@ def phase_profile(cfg) -> dict:
 # 6. the protocol round: server + client threads over the in-process bus
 # --------------------------------------------------------------------------
 
+def _print_heartbeats(counts: list) -> tuple:
+    """Print the heartbeat frames and bytes a run's clients published
+    (``counts``: each client's ``(frames, bytes)``; the telemetry plane
+    is on in every default round) and return their sums."""
+    frames, nbytes = (sum(c[i] for c in counts) for i in (0, 1))
+    print(f"  heartbeats: {frames} frames, {nbytes} bytes from "
+          f"{len(counts)} clients")
+    return frames, nbytes
+
+
 def run_protocol(cfg, timeout: float = 600.0, profiles: dict | None = None):
     """The protocol deployment through the port's entry point
     (``run_inproc``: the server in this thread, one client thread per
@@ -1605,6 +1628,7 @@ def run_protocol(cfg, timeout: float = 600.0, profiles: dict | None = None):
     except Exception as e:
         raise SmokeFailure(f"protocol round failed: {e!r} "
                            f"(cause: {e.__cause__!r})") from e
+    _print_heartbeats([c.heartbeats for c in run.clients])
     return run.server, run.clients, run.bus, run.result
 
 
@@ -1949,6 +1973,7 @@ def participant_main(argv: list) -> int:
         getattr(role, "ctx", None), "bus", None)
     print(PARTICIPANT_TAG + json.dumps({
         "module": module, "argv": args, "wall_s": wall,
+        "heartbeats": getattr(role, "heartbeats", None),
         "sender": {k: getattr(bus, k) for k in (
             "send_hwm", "publish_wait_s", "thunk_s", "send_s")
             if hasattr(bus, k)},
@@ -2146,6 +2171,8 @@ def _run_tcp(d: pathlib.Path, make_cfg, timeout: float, shards: int = 1,
                  if ln.startswith(PARTICIPANT_TAG)]
         check(len(lines) == 1, f"{name} printed no report")
         reports[name] = json.loads(lines[0][len(PARTICIPANT_TAG):])
+    _print_heartbeats([r["heartbeats"] for r in reports.values()
+                       if r.get("heartbeats") is not None])
     return cfg, wall, stats, reports, card_peak_mib
 
 
@@ -4375,6 +4402,7 @@ def _run_inproc_with(cfg, timeout: float, client_bus, label: str):
         t.join(timeout=120)
         check(not t.is_alive(), f"a {label} client did not stop")
     check(not errors, f"{label} clients failed: {errors}")
+    _print_heartbeats([c.heartbeats for c in clients])
     return server, clients, bus, res
 
 
@@ -5561,7 +5589,324 @@ def measure_trace_cost(pairs: int) -> dict:
     return out
 
 
-#: phases 4-30, in groups that run at once, each in a process of its own
+#: cell 28's telemetry plane: heartbeat interval, liveness timeout and
+#: client timeout (seconds), the client that dies in run b and the
+#: activation it dies after, the scrape period of the poller
+FLEET_INTERVAL = 0.5
+FLEET_LIVENESS = 4.0
+FLEET_TIMEOUT = 120.0
+FLEET_DEAD = "client_1_1"
+FLEET_CRASH_AFTER = 2
+FLEET_SCRAPE_S = 0.4
+#: seconds a run b may take beyond run a's wall and the liveness timeout
+FLEET_SLACK_S = 5.0
+
+
+def fleet_protocol_config(workdir: pathlib.Path, momentum: float):
+    """Cell 28: cell 6's round (:func:`vgg_protocol_config`: baseline 1
+    at ``[2, 2]``, bf16, int8 on both cut directions, every kernel flag,
+    the sharded CUDA fold at ``server-momentum`` = ``momentum``) with
+    heartbeats every :data:`FLEET_INTERVAL` s, a liveness timeout of
+    :data:`FLEET_LIVENESS` s and the exporter on an ephemeral port."""
+    cfg = vgg_protocol_config(workdir, momentum)
+    return dataclasses.replace(cfg, observability=dataclasses.replace(
+        cfg.observability, heartbeat_interval=FLEET_INTERVAL,
+        liveness_timeout=FLEET_LIVENESS, http_port=0)).validate()
+
+
+def _scrape(url: str) -> tuple:
+    """One scrape of the exporter: (``/metrics`` text, ``/fleet``),
+    straight to its local port whatever proxy the environment names."""
+    import urllib.request
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(f"{url}/metrics", timeout=5) as r:
+        text = r.read().decode()
+    with opener.open(f"{url}/fleet", timeout=5) as r:
+        fleet = json.loads(r.read())
+    return text, fleet
+
+
+def _run_fleet_round(cfg, label: str, dead: str | None = None) -> dict:
+    """One protocol round in this process, as ``run_inproc`` runs it (the
+    server in this thread, one client thread per client over one
+    ``InProcTransport``), with a thread scraping the server's exporter
+    every :data:`FLEET_SCRAPE_S` s.  ``dead`` speaks through a
+    ``ChaosTransport`` whose crash script kills it at its
+    :data:`FLEET_CRASH_AFTER`-th activation; its thread ends there."""
+    from split_learning_torch.runtime.bus import InProcTransport
+    from split_learning_torch.runtime.chaos import ChaosCrash, ChaosTransport
+    from split_learning_torch.runtime.client import ProtocolClient
+    from split_learning_torch.runtime.log import Logger
+    from split_learning_torch.runtime.server import ProtocolServer
+    from split_learning_torch.runtime.telemetry import lint_prometheus
+
+    bus = InProcTransport()
+    server = ProtocolServer(cfg, bus, client_timeout=FLEET_TIMEOUT,
+                            logger=Logger.for_run(cfg, "server",
+                                                  console=False),
+                            device=DEVICE)
+    check(server.exporter is not None, f"{label}: no exporter")
+    ctx = server.ctx
+    admitted: list = []
+    admit = ctx._admit_update
+
+    def admit_noted(msg):
+        admitted.append((msg.client_id, bool(msg.telemetry)))
+        return admit(msg)
+    ctx._admit_update = admit_noted
+    crash = dataclasses.replace(cfg.chaos, enabled=True, crash=(
+        {"client": dead, "queue": "intermediate_queue*",
+         "after": FLEET_CRASH_AFTER},))
+    clients = [ProtocolClient(
+        cfg, cid, s, ChaosTransport(bus, crash, name=cid)
+        if cid == dead else bus, device=DEVICE)
+        for s, n in enumerate(cfg.clients, 1)
+        for cid in (f"client_{s}_{i}" for i in range(n))]
+    scrapes: list = []
+    failed: list = []
+    done = threading.Event()
+
+    def poll():
+        url = server.exporter.url
+        while not done.is_set():
+            t = time.perf_counter()
+            try:
+                text, fleet = _scrape(url)
+                scrapes.append({"t": t, "lint": lint_prometheus(text),
+                                "fleet": fleet})
+            except (OSError, ValueError) as e:
+                failed.append(repr(e))
+            done.wait(FLEET_SCRAPE_S)
+    errors: list = []
+    crashed: list = []
+
+    def run(c):
+        try:
+            c.run()
+        except ChaosCrash:
+            crashed.append(c.client_id)   # the scripted death
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append((c.client_id, e))
+            bus.close()
+    threads = [threading.Thread(target=run, args=(c,), daemon=True)
+               for c in clients]
+    poller = threading.Thread(target=poll, daemon=True)
+    before = ctx.faults.snapshot()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    poller.start()
+    try:
+        res = server.serve()
+    except Exception as e:
+        raise SmokeFailure(f"{label} failed: {e!r} (clients: "
+                           f"{errors})") from e
+    finally:
+        done.set()
+        poller.join(timeout=30)
+    for t in threads:
+        t.join(timeout=120)
+        check(not t.is_alive(), f"a {label} client did not stop")
+    torch.cuda.synchronize()
+    run_wall = time.perf_counter() - t0
+    check(not errors, f"{label} clients failed: {errors}")
+    faults = {k: v - before.get(k, 0) for k, v in ctx.faults.snapshot()
+              .items() if v != before.get(k, 0)}
+    return {"server": server, "clients": clients, "bus": bus, "res": res,
+            "scrapes": scrapes, "scrape_failures": failed,
+            "admitted": admitted, "crashed": crashed, "faults": faults,
+            "run_wall": run_wall, "launches": _launch_counts()}
+
+
+def _fleet_summary(label: str, cfg, run: dict, want_samples: int) -> dict:
+    """The checks both runs share, printed: the round ok, finite, with
+    ``want_samples`` samples; every mid-round scrape of ``/metrics``
+    lint-clean; every admitted UPDATE carrying a snapshot; a
+    ``kind=fleet`` record naming every client; ``tools/sl_top.py``
+    rendering the monitor's snapshot.  Returns the run's numbers."""
+    import importlib.util
+    res, server, clients = run["res"], run["server"], run["clients"]
+    rec = res.history[0]
+    check(len(res.history) == 1 and rec.ok and math.isfinite(rec.val_loss),
+          f"{label}: the round failed: {res.history}")
+    check(rec.num_samples == want_samples, f"{label}: {rec.num_samples} "
+          f"samples, expected {want_samples}")
+    ids = sorted(c.client_id for c in clients)
+    lint = [e for sc in run["scrapes"] for e in sc["lint"]]
+    check(len(run["scrapes"]) >= 5, f"{label}: {len(run['scrapes'])} "
+          f"scrapes landed ({len(run['scrape_failures'])} failed)")
+    check(not lint, f"{label}: /metrics does not lint: {lint[:5]}")
+    check(run["admitted"] and all(tel for _, tel in run["admitted"]),
+          f"{label}: an UPDATE without a snapshot: {run['admitted']}")
+    recs = [r for r in _metrics(pathlib.Path(cfg.log_path))
+            if r.get("kind") == "fleet"]
+    check(recs and sorted(recs[-1]["fleet"]["clients"]) == ids,
+          f"{label}: no kind=fleet record naming {ids}")
+    spec = importlib.util.spec_from_file_location(
+        "sl_top", HERE / "tools" / "sl_top.py")
+    sl_top = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sl_top)
+    table = sl_top.render_fleet(server.ctx.fleet.snapshot(), color=False)
+    check(all(c in table for c in ids), f"{label}: sl_top's table "
+          f"misses a client:\n{table}")
+    beats = {c.client_id: c.heartbeats for c in clients}
+    frames, nbytes = _print_heartbeats(list(beats.values()))
+    transitions = [(t["client"], t["from"], t["to"], t["why"])
+                   for t in server.ctx.fleet.transitions]
+    phases = server.ctx.round_phases[0]
+    print(f"  {label}: round wall {rec.wall_s:.3f} s (run "
+          f"{run['run_wall']:.3f} s), {rec.num_samples} samples, "
+          f"val_loss {rec.val_loss:.4f} val_acc {rec.val_accuracy:.4f}; "
+          f"phases " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                 phases.items())
+          + f"; {len(run['scrapes'])} scrapes lint-clean "
+          f"({len(run['scrape_failures'])} failed); heartbeats by client "
+          f"{beats}; {frames / max(1, len(beats)) * 1:.1f} frames and "
+          f"{nbytes / max(1, frames):.0f} bytes a frame; faults "
+          f"{run['faults']}; transitions {transitions}")
+    print("  sl_top:\n" + "\n".join("    " + ln
+                                     for ln in table.splitlines()))
+    return {"round_wall_s": rec.wall_s, "run_wall_s": run["run_wall"],
+            "samples": rec.num_samples, "val_loss": rec.val_loss,
+            "val_accuracy": rec.val_accuracy, "phases": phases,
+            "heartbeats": beats, "heartbeat_frames": frames,
+            "heartbeat_bytes": nbytes,
+            "bytes_by_family": _family_bytes(run["bus"]),
+            "scrapes": len(run["scrapes"]),
+            "scrape_failures": len(run["scrape_failures"]),
+            "transitions": transitions, "faults": run["faults"],
+            "admitted": run["admitted"], "launches": run["launches"]}
+
+
+def phase_fleet_protocol(workdir: pathlib.Path) -> dict:
+    """Cell 28: :func:`fleet_protocol_config`'s round twice in one
+    process, the server's exporter scraped every :data:`FLEET_SCRAPE_S`
+    s by a thread, every quantize, dequantize, finalize and momentum
+    launch held bit for bit against its plain version
+    (:func:`_hold_on_path`).
+
+    Run a (FedAvgM 0.9): every client seen ``healthy`` in ``/fleet``
+    after its SYN, and each client's heartbeats at least its training
+    wall (SYN to the last UPDATE) over :data:`FLEET_INTERVAL`, less 2.
+    Run b (momentum 0): :data:`FLEET_DEAD` dies at its
+    :data:`FLEET_CRASH_AFTER`-th activation; its heartbeat thread ends
+    with it, the monitor marks it ``lost`` and releases the first barrier
+    that misses it early (``fleet_lost_drops`` >= 1), the survivors'
+    UPDATEs fold, no survivor is ever ``lost``, and the round's wall is
+    under run a's + :data:`FLEET_LIVENESS` + :data:`FLEET_SLACK_S`.  Both
+    as :func:`_fleet_summary` checks them."""
+    from split_learning_torch.ops.kernels import quant as kq
+    from split_learning_torch.ops.kernels import update as ku
+
+    seen: dict = {}
+    out: dict = {}
+    launches: dict = {}
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()   # the group's earlier phases' cache
+    smi = _SmiPoll()
+    for run_key, m, dead in (("a", 0.9, None), ("b", 0.0, FLEET_DEAD)):
+        held: dict = {}
+        originals = _hold_on_path(kq, ku, held, seen)
+        try:
+            cfg = fleet_protocol_config(workdir / f"fleet_{run_key}", m)
+            run = _run_fleet_round(cfg, f"fleet run {run_key}", dead)
+        finally:
+            for (mod, attr), fn in originals.items():
+                setattr(mod, attr, fn)
+        want = _expected_samples(cfg, protocol=True,
+                                 n_clients=cfg.clients[0] - bool(dead))
+        r = _fleet_summary(f"run {run_key}", cfg, run, want)
+        _check_held("fleet protocol", m, held, run["launches"])
+        r["held"] = held
+        fleet = run["server"].ctx.fleet
+        ids = [c.client_id for c in run["clients"]]
+        survivors = [c for c in ids if c != dead]
+        lost_to = {t[0] for t in r["transitions"] if t[2] == "lost"}
+        # how near each client came to the checks below: its scrapes in
+        # each state after its SYN, and the longest silence a scrape saw
+        seen_in: dict = {c: {} for c in ids}
+        silent = dict.fromkeys(ids, 0.0)
+        for sc in run["scrapes"]:
+            for c, v in sc["fleet"]["clients"].items():
+                if c in seen_in and v.get("round") is not None:
+                    seen_in[c][v["state"]] = seen_in[c].get(v["state"], 0) + 1
+                if c in silent and v.get("age_s") is not None:
+                    silent[c] = max(silent[c], v["age_s"])
+        print(f"  run {run_key}: scrapes by state after SYN {seen_in}; "
+              f"longest silence a scrape saw {silent} s (liveness "
+              f"{FLEET_LIVENESS:g} s)")
+        r["scrape_states"], r["longest_silence_s"] = seen_in, silent
+        check(lost_to <= ({dead} if dead else set()),
+              f"run {run_key}: a live client was marked lost: "
+              f"{r['transitions']}")
+        if dead is None:
+            healthy = {c for sc in run["scrapes"]
+                       for c, v in sc["fleet"]["clients"].items()
+                       if v["state"] == "healthy"
+                       and v.get("round") is not None}
+            check(healthy == set(ids), f"run a: {sorted(set(ids) - healthy)}"
+                  " never seen healthy mid-round")
+            phases = r["phases"]
+            train = phases["train_s"] + phases["upload_s"]
+            need = train / FLEET_INTERVAL - 2
+            short = {c: n for c, (n, _) in r["heartbeats"].items()
+                     if n < need}
+            fewest = min(n for n, _ in r["heartbeats"].values())
+            print(f"  run a: training wall {train:.3f} s: at least "
+                  f"{need:.1f} heartbeats a client, fewest {fewest}")
+            check(not short, f"run a: too few heartbeats {short} (at "
+                  f"least {need:.1f})")
+            check(run["server"].ctx.last_fold.folded == len(ids),
+                  f"run a folded {run['server'].ctx.last_fold.folded}")
+        else:
+            dead_client = next(c for c in run["clients"]
+                               if c.client_id == dead)
+            check(run["crashed"] == [dead], f"run b: crashed "
+                  f"{run['crashed']}, not [{dead}]")
+            check(dead_client.telemetry._thread is None,
+                  "run b: the dead client's heartbeat thread outlived it")
+            check(fleet.state(dead) == "lost",
+                  f"run b: {dead} is {fleet.state(dead)}, not lost")
+            drops = r["faults"].get("fleet_lost_drops", 0)
+            check(drops >= 1, f"run b: no barrier released early "
+                  f"({r['faults']})")
+            check(sorted(c for c, _ in r["admitted"]) == sorted(survivors),
+                  f"run b: UPDATEs from {r['admitted']}")
+            check(run["server"].ctx.last_fold.folded == len(survivors),
+                  f"run b folded {run['server'].ctx.last_fold.folded}")
+            limit = out["a"]["round_wall_s"] + FLEET_LIVENESS + FLEET_SLACK_S
+            print(f"  run b: wall {r['round_wall_s']:.3f} s against run a "
+                  f"{out['a']['round_wall_s']:.3f} + liveness "
+                  f"{FLEET_LIVENESS:g} + {FLEET_SLACK_S:g} = {limit:.3f} s "
+                  f"(client timeout {FLEET_TIMEOUT:g} s); "
+                  f"fleet_lost_drops {drops}")
+            check(r["round_wall_s"] < limit, f"run b took "
+                  f"{r['round_wall_s']:.3f} s, over {limit:.3f} s")
+            r["fleet_lost_drops"] = drops
+        for k, v in run["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        out[run_key] = r
+    for name in OFF_PATH_KERNELS:
+        check(launches.get(name, 0) == 0, f"{name} ran "
+              f"{launches.get(name)} times on the fleet path")
+    for name in ("quantize", "dequantize", "finalize", "momentum"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched "
+              "on the fleet path")
+    check(out["a"]["launches"]["momentum"] > 0
+          and out["b"]["launches"]["finalize"] > 0,
+          "the momentum run or the plain FedAvg run missed its kernel")
+    out["launches"] = launches
+    out["card_memory_used_peak_mib"] = smi.stop()
+    print(f"  fleet launches over both runs {launches}; card memory used, "
+          f"peak by nvidia-smi (every group): "
+          f"{out['card_memory_used_peak_mib']} MiB")
+    return out
+
+
+#: phases 4-31, in groups that run at once, each in a process of its own
 #: on the card (``--group NAME``, :func:`run_group`): a group runs its
 #: phases in order, and a phase that reads an earlier phase's result
 #: (``r``) is in that phase's group.  The groups are balanced by the
@@ -5577,7 +5922,8 @@ PHASE_GROUPS = {
         ("protocol_tcp", lambda w, r: phase_protocol_tcp(w, r["protocol"])),
         ("step_check", lambda w, r: phase_step_check()),
         ("bert_slice", lambda w, r: phase_bert_slice(w)),
-        ("bert_protocol", lambda w, r: phase_bert_protocol(w))),
+        ("bert_protocol", lambda w, r: phase_bert_protocol(w)),
+        ("fleet_protocol", lambda w, r: phase_fleet_protocol(w))),
     "vgg": (
         ("vgg_slice", lambda w, r: phase_vgg_slice(w)),
         ("vgg_profile", lambda w, r: phase_profile(
@@ -5613,6 +5959,8 @@ PHASE_GROUPS = {
 #: the script then fails with the groups' logs, inside the 1200 s that
 #: a run of it is given
 GROUPS_DEADLINE_S = 1140.0
+#: lines of a failed group's log repeated on standard error
+GROUP_TAIL_LINES = 40
 
 
 def _stop_on_term(signum, frame):
@@ -5689,6 +6037,16 @@ def run_groups(workdir: pathlib.Path, t_start: float) -> dict:
     for name, (_, log, _) in procs.items():
         print(f"===== group {name} =====")
         print(log.read_text(), end="", flush=True)
+    if failed is not None:
+        # the groups' logs go to standard output; the end of each log
+        # that did not finish goes to standard error too, where a caller
+        # that keeps only the end of each stream still sees why
+        for name, (p, log, _) in procs.items():
+            if p.returncode != 0:
+                tail = log.read_text().splitlines()[-GROUP_TAIL_LINES:]
+                print(f"===== end of group {name} (exit {p.returncode}) "
+                      "=====\n" + "\n".join(tail), file=sys.stderr,
+                      flush=True)
     check(failed is None, failed)
     results: dict = {}
     for name in PHASE_GROUPS:
@@ -5737,6 +6095,7 @@ def main() -> int:
         results[k] for k in ("async_protocol", "codec_protocol",
                              "tree_protocol", "trace_protocol"))
     wire_slow = results["wire_slow_protocol"]
+    fleet = results["fleet_protocol"]
     entries = []
     for name, r in kernels.items():
         source, replaces = KERNELS[name]
@@ -5772,6 +6131,7 @@ def main() -> int:
                                        for run in ("a", "b"))
         by_path["trace_protocol"] = trace_proto["launches"][name]
         by_path["wire_slow_protocol"] = wire_slow["launches"][name]
+        by_path["fleet_protocol"] = fleet["launches"].get(name, 0)
         # each kernel's main path: the VGG protocol round for the codec
         # and stage-update kernels, the TinyLlama protocol round for the
         # flash kernels

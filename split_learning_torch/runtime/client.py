@@ -97,9 +97,20 @@ histogram reads its send time).  Each UPDATE is followed by cumulative
 The ``step`` clock stops when the step's launches return, not when the
 card has run them, as the JAX package's stops at dispatch.
 
+The live telemetry plane (``observability.heartbeat-interval`` > 0, the
+default): a :class:`~split_learning_torch.runtime.telemetry.
+TelemetryEmitter` thread, started at the first START and stopped however
+``run`` ends (a crashed client stops reporting healthy), publishes a
+HEARTBEAT on the rpc queue every interval: the fault counters, the wire
+counters, the latency histograms, the gauges (``round`` at SYN,
+``epoch``, stage 1's ``inflight``, a later stage's ``queue_depth``) and
+the EWMA samples/s of the host-side sample counter.  It reads host
+integers and host counters only, so it never waits on the card.  Every
+UPDATE carries the same snapshot.
+
 Left out (raises ``NotImplementedError`` when its config asks for it):
 sync-overlap ticks (and their speculative forwards across a hold START).
-Heartbeats, the perf plane's records and scheduler knobs are not emitted.
+The perf plane's records and scheduler knobs are not emitted.
 """
 
 from __future__ import annotations
@@ -131,11 +142,12 @@ from split_learning_torch.runtime.context import make_optimizer
 from split_learning_torch.runtime.log import Logger
 from split_learning_torch.runtime.protocol import (
     RPC_QUEUE, Activation, EpochEnd, FrameAssembler, Float0, Gradient,
-    Notify, Pause, QuantLeaf, Ready, Register, SparseLeaf, Start, Stop,
-    Syn, Update, aggregate_queue, encode, encode_parts, gradient_queue,
-    host_tensor, intermediate_queue, reply_queue,
+    Heartbeat, Notify, Pause, QuantLeaf, Ready, Register, SparseLeaf, Start,
+    Stop, Syn, Update, aggregate_queue, encode, encode_parts,
+    gradient_queue, host_tensor, intermediate_queue, reply_queue,
 )
 from split_learning_torch.runtime.spans import make_tracer, unpack_ctx
+from split_learning_torch.runtime.telemetry import GaugeSet, TelemetryEmitter
 from split_learning_torch.runtime.validation import (
     dataset_for_model, dataset_kwargs_for_model,
 )
@@ -511,6 +523,18 @@ class ProtocolClient:
         self._assembler = FrameAssembler()
         self._chunk_bytes = cfg.transport.chunk_mb << 20
         self.log = logger or Logger.for_run(cfg, client_id, console=False)
+        # the live telemetry plane: gauges and the heartbeat thread
+        # (started at the first START); its snapshot reads num_samples,
+        # a host int counted where each batch's update is applied
+        self.gauges = GaugeSet()
+        #: (frames, bytes) of the heartbeats this client has published
+        self.heartbeats = (0, 0)
+        self.telemetry = TelemetryEmitter(
+            client_id, self._send_heartbeat,
+            interval=cfg.observability.heartbeat_interval,
+            faults=self.faults, wire=self.wire, hists=self.hists,
+            gauges=self.gauges, samples_fn=lambda: self.num_samples,
+            stage=stage)
         self.wire_dtype = wire_torch_dtype(cfg.transport.wire_dtype)
         # per-queue-family wire codecs (transport.codec); families
         # without a policy take the plain wire-dtype path
@@ -708,14 +732,26 @@ class ProtocolClient:
             cluster=self.cluster, profile=self.profile)))
         self.log.info(f"[>>>] REGISTER stage={self.stage}")
 
+    def _send_heartbeat(self, snapshot: dict) -> None:
+        """One HEARTBEAT on the rpc queue (from the emitter's thread; not
+        logged: a frame an interval would drown the protocol trace).
+        :attr:`heartbeats` counts the frames and bytes sent."""
+        raw = encode(Heartbeat(client_id=self.client_id,
+                               round_idx=self.round_idx or 0,
+                               telemetry=snapshot))
+        self.bus.publish(RPC_QUEUE, raw)
+        frames, nbytes = self.heartbeats
+        self.heartbeats = (frames + 1, nbytes + len(raw))
+
     def run(self):
         """Blocking lifecycle loop; returns on STOP.  However it ends
-        (STOP, a closed bus, a scripted crash), a transport stack the
-        client built itself is closed, every layer of it, and the span
-        journal is flushed and closed."""
+        (STOP, a closed bus, a scripted crash), the heartbeat thread
+        stops, a transport stack the client built itself is closed,
+        every layer of it, and the span journal is flushed and closed."""
         try:
             self._run()
         finally:
+            self.telemetry.stop()
             if self._own_bus:
                 self.bus.close()
             self.tracer.close()
@@ -748,6 +784,9 @@ class ProtocolClient:
                 continue
             if isinstance(msg, Start):
                 started = True
+                # heartbeats begin at the first START (idempotent), so the
+                # server hears this client through the shard build
+                self.telemetry.start()
                 self._on_start(msg)
                 self.bus.publish(RPC_QUEUE, encode(Ready(
                     client_id=self.client_id, round_idx=self.fence)))
@@ -891,6 +930,7 @@ class ProtocolClient:
         # overlap-tick samples survive only a hold START (the kept shard
         # is what this round's UPDATE uploads); a re-seed zeroed them
         self.num_samples, self._overlap_samples = self._overlap_samples, 0
+        self.gauges.set("round", msg.round_idx)
         # the round's root span on this participant: hot-loop and
         # publish spans parent under it
         with self.tracer.span("client_round", round=msg.round_idx,
@@ -934,7 +974,8 @@ class ProtocolClient:
             params_h, delta_base = self._encode_update_wire(params_h)
         # TENSOR-framed and chunked: a shard UPDATE is the biggest frame
         # a client publishes.  The weights were fetched above, on this
-        # thread: the next START loads into the same parameters in place
+        # thread: the next START loads into the same parameters in place.
+        # It carries one telemetry snapshot, heartbeats on or off
         msg = Update(
             client_id=self.client_id, stage=self.stage,
             cluster=self.cluster, params=params_h, batch_stats=stats_h,
@@ -942,7 +983,8 @@ class ProtocolClient:
             round_idx=self.fence, delta_base=delta_base,
             # the generation these weights were seeded from: the
             # server's staleness window reads it
-            version=self.fence)
+            version=self.fence,
+            telemetry=self.telemetry.snapshot().as_dict())
         dest = (RPC_QUEUE if self._agg_group is None
                 else aggregate_queue(self.cluster, self._agg_group))
         self._publish_parts(
@@ -1091,6 +1133,7 @@ class ProtocolClient:
                         epoch=ep)))
 
         for ep in range(self.epochs):
+            self.gauges.set("epoch", ep)
             data_iter = iter(self.loader)
             # prefetch one batch: exhaustion must be known at the LAST
             # dispatch, not when the in-flight cap next frees (a strict
@@ -1110,6 +1153,7 @@ class ProtocolClient:
                         continue
                     self._backward(ent, g)
                     n_bwd += 1
+                    self.gauges.set("inflight", len(inflight))
                     continue
                 if exhausted or len(inflight) >= cap:
                     # idle: check for an early PAUSE/STOP rather than
@@ -1130,6 +1174,7 @@ class ProtocolClient:
                 sp.end()
                 inflight[data_id] = _Inflight(x=x, trace=[self.client_id],
                                               n=len(labels), rng=rng)
+                self.gauges.set("inflight", len(inflight))
                 self._send_activation(out, out_qs[n_fwd % len(out_qs)],
                                       data_id,
                                       np.asarray(labels, np.int32),
@@ -1206,6 +1251,7 @@ class ProtocolClient:
             sp.end()
             inflight[act.data_id] = _Inflight(x=x, trace=list(act.trace),
                                               n=len(act.labels), rng=rng)
+            self.gauges.set("queue_depth", len(inflight))
             self._send_activation(out, out_qs[n_fwd % len(out_qs)],
                                   act.data_id, act.labels,
                                   list(act.trace) + [self.client_id])
@@ -1305,6 +1351,8 @@ class ProtocolClient:
             idle_since = None   # current-round traffic only
             act.data = _from_wire_tree(act.data, self.device)
             pending.setdefault(act.trace[0], []).append(act)
+            self.gauges.set("queue_depth",
+                            sum(len(q) for q in pending.values()))
             n_live = len(live())
             if n_live > target:
                 target = min(width, n_live)
@@ -1459,6 +1507,7 @@ class ProtocolClient:
         out_qs = self._out_queues()
         n_fwd = 0
         for ep in range(self.epochs):
+            self.gauges.set("epoch", ep)
             data_iter = iter(self.loader)
             while True:
                 pause = self._check_pause()

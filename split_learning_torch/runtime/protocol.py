@@ -2,11 +2,11 @@
 
 Port of the part of the JAX package's ``runtime/protocol.py`` that a
 FedAvg round runs: the queue names, the round's messages (REGISTER,
-READY, NOTIFY, UPDATE, START, SYN, PAUSE, STOP, the ACTIVATION/GRADIENT
-data plane, EPOCHEND, the quantized :class:`QuantLeaf`, the top-k
-:class:`SparseLeaf` and the aggregator tree's
-:class:`PartialAggregate`), and the three frame families with the same
-bytes:
+READY, NOTIFY, UPDATE, START, SYN, PAUSE, STOP, the telemetry plane's
+HEARTBEAT, the ACTIVATION/GRADIENT data plane, EPOCHEND, the quantized
+:class:`QuantLeaf`, the top-k :class:`SparseLeaf` and the aggregator
+tree's :class:`PartialAggregate`), and the three frame families with the
+same bytes:
 
 * ``SLT1`` — pickled frame ``MAGIC | crc32(body) | pickle(body)`` for
   control messages, read back by a restricted unpickler that admits the
@@ -34,9 +34,10 @@ Queue naming (the reference's topology):
   aggregator (``aggregation.fan-in``)
 
 Left out here (raising where a config asks for them): the remote
-aggregator nodes' AGGHELLO/AGGASSIGN/AGGFLUSH, stage-host, digest,
-blackbox and heartbeat messages and the trace-context sidecar's span
-plumbing (the context bytes still ride the frames unchanged).
+aggregator nodes' AGGHELLO/AGGASSIGN/AGGFLUSH, the digest roll-up's
+FLEETDIGEST/DIGESTROUTE, stage-host and blackbox messages, and the
+trace-context sidecar's span plumbing (the context bytes still ride the
+frames unchanged).
 """
 
 from __future__ import annotations
@@ -177,6 +178,20 @@ class Stop:
     reason: str = ""
 
 
+@dataclasses.dataclass
+class Heartbeat:
+    """client -> server, on the rpc queue, from a background thread every
+    ``observability.heartbeat-interval`` seconds: liveness plus a full
+    :class:`~split_learning_torch.runtime.telemetry.TelemetrySnapshot`
+    as a plain dict (counters, gauges, histogram digests, current round,
+    EWMA samples/s).  The snapshot's monotonic ``seq`` and sender clock
+    ``t`` are the server's staleness guard.  Small and pickled (SLT1):
+    it shares the rpc queue with the UPDATE uploads."""
+    client_id: str
+    round_idx: int = 0
+    telemetry: dict | None = None
+
+
 # --------------------------------------------------------------------------
 # data-plane messages
 # --------------------------------------------------------------------------
@@ -286,7 +301,7 @@ class _TensorRef:
 
 
 CONTROL_TYPES = (Register, Ready, Notify, Update, Start, Syn, Pause, Stop,
-                 PartialAggregate)
+                 Heartbeat, PartialAggregate)
 DATA_TYPES = (Activation, Gradient, EpochEnd)
 #: messages whose array payloads ride the TENSOR framing
 TENSOR_TYPES = (Activation, Gradient, Update, PartialAggregate)

@@ -77,15 +77,36 @@ record a stage) under the round loop's ``train`` span, and a
 process-wide ``queue_wait`` and ``transport_rtt``) follows when they
 changed.
 
+The live telemetry plane (``observability``, ``runtime/telemetry.py``):
+with ``heartbeat-interval`` > 0 (the default) the server runs a
+:class:`~split_learning_torch.runtime.telemetry.FleetMonitor` fed by
+every client's HEARTBEAT frames, by the snapshot each UPDATE carries
+(also the members' snapshots behind a partial aggregate), and by any
+other client frame as proof of life.  Liveness ages count only after a
+drained pump (``note_pump``).  The READY, NOTIFY and UPDATE barriers
+name the clients they still need: every ``_WAIT_CHECK_S`` they advance
+the monitor, and once every missing client is ``lost`` (silent for
+``liveness-timeout`` seconds) the barrier is released at once, counted
+``fleet_lost_drops``, instead of waiting out the client timeout.  A
+``lost`` client's delta shadow is dropped.  Each invocation ends with a
+``kind=fleet`` record.  With ``http-port`` set, a
+:class:`~split_learning_torch.runtime.telemetry.TelemetryExporter`
+serves ``/metrics`` (Prometheus text) and ``/fleet`` (the monitor's
+snapshot, with the aggregator tree's topology and, over TCP, the broker
+shards' stats) for ``tools/sl_top.py``.  No aggregator node sends digests
+yet, so ``digest-interval`` leaves every client beating straight to the
+rpc queue, as the JAX package does with no node adopted.
+
 Left out (each raises ``NotImplementedError`` when its config asks for
 it): the remote aggregator nodes, stage hosts, the scheduler, elastic
 re-planning, the per-leaf legacy fold finish
-(``aggregation.update-sharded: false``).  The telemetry exporter,
-liveness monitor and blackbox are not run.
+(``aggregation.update-sharded: false``).  The perf plane's on-demand
+profile (``POST /profile`` answers 404) and the blackbox are not run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import threading
@@ -112,11 +133,12 @@ from split_learning_torch.runtime.plan import (
     ClusterPlan, Registration, plan_clusters,
 )
 from split_learning_torch.runtime.protocol import (
-    RPC_QUEUE, FrameAssembler, Notify, PartialAggregate, Pause, Ready,
-    Register, Start, Stop, Syn, Update, encode, encode_parts, host_tensor,
-    reply_queue,
+    RPC_QUEUE, FrameAssembler, Heartbeat, Notify, PartialAggregate, Pause,
+    Ready, Register, Start, Stop, Syn, Update, encode, encode_parts,
+    host_tensor, reply_queue,
 )
 from split_learning_torch.runtime.spans import make_tracer, unpack_ctx
+from split_learning_torch.runtime.telemetry import FleetMonitor, GaugeSet
 
 
 class RoundTimeout(RuntimeError):
@@ -143,11 +165,24 @@ def _stage_flag(flag: bool | dict, stage: int) -> bool:
     return bool(flag.get(stage, True) if isinstance(flag, dict) else flag)
 
 
+def _note_members(fleet, members) -> None:
+    """The snapshots of the clients behind a partial aggregate (or a
+    fallback drain's UPDATEs) reach ``fleet`` one by one: a client
+    behind an aggregator stays visible everywhere but the fold."""
+    if fleet is None:
+        return
+    for m in members or []:
+        cid = m.get("client_id")
+        if cid is not None and m.get("telemetry"):
+            fleet.note_heartbeat(cid, m["telemetry"])
+
+
 def _refuse_unported(cfg: Config) -> None:
     agg, topo = cfg.aggregation, cfg.topology
     later = [
         (agg.remote, "aggregation.remote (aggregator nodes)",
-         "the telemetry plane's slice (their heartbeats and liveness)"),
+         "the remote aggregator nodes' slice, which heartbeat through "
+         "the telemetry plane"),
         (cfg.pipeline.remote, "pipeline.remote (stage hosts)",
          "the fleet planes' slice"),
         (cfg.scheduler.enabled, "scheduler.enabled (the closed-loop "
@@ -193,6 +228,23 @@ class ProtocolContext(TorchContext):
         self._hist_base: dict | None = None
         self._assembler = FrameAssembler()   # chunked UPDATE reassembly
         self.log = logger or Logger.for_run(cfg, "server", console=False)
+        # the live telemetry plane: the fleet's health state machine fed
+        # by heartbeats, consulted by the barriers (None: heartbeats off)
+        self.gauges = GaugeSet()
+        obs = cfg.observability
+        self.fleet = None
+        if obs.heartbeat_interval > 0:
+            self.fleet = FleetMonitor(
+                interval=obs.heartbeat_interval,
+                liveness_timeout=obs.liveness_timeout, log=self.log,
+                gauges=self.gauges, faults=self.faults,
+                watchlist_size=obs.watchlist_size)
+        # the clients the barrier being pumped still needs
+        # (:meth:`_barrier`), clients the planner left out (never scored)
+        # and the aggregator tree of the current invocation (``/fleet``)
+        self._waiting: Callable[[], set] | None = None
+        self._excluded: set = set()
+        self._agg_topology: dict | None = None
         self.client_timeout = client_timeout
         # the READY barrier's deadline; registration keeps the full
         # client_timeout (it covers client process start-up)
@@ -212,6 +264,9 @@ class ProtocolContext(TorchContext):
         if "rpc" in codecs:
             from split_learning_torch.runtime.codec.delta import DeltaShadow
             self._delta_shadow = DeltaShadow(faults=self.faults)
+            if self.fleet is not None:
+                # a lost client's shadow is a full shard copy held here
+                self.fleet.on_lost = self._on_client_lost
         # clients whose next START must carry weights whatever the
         # strategy's wire economy says (a broken delta chain)
         self._needs_params: set = set()
@@ -280,6 +335,11 @@ class ProtocolContext(TorchContext):
     def _pump_one(self, timeout: float) -> bool:
         raw = self.bus.get(RPC_QUEUE, timeout=timeout)
         if raw is None:
+            if self.fleet is not None:
+                # liveness ages are trusted only at a drained queue: after
+                # an unpumped phase (validation) the backlog still holds
+                # everyone's beats
+                self.fleet.note_pump()
             return False
         t_wall = time.time()
         t0 = time.perf_counter()
@@ -308,6 +368,22 @@ class ProtocolContext(TorchContext):
                 queue=RPC_QUEUE, kind=type(msg).__name__,
                 nbytes=len(raw), rtt_ms=round(rtt * 1e3, 3),
                 round=getattr(msg, "round_idx", None))
+        if isinstance(msg, Heartbeat):
+            # liveness and telemetry only, never logged; the monitor's
+            # staleness guard drops a duplicated or reordered beat
+            if self.fleet is not None \
+                    and msg.client_id not in self._excluded:
+                self.fleet.note_heartbeat(msg.client_id, msg.telemetry)
+            return True
+        cid = getattr(msg, "client_id", None)
+        if self.fleet is not None and cid is not None \
+                and cid not in self._excluded:
+            # any client frame proves a live process; an UPDATE's
+            # snapshot counts as a full beat, whatever its generation
+            if isinstance(msg, Update) and msg.telemetry:
+                self.fleet.note_heartbeat(cid, msg.telemetry)
+            else:
+                self.fleet.note_frame(cid)
         if isinstance(msg, Register):
             # keyed by client_id: clients re-REGISTER until STARTed
             if msg.client_id not in self._registrations:
@@ -404,6 +480,10 @@ class ProtocolContext(TorchContext):
             msg.batch_stats = _torch_tree(msg.batch_stats or {}, "cpu")
         self._folded_versions.add(key)
         self._updates.append(msg)
+        if self._async and self.fleet is not None:
+            # version lag is an async signal: in sync mode the generation
+            # counts invocations, and sequential clusters would read as lag
+            self.fleet.note_client_version(msg.client_id, ver)
         if stale:
             self.faults.inc("agg_stale_admits")
             self.log.received(
@@ -439,6 +519,23 @@ class ProtocolContext(TorchContext):
         else:
             msg.params = full
         msg.delta_base = None   # downstream sees a plain (full) update
+
+    def _on_client_lost(self, cid: str) -> None:
+        """The monitor's ``lost`` hook: drop the client's delta shadow (a
+        full shard copy held here).  A client that comes back full-frames
+        its next UPDATE, so the chain repairs itself."""
+        if self._delta_shadow is not None:
+            self._delta_shadow.clear(cid)
+            self.gauges.set("agg_shadow_bytes", self._delta_shadow.nbytes())
+
+    def exclude(self, client_ids) -> None:
+        """Clients the planner left out of every plan: no longer scored
+        (their silence would drag the fleet median and mint ``lost``
+        states for clients no round waits for)."""
+        self._excluded |= set(client_ids)
+        if self.fleet is not None:
+            for cid in self._excluded:
+                self.fleet.forget(cid)
 
     # -- the aggregator tree ---------------------------------------------------
 
@@ -494,6 +591,7 @@ class ProtocolContext(TorchContext):
             msg.weight, msg.dtypes, stat_sums=msg.stat_sums,
             stat_weight=msg.stat_weight, stat_dtypes=msg.stat_dtypes,
             n_samples=msg.n_samples)
+        _note_members(self.fleet, msg.members)
         self._book_members(msg)
         self.log.received(
             f"PARTIALAGGREGATE {msg.aggregator_id} "
@@ -646,6 +744,9 @@ class ProtocolContext(TorchContext):
                            "telemetry": u.telemetry})
         u.params = None
         u.batch_stats = None
+        # (the drain's methods also run bound alone to a context that has
+        # no telemetry plane)
+        _note_members(getattr(self, "fleet", None), fb["meta"][-1:])
         if fb["book_direct"]:
             self._updates.append(u)
         self.log.received(f"UPDATE {u.client_id} (fallback drain)")
@@ -668,6 +769,7 @@ class ProtocolContext(TorchContext):
             stat_sums=m.stat_sums, stat_weight=m.stat_weight,
             stat_dtypes=m.stat_dtypes, n_samples=m.n_samples)
         fb["meta"].extend(m.members or [])
+        _note_members(getattr(self, "fleet", None), m.members)
         if fb["book_direct"]:
             self._book_members(m)
         self.log.received(
@@ -751,28 +853,69 @@ class ProtocolContext(TorchContext):
         for t in self._l1:
             t.join(timeout=5.0)
 
+    #: wall-clock cadence of the barriers' liveness check (an advance of
+    #: the whole fleet: O(clients), so not once a frame)
+    _WAIT_CHECK_S = 0.1
+
     def _pump_until(self, pred: Callable[[], bool],
                     what: str | Callable[[], str],
                     deadline: float | None = None,
+                    waiting: Callable[[], set] | None = None,
                     poll: Callable[[], None] | None = None) -> bool:
         """Drain rpc_queue until ``pred()``; False if the deadline
         passes (``what`` may be a callable naming who is missing AT the
         deadline).  ``poll`` runs before each check (the aggregator
-        tree's health check and fallback drains)."""
+        tree's health check and fallback drains).
+
+        ``waiting`` (by default the enclosing :meth:`_barrier`'s) names
+        the clients the barrier still needs: once every one of them is
+        the fleet monitor's ``lost`` (silent for
+        ``observability.liveness-timeout``), the wait gives up at once,
+        counting ``fleet_lost_drops`` — a dead client costs the round
+        the liveness timeout, not the whole deadline.  A slow but live
+        client is never dropped."""
         deadline = (time.monotonic() + self.client_timeout
                     if deadline is None else deadline)
+        waiting = waiting if waiting is not None else self._waiting
+        t_checked = 0.0
         while True:
             if poll is not None:
                 poll()
             if pred():
                 return True
-            remain = deadline - time.monotonic()
+            now = time.monotonic()
+            remain = deadline - now
             if remain <= 0:
                 w = what() if callable(what) else what
                 self.faults.inc("timeouts")
                 self.log.warning(f"timeout waiting for {w}")
                 return False
+            if (waiting is not None and self.fleet is not None
+                    and now - t_checked >= self._WAIT_CHECK_S):
+                t_checked = now
+                lost = self.fleet.advance()
+                missing = set(waiting())
+                if missing and missing <= lost:
+                    self.faults.inc("fleet_lost_drops", len(missing))
+                    self.log.warning(
+                        f"dropping lost client(s) {sorted(missing)}: no "
+                        f"heartbeat within {self.fleet.liveness_timeout:g}"
+                        "s — barrier released early")
+                    return False
             self._pump_one(timeout=min(remain, 0.25))
+
+    @contextlib.contextmanager
+    def _barrier(self, name: str, round_idx: int,
+                 waiting: Callable[[], set]):
+        """One round barrier: its span, and the clients it still needs
+        (``waiting``) for the liveness check of every :meth:`_pump_until`
+        inside it."""
+        prev, self._waiting = self._waiting, waiting
+        try:
+            with self.tracer.span(name, round=round_idx):
+                yield
+        finally:
+            self._waiting = prev
 
     # -- registration barrier ------------------------------------------------
 
@@ -899,6 +1042,10 @@ class ProtocolContext(TorchContext):
         self._folded_versions = {
             (c, v) for c, v in self._folded_versions
             if self._cur_gen - v <= self.cfg.learning.max_staleness + 1}
+        if self._async and self.fleet is not None:
+            # where "now" is for version-lag scoring (async only: in sync
+            # mode the generation counts invocations, not versions)
+            self.fleet.note_version(self._cur_gen)
 
         # streaming fold for this invocation, in canonical per-stage key
         # order: sorted client ids, or the root groups' keys when the
@@ -1052,7 +1199,8 @@ class ProtocolContext(TorchContext):
             t_phase = now
 
         ids = {cid for cid, _ in active}
-        with self.tracer.span("ready_wait", round=round_idx):
+        with self._barrier("ready_wait", round_idx,
+                           lambda: ids - self._ready):
             ready_ok = self._pump_until(
                 lambda: ids <= self._ready,
                 lambda: f"READY from {ids - self._ready}",
@@ -1076,6 +1224,14 @@ class ProtocolContext(TorchContext):
                         for g in groups}
             self._tree_narrowed = narrowed
             self._spawn_l1_threads(plan, groups, narrowed)
+            # the tree's shape for /fleet, so that a slow group is named
+            self._agg_topology = {
+                "fan_in": self._agg.fan_in, "levels": self._agg.levels,
+                "remote": False, "gen": self._cur_gen,
+                "groups": [{"idx": g.idx, "stage": g.stage,
+                            "level": g.level, "parent": g.parent,
+                            "members": len(narrowed[g.idx]), "node": None}
+                           for g in groups]}
             self.log.info(
                 f"aggregator tree: {len(groups)} group(s), fan-in "
                 f"{self._agg.fan_in}, levels {self._agg.levels} "
@@ -1107,7 +1263,8 @@ class ProtocolContext(TorchContext):
 
         s1_ids = set(stage1) & ids
         quorum_n = self.cfg.learning.async_quorum if self._async else 0
-        with self.tracer.span("notify_wait", round=round_idx):
+        with self._barrier("notify_wait", round_idx,
+                           lambda: s1_ids - self._notified):
             if quorum_n:
                 # async quorum: the round moves on once enough feeders
                 # have dispatched their data; a slow one folds late
@@ -1139,7 +1296,8 @@ class ProtocolContext(TorchContext):
         # they can never arrive, so the barrier stops counting them
         # (the tree's health check runs at each pump, when a tree runs)
         tree = {"poll": self._poll_l1} if self._l1 else {}
-        with self.tracer.span("update_wait", round=round_idx):
+        with self._barrier("update_wait", round_idx,
+                           lambda: ids - fresh_ids() - self._agg_gone):
             if quorum_n:
                 # bounded-staleness version cut at async-quorum fresh
                 # contributions
@@ -1252,6 +1410,25 @@ class ProtocolContext(TorchContext):
             self.log.metric(kind="latency", gen=self._cur_gen,
                             round_idx=round_idx, cluster=plan.cluster_id,
                             **hsnap)
+        if self.fleet is not None:
+            # fleet health at the invocation's end, after the beats still
+            # queued: one kind=fleet record (states, rates, scores and the
+            # counters each client's last beat carried) and a summary line
+            while self._pump_one(timeout=0.0):
+                pass
+            self.fleet.advance()
+            fsnap = self.fleet.snapshot()
+            self.log.metric(kind="fleet", gen=self._cur_gen,
+                            round_idx=round_idx, cluster=plan.cluster_id,
+                            fleet=fsnap)
+            unhealthy = {c: v["state"] for c, v in fsnap["clients"].items()
+                         if v["state"] != "healthy"}
+            line = "fleet: " + " ".join(
+                f"{k}={n}" for k, n in fsnap["counts"].items() if n)
+            if unhealthy:
+                line += " (" + " ".join(
+                    f"{c}:{v}" for c, v in sorted(unhealthy.items())) + ")"
+            self.log.info(line, "yellow" if unhealthy else "cyan")
         # a finished invocation's spans are durable before the next one
         self.tracer.flush()
         return updates
@@ -1261,7 +1438,27 @@ class ProtocolContext(TorchContext):
             self.bus.publish(reply_queue(reg.client_id),
                              encode(Stop(reason=reason)))
         self.log.sent(f"STOP -> all ({reason})")
+        self._drain_after_stop()
         self.tracer.close()
+
+    #: quiet seconds on rpc_queue that end the drain after STOP
+    _STOP_QUIET_S = 0.25
+
+    def _drain_after_stop(self) -> None:
+        """Consume the heartbeats still in flight after STOP (a client
+        stops beating when its STOP arrives), so that nothing the fleet
+        sent is left queued on the broker: the drain ends after
+        :data:`_STOP_QUIET_S` without a frame, or two heartbeat intervals
+        and a second at most."""
+        if self.fleet is None:
+            return
+        end = time.monotonic() + 2 * self.fleet.interval + 1.0
+        try:
+            while (time.monotonic() < end
+                   and self._pump_one(timeout=self._STOP_QUIET_S)):
+                pass
+        except (QueueClosed, ConnectionError, OSError):
+            pass   # the transport went first: nothing left to drain
 
 
 class ProtocolServer:
@@ -1290,22 +1487,117 @@ class ProtocolServer:
                                    client_timeout=client_timeout,
                                    ready_timeout=ready_timeout,
                                    device=device)
+        self.exporter = None
+        # over TCP, the broker shards' stats for /fleet and the broker_*
+        # gauges: refreshed in a thread at most every broker.stats-interval
+        # seconds, so a scrape never waits on a shard's connect
+        self._broker_cache: dict = {"t": 0.0, "stats": None, "busy": False}
+        if cfg.observability.http_port is not None:
+            from split_learning_torch.runtime.telemetry import (
+                TelemetryExporter,
+            )
+            self.exporter = TelemetryExporter(
+                self._metrics_page, self._fleet_page,
+                port=int(cfg.observability.http_port)).start()
+            self.log.info("telemetry: serving /metrics and /fleet on "
+                          f"{self.exporter.url}", "cyan")
+
+    def _refresh_broker_stats(self) -> None:
+        from split_learning_torch.runtime.bus import collect_broker_stats
+        cache, cfg = self._broker_cache, self.cfg
+        try:
+            stats = collect_broker_stats(cfg.transport.host,
+                                         cfg.transport.port,
+                                         cfg.broker.shards)
+            cache["stats"], cache["t"] = stats, time.monotonic()
+            live = [st for st in stats if "error" not in st]
+            g = self.ctx.gauges
+            g.set("broker_shards_up", len(live))
+            for gauge, key in (("broker_conns", "conns"),
+                               ("broker_queues", "queues"),
+                               ("broker_depth", "depth"),
+                               ("broker_depth_hwm", "depth_hwm"),
+                               ("broker_parked_gets", "parked_gets"),
+                               ("broker_bytes_in", "bytes_in"),
+                               ("broker_bytes_out", "bytes_out")):
+                g.set(gauge, sum(st.get(key, 0) for st in live))
+        finally:
+            cache["busy"] = False
+
+    def _broker_stats(self) -> list | None:
+        """The cached shard stats (None off TCP); a stale cache starts a
+        refresh in the background and serves the previous sweep."""
+        cfg = self.cfg
+        if cfg.transport.kind != "tcp" or cfg.broker.stats_interval <= 0:
+            return None
+        cache = self._broker_cache
+        if (time.monotonic() - cache["t"] >= cfg.broker.stats_interval
+                and not cache["busy"]):
+            cache["busy"] = True
+            threading.Thread(target=self._refresh_broker_stats,
+                             daemon=True, name="broker-stats").start()
+        return cache["stats"]
+
+    def _metrics_page(self) -> str:
+        """``/metrics``: the monitor advanced first, so that a scrape in
+        the middle of a barrier sees current states."""
+        from split_learning_torch.runtime.telemetry import render_prometheus
+        ctx = self.ctx
+        if ctx.fleet is not None:
+            ctx.fleet.advance()
+        self._broker_stats()   # refreshes the broker_* gauges
+        return render_prometheus(
+            fleet=ctx.fleet, faults=ctx.faults, wire=ctx.wire,
+            hists=ctx.hists, gauges=ctx.gauges,
+            max_client_series=self.cfg.observability.max_client_series)
+
+    def _fleet_page(self, query: dict | None = None) -> dict:
+        """``/fleet``: the monitor's snapshot (``?full=1``, ``?page=N``,
+        ``?client=ID``; the ring-buffer series only while the tracked
+        clients are within ``max-client-series`` or ``full`` asks), the
+        aggregator tree's shape and, over TCP, the broker shards."""
+        query, ctx = query or {}, self.ctx
+        if ctx.fleet is None:
+            snap = {"clients": {}, "counts": {}, "transitions": []}
+        else:
+            ctx.fleet.advance()
+            full = str(query.get("full", "")) in ("1", "true", "yes")
+            try:
+                page = (None if query.get("page") is None
+                        else int(query["page"]))
+            except (TypeError, ValueError):
+                page = None
+            big = (ctx.fleet.tracked_clients()
+                   > self.cfg.observability.max_client_series)
+            snap = ctx.fleet.snapshot(series=full or not big, page=page,
+                                      client=query.get("client"))
+        if ctx._agg_topology is not None:
+            snap["agg_tree"] = ctx._agg_topology
+        brokers = self._broker_stats()
+        if brokers is not None:
+            snap["brokers"] = brokers
+        return snap
 
     def serve(self, init_params: Any | None = None,
               init_stats: Any | None = None) -> TrainResult:
         """Registration barrier, planning, the round loop, STOP."""
-        regs = self.ctx.wait_for_registrations()
-        with self.ctx.tracer.span("plan"):
-            plans = plan_clusters(self.cfg, regs)
         try:
-            return run_training(self.cfg, self.ctx, plans, self.log,
-                                init_params=init_params,
-                                init_stats=init_stats)
+            regs = self.ctx.wait_for_registrations()
+            with self.ctx.tracer.span("plan"):
+                plans = plan_clusters(self.cfg, regs)
+            self.ctx.exclude([c for p in plans for c in p.rejected])
+            try:
+                return run_training(self.cfg, self.ctx, plans, self.log,
+                                    init_params=init_params,
+                                    init_stats=init_stats)
+            finally:
+                self.ctx.stop_all()
+                self.ctx.shutdown()
+                if self._own_bus:
+                    self.ctx.bus.close()
         finally:
-            self.ctx.stop_all()
-            self.ctx.shutdown()
-            if self._own_bus:
-                self.ctx.bus.close()
+            if self.exporter is not None:
+                self.exporter.close()
 
 
 @dataclasses.dataclass

@@ -19,12 +19,13 @@ tracing plane runs it:
 * :class:`StepTimer` — named wall-clock phase accumulators whose fence
   waits for the CUDA work behind the tensors it is given; the round loop
   writes its summary as ``phases`` in ``kind=round``;
-* :data:`FAULT_COUNTER_NAMES` / :data:`HISTOGRAM_NAMES` — the declared
-  name registries every ``.inc("...")`` and ``.observe("...")`` literal
-  is held to (a typo would silently mint a dead key).
+* :data:`FAULT_COUNTER_NAMES` / :data:`HISTOGRAM_NAMES` /
+  :data:`GAUGE_NAMES` — the declared name registries every
+  ``.inc("...")``, ``.observe("...")`` and ``.set("...")`` literal is
+  held to (a typo would silently mint a dead key); the gauges' registry
+  is ``runtime/telemetry.py``'s ``GaugeSet``.
 
-Not ported: the gauge registry and its ``GaugeSet`` (the live telemetry
-plane) and the profiler capture (``trace`` / ``annotate``).
+Not ported: the profiler capture (``trace`` / ``annotate``).
 """
 
 from __future__ import annotations
@@ -89,6 +90,46 @@ HISTOGRAM_NAMES = frozenset({
     "step_dispatch", "step_device",
     # wall of one contribution's fold into the running sum
     "agg_fold",
+})
+
+#: Declared registry of gauge names (``runtime/telemetry.py``
+#: ``GaugeSet``; the JAX package's set, name for name).  Gauges hold the
+#: last value set: a snapshot reports the current one.
+GAUGE_NAMES = frozenset({
+    # client-side (the hot loops and the heartbeat emitter)
+    "round",           # current round index (set at SYN)
+    "epoch",           # current local epoch within the round
+    "inflight",        # stage-1 1F1B in-flight window depth
+    "samples_per_s",   # EWMA training throughput (emitter tick)
+    # the performance-attribution plane: model-FLOPs utilization, the
+    # last sampled step's wall, peak device bytes, cumulative compile
+    # wall, samples/s over device-busy time
+    "mfu", "step_seconds", "hbm_peak_bytes", "compile_seconds_total",
+    "compute_samples_per_s",
+    # server-side (the FleetMonitor, on every advance)
+    "fleet_size", "fleet_healthy", "fleet_degraded",
+    "fleet_straggler", "fleet_lost",
+    # host bytes pinned by the delta codec's per-client shadow trees
+    "agg_shadow_bytes",
+    # standalone aggregator nodes
+    "agg_node_folded", "agg_node_ingress_bytes",
+    "agg_node_egress_bytes", "agg_node_fold_s", "agg_node_groups",
+    # the closed-loop scheduler
+    "sched_decision_ms", "sched_clusters",
+    # the hierarchical digest roll-up (runtime/sketch.py
+    # DIGEST_GAUGE_NAMES)
+    "fleet_digest_nodes", "fleet_digest_clients", "fleet_watchlist",
+    # the sharded broker plane, swept from the shards' stats queues:
+    # shards answering, and plane-wide sums of connections, live
+    # queues, stored depth (and its high-water mark), parked gets and
+    # wire bytes
+    "broker_shards_up", "broker_conns", "broker_queues",
+    "broker_depth", "broker_depth_hwm", "broker_parked_gets",
+    "broker_bytes_in", "broker_bytes_out",
+    # a later-stage client's ingest backlog, a stage host's slot count
+    "queue_depth", "stage_slots",
+    # the flight recorder's ring depth and last dump's age
+    "blackbox_ring_depth", "blackbox_last_dump_age_s",
 })
 
 

@@ -10,7 +10,9 @@ configured client to register, runs the round loop and sends STOP.
 ``--broker`` hosts the event-loop broker in this process as well (one
 per shard).  The server runs on
 the card; ``--device cpu`` asks for the CPU, and without a GPU and
-without it the process fails at once.
+without it the process fails at once.  With ``observability.http-port``
+set it logs the telemetry exporter's URL (``/metrics`` and ``/fleet``,
+for ``tools/sl_top.py --url``).
 
 Usage::
 
